@@ -1,0 +1,369 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+from the root of a checkout.  In order, it
+
+  1. prints the card's name and power limit (nvidia-smi);
+  2. builds every Hopper kernel from ``src/repro_torch/kernels/csrc`` (one
+     nvcc per source, all at once);
+  3. holds each kernel against its plain PyTorch version at the shapes the
+     main path gives it (``torch.equal``: ring words are exact) and times
+     kernel and plain version;
+  4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
+     through ``PartyPredictionServer`` on the card with the "hopper"
+     backend, and checks that every kernel was launched while serving, that
+     no party aborted, that the opened words, ``per_link()`` and
+     ``totals()`` equal a CPU run of the port with the "torch" backend on
+     the same seed, and that the probabilities are close to a float64
+     numpy forward pass.
+
+Any failure exits nonzero.  The line before the last is a JSON object
+``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
+it exits nonzero and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+# H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth, and the float32
+# CUDA-core rate, which stands in for the integer rate (the data sheet
+# gives none; a 64-bit integer multiply takes several 32-bit instructions,
+# so this rate is an upper bound and the bounds below are optimistic).
+HBM_BYTES_PER_S = 3.35e12
+CUDA_CORE_OPS_PER_S = 67e12
+
+BATCH = 128
+N_BATCHES = 2
+SEED = 11
+# Probabilities of the secure forward pass are fixed point with 13
+# fractional bits, through three truncating matmuls and a Newton-Raphson
+# reciprocal (three iterations): a few 1e-3 at most on the CPU at this
+# seed, so 1e-2 absolute leaves room without hiding a wrong answer.
+PROB_ATOL = 1e-2
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def gpu_name_and_limit() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, match: str | None = None, reps: int = 20) -> float:
+    """Device time per call of `fn` from the profiler's CUDA activity: the
+    kernels whose name contains `match` (every kernel when None)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.key_averages()
+             if match is None or match in e.key)
+    check(us > 0, f"the profiler saw no device time for {match or fn}")
+    return us / reps / 1e3
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def bound(nbytes: int, ops: int) -> tuple:
+    tb = nbytes / HBM_BYTES_PER_S
+    to = ops / CUDA_CORE_OPS_PER_S
+    return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
+
+
+def kernel_phase(rng) -> list:
+    """Each kernel against its plain version at main-path shapes."""
+    import torch
+    from repro_torch.kernels import gamma_parts as GP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prf_mask as PM
+    from repro_torch.kernels import ring_matmul as RM
+
+    dev = torch.device("cuda")
+
+    def words(*shape):
+        return torch.from_numpy(rng.randint(
+            -2**63, 2**63 - 1, size=shape, dtype=np.int64)).to(dev)
+
+    rows = {}
+
+    def row(k, out, ref, timed, plain_ms, nbytes, ops_):
+        """`timed` = (kernel call, name of its CUDA function)."""
+        torch.cuda.synchronize()
+        check(torch.equal(out.cpu(), ref.cpu()),
+              f"{k.name}: kernel disagrees with its plain version")
+        b_ms, b_by = bound(nbytes, ops_)
+        diff = (out.cpu() - ref.cpu()).abs().max().item()
+        rows[k.name] = {
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": 0, "max_abs_err": diff,
+            "ms": device_ms(*timed), "call_ms": cuda_ms(timed[0]),
+            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+    # prf_mask: the largest draw of a batch, a lambda of the (128, 784) X
+    n = BATCH * 784
+    key = int(rng.randint(0, 2**62)) * 4 + 1
+    out = PM.prf_mask_cuda(key, n, 0, dev)
+    ref = PM.prf_mask_plain(key, n, 0, device=dev)
+    row(ops.PRF_MASK, out, ref,
+        (lambda: PM.prf_mask_cuda(key, n, 0, dev), "squares_kernel"),
+        device_ms(lambda: PM.prf_mask_plain(key, n, 0, device=dev)),
+        8 * n, 27 * n)
+
+    # ring_matmul: layer 1's gamma piece, three terms fused on K
+    M, K, N = BATCH, 3 * 784, 128
+    a, b = words(M, K), words(K, N)
+    out = RM.ring_matmul_cuda(a, b)
+    a_c, b_c = a.cpu(), b.cpu()
+    ref = RM.ring_matmul_plain(a_c, b_c)
+    row(ops.RING_MATMUL, out, ref,
+        (lambda: RM.ring_matmul_cuda(a, b), "ring_matmul_kernel"),
+        host_ms(lambda: RM.ring_matmul_plain(a_c, b_c)),
+        8 * (M * K + K * N + M * N), 2 * M * N * K)
+
+    # mpc_matmul_grid: layer 1's online 3x3 grid, (3*128, 784) @ (784, 3*128)
+    M, K, N = 3 * BATCH, 784, 3 * 128
+    a, b = words(M, K), words(K, N)
+    out = RM.ring_matmul_cuda(a, b)
+    a_c, b_c = a.cpu(), b.cpu()
+    ref = RM.ring_matmul_plain(a_c, b_c)
+    row(ops.MPC_MATMUL_GRID, out, ref,
+        (lambda: RM.ring_matmul_cuda(a, b), "ring_matmul_kernel"),
+        host_ms(lambda: RM.ring_matmul_plain(a_c, b_c)),
+        8 * (M * K + K * N + M * N), 2 * M * N * K)
+
+    # mult_terms: P0's three gamma pieces of BitExt's mult on (128, 128);
+    # the online shape (J=3, T=2) and mixed signs are checked too
+    for J, T, signs in ((3, 2, (1, -1)), (3, 3, (1, -1, 1))):
+        a, b, c = words(J, T, 128 * 128), words(J, T, 128 * 128), \
+            words(J, 128 * 128)
+        check(torch.equal(GP.mult_terms_cuda(a, b, c, signs).cpu(),
+                          GP.mult_terms_plain(a, b, c, signs).cpu()),
+              f"mult_terms disagrees at J={J} T={T} signs={signs}")
+    J, T, nn = 3, 3, 128 * 128
+    a, b, c = words(J, T, nn), words(J, T, nn), words(J, nn)
+    sg = (1, 1, 1)
+    row(ops.MULT_TERMS, GP.mult_terms_cuda(a, b, c, sg),
+        GP.mult_terms_plain(a, b, c, sg),
+        (lambda: GP.mult_terms_cuda(a, b, c, sg), "mult_terms_kernel"),
+        device_ms(lambda: GP.mult_terms_plain(a, b, c, sg)),
+        8 * (2 * J * T * nn + 2 * J * nn), 2 * J * T * nn)
+
+    # and_terms: P0's AND gamma pieces in smx's PPA, words of (128, 1)
+    J, T, nn = 3, 3, BATCH
+    a, b, c = words(J, T, nn), words(J, T, nn), words(J, nn)
+    row(ops.AND_TERMS, GP.and_terms_cuda(a, b, c),
+        GP.and_terms_plain(a, b, c),
+        (lambda: GP.and_terms_cuda(a, b, c), "and_terms_kernel"),
+        device_ms(lambda: GP.and_terms_plain(a, b, c)),
+        8 * (2 * J * T * nn + 2 * J * nn), 2 * J * T * nn)
+
+    # 32-bit ring words through the same sources (not on the main path)
+    a32 = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(70, 300),
+                                       dtype=np.int64).astype(np.int32))
+    b32 = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(300, 65),
+                                       dtype=np.int64).astype(np.int32))
+    check(torch.equal(RM.ring_matmul_cuda(a32.to(dev), b32.to(dev)).cpu(),
+                      RM.ring_matmul_plain(a32, b32)),
+          "ring_matmul disagrees on 32-bit words")
+    g32 = [torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=s,
+                                        dtype=np.int64).astype(np.int32))
+           for s in ((2, 3, 1000), (2, 3, 1000), (2, 1000))]
+    g32_dev = [t.to(dev) for t in g32]
+    check(torch.equal(GP.mult_terms_cuda(*g32_dev, (1, -1, 1)).cpu(),
+                      GP.mult_terms_plain(*g32, (1, -1, 1))),
+          "mult_terms disagrees on 32-bit words")
+    check(torch.equal(GP.and_terms_cuda(*g32_dev).cpu(),
+                      GP.and_terms_plain(*g32)),
+          "and_terms disagrees on 32-bit words")
+    return [rows[k.name] for k in ops.KERNELS]
+
+
+def forward_float64(params: dict, X: np.ndarray) -> np.ndarray:
+    """The NN in float64 numpy with relu / (sum relu + 0.01) as smx."""
+    h = X
+    n = len(params)
+    for i in range(n):
+        h = h @ params[f"w{i}"]
+        if i < n - 1:
+            h = np.maximum(h, 0.0)
+    r = np.maximum(h, 0.0)
+    return r / (r.sum(axis=-1, keepdims=True) + 1e-2)
+
+
+def serve(device: str, backend: str, params: dict, net, queries) -> tuple:
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.serve.party_server import PartyPredictionServer
+    from repro_torch.train.paper_ml import mlp_net_predict, params_from_numpy
+
+    enc = params_from_numpy(params, RING64, device)
+    srv = PartyPredictionServer(
+        lambda rt, X: mlp_net_predict(rt, enc, net, X), batch_size=BATCH,
+        seed=SEED, kernel_backend=backend, device=device)
+    for q in queries:
+        srv.submit(q)
+    words = torch.stack(srv.flush())
+    return srv, words
+
+
+def profile_batch(params: dict, net, X, steady_wall_s: float) -> None:
+    """One more served batch under the profiler (CUDA activity): device
+    busy time against the unprofiled steady batch wall, and device time by
+    kernel name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve("cuda", "hopper", params, net, X)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
+    busy_ms = sum(e.device_time_total for e in evs) / 1e3
+    launches = sum(e.count for e in evs)
+    print(f"profiled batch: device busy {busy_ms:.3f} ms in {launches} "
+          f"device ops; wall {wall * 1e3:.1f} ms profiled, "
+          f"{steady_wall_s * 1e3:.1f} ms unprofiled -> busy share "
+          f"{busy_ms / (steady_wall_s * 1e3):.4f} of the unprofiled wall")
+    for e in evs[:12]:
+        print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.configs.paper_models import NN
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import build, ops
+    from repro_torch.train.paper_ml import MLPNet, mlp_net_init
+
+    card = gpu_name_and_limit()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)}")
+
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    rng = np.random.RandomState(SEED)
+    kernels = kernel_phase(rng)
+    for k in kernels:
+        print(f"kernel {k['name']}: {k['ms']:.4f} ms on the device, "
+              f"{k['call_ms']:.4f} ms per wrapper call (plain "
+              f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
+              f"{k['bound_by']}) equal to plain")
+
+    net = MLPNet(NN["features"], NN["layers"])
+    params = mlp_net_init(np.random.RandomState(SEED), net)
+    queries = np.random.RandomState(SEED + 1).randn(N_BATCHES * BATCH,
+                                                    net.features)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    srv, words = serve("cuda", "hopper", params, net, queries)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
+    check(all(n > 0 for n in launches.values()),
+          f"a kernel of the main path was not launched: {launches}")
+    check(not srv.stats.aborted, "a party aborted on the card")
+    for i, w in enumerate(srv.stats.batch_walls_s):
+        print(f"batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} queries/s")
+    print(f"served {srv.stats.queries} queries in {wall:.3f} s: "
+          f"{srv.stats.queries / wall:.1f} queries/s; launches {launches}")
+
+    t0 = time.perf_counter()
+    ref_srv, ref_words = serve("cpu", "torch", params, net, queries)
+    print(f"cpu reference ('torch' backend) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not ref_srv.stats.aborted, "a party aborted on the CPU")
+    check(torch.equal(words.cpu(), ref_words),
+          "opened words differ between the card and the CPU")
+    check(srv.batch_traffic == ref_srv.batch_traffic,
+          "per_link() or totals() differ between the card and the CPU")
+    print(f"words, per_link() and totals() equal to the CPU run; per batch "
+          f"{srv.batch_traffic[0][1]}")
+
+    probs = RING64.decode(words.cpu()).numpy()
+    want = forward_float64(params, queries)
+    err = float(np.abs(probs - want).max())
+    check(probs.shape == want.shape and np.isfinite(probs).all(),
+          "probabilities are not finite or of the wrong shape")
+    check(err <= PROB_ATOL, f"probabilities off by {err} > {PROB_ATOL}")
+    print(f"probabilities within {err:.3e} of the float64 forward pass "
+          f"(tolerance {PROB_ATOL})")
+
+    profile_batch(params, net, queries[:BATCH],
+                  min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s))
+
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except ImportError as exc:
+        print(f"chip_smoke: the port is not importable here ({exc}); run "
+              "from the root of a checkout", file=sys.stderr)
+        sys.exit(2)

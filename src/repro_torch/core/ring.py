@@ -1,0 +1,112 @@
+"""Ring Z_{2^ell} arithmetic and fixed-point encoding on torch tensors.
+
+The counterpart of ``repro/core/ring.py``.  torch has no arithmetic on
+``uint64``/``uint32``, so ring words are stored in the signed type of the
+same width (``int64`` for ell = 64, ``int32`` for ell = 32): add, sub, neg
+and mul wrap mod 2^ell exactly as the unsigned ring does, and the bits are
+the same words.  Two things differ from unsigned storage and are handled
+here:
+
+  * ``>>`` on a signed tensor is arithmetic, so a *logical* right shift
+    (``lshr``, ``Ring.msb``) masks off the sign-extended bits;
+  * a Python constant at or above 2^(ell-1) must become its signed twin
+    (``signed``) before it meets a tensor.
+
+``words_from_numpy`` / ``words_to_numpy`` move words between the JAX
+package's unsigned ndarrays and this package's tensors by a bit-preserving
+``view``, so the tests compare ring words exactly.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+_TORCH = {64: torch.int64, 32: torch.int32}
+_NP_UNSIGNED = {64: np.uint64, 32: np.uint32}
+_NP_SIGNED = {64: np.int64, 32: np.int32}
+
+
+def signed(value: int, ell: int) -> int:
+    """The signed twin of a Python int taken mod 2^ell (same ell bits)."""
+    value &= (1 << ell) - 1
+    return value - (1 << ell) if value >> (ell - 1) else value
+
+
+def width_of(dtype: torch.dtype) -> int:
+    """Ring width of a storage dtype."""
+    for ell, dt in _TORCH.items():
+        if dt == dtype:
+            return ell
+    raise TypeError(f"{dtype} is not a ring storage type")
+
+
+def lshr(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of ring words by a constant k."""
+    if k == 0:
+        return x
+    ell = width_of(x.dtype)
+    return (x >> k) & ((1 << (ell - k)) - 1)
+
+
+def words_from_numpy(a, device=None) -> torch.Tensor:
+    """uint64/uint32 ndarray -> int64/int32 tensor with the same bits."""
+    a = np.ascontiguousarray(a)
+    for ell, udt in _NP_UNSIGNED.items():
+        if a.dtype == udt:
+            t = torch.from_numpy(a.view(_NP_SIGNED[ell]).copy())
+            return t if device is None else t.to(device)
+    raise TypeError(f"{a.dtype} is not an unsigned ring word type")
+
+
+def words_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """int64/int32 tensor -> uint64/uint32 ndarray with the same bits."""
+    ell = width_of(t.dtype)
+    return t.detach().cpu().contiguous().numpy().view(_NP_UNSIGNED[ell])
+
+
+@dataclasses.dataclass(frozen=True)
+class Ring:
+    """Configuration of the algebraic ring + fixed-point embedding."""
+
+    ell: int = 64          # ring bit width (32 or 64)
+    frac: int = 13         # fractional bits of the fixed-point embedding
+
+    def __post_init__(self):
+        if self.ell not in (32, 64):
+            raise ValueError(f"unsupported ring width {self.ell}")
+        if not 0 <= self.frac < self.ell - 1:
+            raise ValueError(f"bad frac {self.frac} for ell {self.ell}")
+
+    # --- dtypes -----------------------------------------------------------
+    @property
+    def dtype(self) -> torch.dtype:
+        return _TORCH[self.ell]
+
+    @property
+    def scale(self) -> int:
+        return 1 << self.frac
+
+    # --- fixed point ------------------------------------------------------
+    def encode(self, x, device=None) -> torch.Tensor:
+        """float -> ring fixed point (round half to even, as jnp.round)."""
+        x = torch.as_tensor(x, dtype=torch.float64, device=device)
+        return torch.round(x * self.scale).to(self.dtype)
+
+    def decode(self, v: torch.Tensor) -> torch.Tensor:
+        """ring fixed point -> float64."""
+        return v.to(torch.float64) / self.scale
+
+    # --- ring ops (wrap mod 2^ell in the storage type) ----------------------
+    def msb(self, a: torch.Tensor) -> torch.Tensor:
+        """Most significant bit (the fixed-point sign) as 0/1 ring element."""
+        return lshr(a, self.ell - 1)
+
+    def truncate(self, a: torch.Tensor, bits: int | None = None):
+        """Arithmetic (sign-preserving) right shift by `bits` (default frac)."""
+        return a >> (self.frac if bits is None else bits)
+
+
+RING64 = Ring(ell=64, frac=13)
+RING32 = Ring(ell=32, frac=13)

@@ -1,0 +1,123 @@
+"""Build and load the hand-written Hopper kernels.
+
+Each CUDA source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
+into a shared library with a plain C interface and loaded with ``ctypes``.
+All sources build at once, one ``nvcc`` process each, into
+``build/repro_torch_kernels/`` at the root of the checkout; a library is
+named by its source's content hash, so an edited source rebuilds and an
+unchanged one loads as it is.  Nothing here runs at import: the CPU tests
+import every module of the package.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().with_name("csrc")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
+    "repro_torch_kernels"
+SOURCES = ("prf_mask", "ring_matmul", "gamma_parts")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                            ctypes.c_uint32, ctypes.c_uint64)
+# C entry points and their argument types (the stream comes last).
+SIGNATURES = {
+    "prf_mask_u64": (_P, _U64, _U64, _I64, _P),
+    "ring_matmul_u64": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "ring_matmul_u32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "mult_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),
+    "mult_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),
+    "and_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _P),
+    "and_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _P),
+}
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found: nvcc is needed to build "
+                           "the Hopper kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _target(name: str) -> Path:
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every source that has no library yet, all in parallel.
+    Returns {source: compiler log} (ptxas register / shared-memory use) for
+    the sources compiled by this call; raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = [n for n in SOURCES if not _target(n).exists()]
+    nvcc = _nvcc()
+    procs = {}
+    for name in todo:
+        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(name)
+        else:
+            os.replace(tmp, _target(name))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(
+            f"{n}.cu:\n{logs[n]}" for n in failed))
+    return logs
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if need be."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        if not _target(name).exists():
+            build_all()
+        lib = ctypes.CDLL(str(_target(name)))
+        for sym, argtypes in SIGNATURES.items():
+            fn = getattr(lib, sym, None)
+            if fn is not None:
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _LIBS[name] = lib
+    return lib
+
+
+def launch(source: str, symbol: str, device, *args) -> None:
+    """Call one C entry point on the current stream of `device`; raise if
+    the launch was refused (the C side returns ``cudaGetLastError()``)."""
+    import torch
+    fn = getattr(library(source), symbol)
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc:
+        raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
+
+
+def check_operands(*tensors) -> None:
+    """The kernels take contiguous ring words of one type on one CUDA
+    device; anything else is refused before a pointer is passed."""
+    first = tensors[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"kernel operands must be CUDA tensors, got "
+                         f"{first.device}")
+    for t in tensors:
+        if t.device != first.device or t.dtype != first.dtype:
+            raise ValueError("kernel operands differ in device or dtype: "
+                             f"{t.device}/{t.dtype} vs "
+                             f"{first.device}/{first.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")

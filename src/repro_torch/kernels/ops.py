@@ -1,0 +1,108 @@
+"""Public wrappers of the Hopper kernels (``repro/kernels/ops.py``).
+
+The runtime's ``"hopper"`` kernel backend calls the kernels only through
+here.  Each wrapper takes its kernel's plain PyTorch version for tensors
+that lie on the CPU, and launches the kernel for CUDA tensors -- it never
+falls back from one to the other.  Each kernel carries a launch count that
+its wrapper raises by one where it launches it, and nowhere else, so a run
+can show that its main path went through the kernels.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .gamma_parts import (and_terms_cuda, and_terms_plain, mult_terms_cuda,
+                          mult_terms_plain)
+from .prf_mask import prf_mask_cuda, prf_mask_plain
+from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
+
+_CSRC = "src/repro_torch/kernels/csrc/"
+
+
+@dataclasses.dataclass
+class Kernel:
+    """One hand-written kernel as a run reports it."""
+
+    name: str
+    source: str            # CUDA source, path in the repo
+    replaces: str          # the TPU (Pallas) kernel, file:line
+    launches: int = 0
+
+
+PRF_MASK = Kernel("prf_mask", _CSRC + "prf_mask.cu",
+                  "src/repro/kernels/prf_mask.py:49")
+RING_MATMUL = Kernel("ring_matmul", _CSRC + "ring_matmul.cu",
+                     "src/repro/kernels/limb_matmul.py:79")
+MPC_MATMUL_GRID = Kernel("mpc_matmul_grid", _CSRC + "ring_matmul.cu",
+                         "src/repro/kernels/mpc_matmul_fused.py:46")
+MULT_TERMS = Kernel("mult_terms", _CSRC + "gamma_parts.cu",
+                    "src/repro/kernels/gamma_parts.py:77")
+AND_TERMS = Kernel("and_terms", _CSRC + "gamma_parts.cu",
+                   "src/repro/kernels/gamma_parts.py:86")
+KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MULT_TERMS, AND_TERMS)
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    return t.device.type == "cpu"
+
+
+def lambda_masks(key64: int, n: int, counter0: int = 0,
+                 device="cpu") -> torch.Tensor:
+    """(n,) int64 words of the squares stream keyed by `key64` (an odd
+    Python int below 2^64), counters counter0 .. counter0 + n - 1."""
+    if torch.device(device).type == "cpu":
+        return prf_mask_plain(key64, n, counter0)
+    out = prf_mask_cuda(key64, n, counter0, device)
+    PRF_MASK.launches += 1
+    return out
+
+
+def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A (M, K) @ B (K, N) mod 2^ell."""
+    if _on_cpu(a):
+        return ring_matmul_plain(a, b)
+    out = ring_matmul_cuda(a, b)
+    RING_MATMUL.launches += 1
+    return out
+
+
+def mpc_matmul_grid(xs, ys) -> list:
+    """All-pairs quadrants [i][j] = xs[i] @ ys[j] mod 2^ell from ONE ring
+    matmul of the row-stacked xs and the column-stacked ys (equal shapes
+    within each list)."""
+    M, N = xs[0].shape[0], ys[0].shape[1]
+    a = torch.cat(list(xs), dim=0)
+    b = torch.cat(list(ys), dim=1)
+    if _on_cpu(a):
+        p = ring_matmul_plain(a, b)
+    else:
+        p = ring_matmul_cuda(a, b)
+        MPC_MATMUL_GRID.launches += 1
+    return [[p[i * M:(i + 1) * M, j * N:(j + 1) * N] for j in range(len(ys))]
+            for i in range(len(xs))]
+
+
+def mult_terms(a, b, c, signs) -> torch.Tensor:
+    """out[j] = sum_t signs[t] * a[j,t] * b[j,t] + c[j] mod 2^ell;
+    a, b: (J, T, n), c: (J, n), signs: length-T tuple of +-1."""
+    if _on_cpu(a):
+        return mult_terms_plain(a, b, c, signs)
+    out = mult_terms_cuda(a, b, c, signs)
+    MULT_TERMS.launches += 1
+    return out
+
+
+def and_terms(a, b, c) -> torch.Tensor:
+    """out[j] = XOR_t (a[j,t] & b[j,t]) ^ c[j] on bit-packed words."""
+    if _on_cpu(a):
+        return and_terms_plain(a, b, c)
+    out = and_terms_cuda(a, b, c)
+    AND_TERMS.launches += 1
+    return out

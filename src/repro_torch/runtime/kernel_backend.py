@@ -1,0 +1,263 @@
+"""Local-compute backends of the party runtime: the kernel seam
+(``repro/runtime/kernel_backend.py``).
+
+Every bilinear local computation a party performs -- gamma pieces offline,
+online m_z' parts, the PRF streams feeding both -- goes through the
+backend ``FourPartyRuntime`` holds:
+
+  * ``TorchKernels`` ("torch"): per-component PyTorch evaluation through
+    the shared algebra, the twin of the JAX package's ``JnpKernels``.  It
+    runs on the CPU only: PyTorch has no integer matmul on CUDA;
+  * ``HopperKernels`` ("hopper", the default): the same math routed
+    through the hand-written kernels (``kernels.ops``), with the JAX
+    package's ``PallasKernels`` batching -- one launch per party per
+    protocol round: a grouped fused multiply-add for Pi_Mult, one ring
+    matmul per gamma piece for Pi_MatMul (its three terms fused on the K
+    axis), a 3x3 all-pairs ring matmul for Pi_MatMul online, the XOR/AND
+    twin for boolean AND levels, and the squares PRF stream in-kernel.  On
+    CPU tensors each wrapper takes its kernel's plain version.
+
+The two backends are bit-identical: ring arithmetic mod 2^ell and XOR/AND
+are exactly associative and commutative, so transcripts, wire bytes and
+outputs do not depend on the backend.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import algebra as AL
+from ..core import prf
+from ..core.ring import lshr
+from ..kernels import ops
+from ..obs import get_registry
+
+
+class TorchKernels:
+    """Per-component PyTorch local compute (the shared-algebra path)."""
+
+    name = "torch"
+
+    # -- PRF streams -------------------------------------------------------
+    def prf_bits(self, key, counter, shape, ring, device):
+        return prf.prf_bits(key, counter, shape, ring, device)
+
+    def prf_bounded(self, key, counter, shape, ring, bits, device):
+        return prf.prf_bounded(key, counter, shape, ring, bits, device)
+
+    # -- arithmetic world (Pi_Mult / Pi_MatMul) ------------------------------
+    def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
+        """{j: gamma piece j} for the pieces in `js`, from this party's
+        lambda component dicts.  `masks[j]` is the zero-share mask."""
+        return {j: AL.gamma_piece(op, j, lam_x, lam_y, mask=masks[j])
+                for j in js}
+
+    def online_parts(self, kind, op, m_x, m_y, lam_x, lam_y, gammas,
+                     lam_zs, js):
+        """(m_x op m_y, {j: online part j}) for this party's parts `js`.
+        `lam_zs[j]` is the additive output mask (-r_j for Pi_MultTr)."""
+        parts = {j: AL.mult_online_part(op, lam_x[j], lam_y[j], m_x, m_y,
+                                        gammas[j], lam_zs[j]) for j in js}
+        return op(m_x, m_y), parts
+
+    # -- boolean world (secure AND / PPA levels) ---------------------------
+    def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
+        out = {}
+        for j in js:
+            acc = None
+            for a, b in AL.GAMMA_TERMS[j]:
+                t = lam_x[a] & lam_y[b]
+                acc = t if acc is None else acc ^ t
+            out[j] = acc ^ masks[j]
+        return out
+
+    def bool_online_parts(self, m_x, m_y, lam_x, lam_y, gammas, lam_zs, js):
+        parts = {j: (lam_x[j] & m_y) ^ (m_x & lam_y[j])
+                 ^ gammas[j] ^ lam_zs[j] for j in js}
+        return m_x & m_y, parts
+
+
+def _flat(shape, *arrs) -> torch.Tensor:
+    """Broadcast each operand to `shape` and flatten: one (len(arrs), n)
+    stack -- the kernels' group layout."""
+    return torch.stack([torch.broadcast_to(a, shape).reshape(-1)
+                        for a in arrs])
+
+
+class HopperKernels(TorchKernels):
+    """Local compute through the hand-written Hopper kernels
+    (``kernels.ops``), bit-identical to ``TorchKernels``."""
+
+    name = "hopper"
+
+    # -- PRF streams: the squares PRF in-kernel ----------------------------
+    def prf_bits(self, key, counter, shape, ring, device):
+        out = ops.lambda_masks(prf.squares_key(key, counter),
+                               AL.numel(shape), device=device)
+        return out.reshape(tuple(shape)).to(ring.dtype)
+
+    def prf_bounded(self, key, counter, shape, ring, bits, device):
+        return lshr(self.prf_bits(key, counter, shape, ring, device),
+                    ring.ell - bits)
+
+    # -- arithmetic world --------------------------------------------------
+    def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
+        terms = {j: AL.GAMMA_TERMS[j] for j in js}
+        p0, q0 = terms[js[0]][0]                     # indices this party holds
+        if kind == "matmul":
+            if lam_x[p0].dim() != 2 or lam_y[q0].dim() != 2:
+                _batched_matmul(lam_x[p0])
+                return super().gamma_pieces(kind, op, lam_x, lam_y, masks,
+                                            js)
+            # sum_t A_t @ B_t == [A_1|A_2|A_3] @ [B_1;B_2;B_3]: one ring
+            # matmul per piece, the three terms fused on the K axis.
+            out = {}
+            for j in js:
+                a = torch.cat([lam_x[p] for p, _ in terms[j]], dim=1)
+                b = torch.cat([lam_y[q] for _, q in terms[j]], dim=0)
+                out[j] = ops.ring_matmul(a, b) + masks[j]
+            return out
+        _elementwise(kind)
+        full = torch.broadcast_shapes(lam_x[p0].shape, lam_y[q0].shape)
+        a = torch.stack([_flat(full, *(lam_x[p] for p, _ in terms[j]))
+                         for j in js])                # (J, 3, n)
+        b = torch.stack([_flat(full, *(lam_y[q] for _, q in terms[j]))
+                         for j in js])
+        c = torch.stack([masks[j].reshape(-1) for j in js])
+        s = ops.mult_terms(a, b, c, (1, 1, 1))
+        return {j: s[k].reshape(masks[j].shape) for k, j in enumerate(js)}
+
+    def online_parts(self, kind, op, m_x, m_y, lam_x, lam_y, gammas,
+                     lam_zs, js):
+        if kind == "matmul":
+            if m_x.dim() != 2 or m_y.dim() != 2:
+                _batched_matmul(m_x)
+                return super().online_parts(kind, op, m_x, m_y, lam_x,
+                                            lam_y, gammas, lam_zs, js)
+            # one 3x3 all-pairs launch: row 0 / column 0 give m_x @ m_y and
+            # the four cross products the two parts need.
+            p = ops.mpc_matmul_grid([m_x] + [lam_x[j] for j in js],
+                                    [m_y] + [lam_y[j] for j in js])
+            parts = {j: gammas[j] + lam_zs[j] - p[k + 1][0] - p[0][k + 1]
+                     for k, j in enumerate(js)}
+            return p[0][0], parts
+        _elementwise(kind)
+        full = torch.broadcast_shapes(m_x.shape, m_y.shape)
+        zero = torch.zeros((), dtype=m_x.dtype, device=m_x.device)
+        a = torch.stack([_flat(full, lam_x[j], m_x) for j in js]
+                        + [_flat(full, m_x, zero)])   # (J+1, 2, n)
+        b = torch.stack([_flat(full, m_y, lam_y[j]) for j in js]
+                        + [_flat(full, m_y, zero)])
+        c = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype,
+                        device=a.device)
+        s = ops.mult_terms(a, b, c, (1, 1))
+        parts = {j: gammas[j] + lam_zs[j] - s[k].reshape(full)
+                 for k, j in enumerate(js)}
+        return s[len(js)].reshape(full), parts
+
+    # -- boolean world -----------------------------------------------------
+    def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
+        terms = {j: AL.GAMMA_TERMS[j] for j in js}
+        p0, q0 = terms[js[0]][0]
+        full = torch.broadcast_shapes(lam_x[p0].shape, lam_y[q0].shape)
+        a = torch.stack([_flat(full, *(lam_x[p] for p, _ in terms[j]))
+                         for j in js])
+        b = torch.stack([_flat(full, *(lam_y[q] for _, q in terms[j]))
+                         for j in js])
+        c = torch.stack([torch.broadcast_to(masks[j], full).reshape(-1)
+                         for j in js])
+        s = ops.and_terms(a, b, c)
+        return {j: s[k].reshape(full) for k, j in enumerate(js)}
+
+    def bool_online_parts(self, m_x, m_y, lam_x, lam_y, gammas, lam_zs, js):
+        full = torch.broadcast_shapes(m_x.shape, m_y.shape)
+        zero = torch.zeros((), dtype=m_x.dtype, device=m_x.device)
+        a = torch.stack([_flat(full, lam_x[j], m_x) for j in js]
+                        + [_flat(full, m_x, zero)])
+        b = torch.stack([_flat(full, m_y, lam_y[j]) for j in js]
+                        + [_flat(full, m_y, zero)])
+        c = torch.stack([torch.broadcast_to(gammas[j] ^ lam_zs[j],
+                                            full).reshape(-1) for j in js]
+                        + [torch.zeros(full, dtype=m_x.dtype,
+                                       device=m_x.device).reshape(-1)])
+        s = ops.and_terms(a, b, c)
+        parts = {j: s[k].reshape(full) for k, j in enumerate(js)}
+        return s[len(js)].reshape(full), parts
+
+
+def _batched_matmul(t: torch.Tensor) -> None:
+    """Batched operands take the per-component path on the CPU; on CUDA
+    there is none (PyTorch has no integer matmul there)."""
+    if t.device.type != "cpu":
+        raise NotImplementedError(
+            "batched (ndim != 2) ring matmul on CUDA: the batched kernel "
+            "comes with the nn/train slice of the port")
+
+
+def _elementwise(kind: str) -> None:
+    if kind != "mul":
+        raise NotImplementedError(f"hopper backend: no {kind!r} kernel path")
+
+
+class MeteredKernels:
+    """Always-on metering proxy: every backend call increments
+    ``trident_kernel_launches_total{kind, backend}`` on the metrics
+    registry.  The kind labels match the JAX package's."""
+
+    def __init__(self, inner, registry=None):
+        self._inner = inner
+        self._reg = registry if registry is not None else get_registry()
+        self._counters: dict = {}
+        self.name = inner.name
+
+    def _count(self, kind: str) -> None:
+        c = self._counters.get(kind)
+        if c is None:
+            c = self._counters[kind] = self._reg.counter(
+                "trident_kernel_launches_total",
+                "kernel-backend launches", kind=kind, backend=self.name)
+        c.inc()
+
+    def prf_bits(self, key, counter, shape, ring, device):
+        self._count("prf_bits")
+        return self._inner.prf_bits(key, counter, shape, ring, device)
+
+    def prf_bounded(self, key, counter, shape, ring, bits, device):
+        self._count("prf_bounded")
+        return self._inner.prf_bounded(key, counter, shape, ring, bits,
+                                       device)
+
+    def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
+        self._count(f"gamma.{kind}")
+        return self._inner.gamma_pieces(kind, op, lam_x, lam_y, masks, js)
+
+    def online_parts(self, kind, op, m_x, m_y, lam_x, lam_y, gammas,
+                     lam_zs, js):
+        self._count(f"online.{kind}")
+        return self._inner.online_parts(kind, op, m_x, m_y, lam_x, lam_y,
+                                        gammas, lam_zs, js)
+
+    def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
+        self._count("gamma.bool")
+        return self._inner.bool_gamma_pieces(lam_x, lam_y, masks, js)
+
+    def bool_online_parts(self, m_x, m_y, lam_x, lam_y, gammas, lam_zs, js):
+        self._count("online.bool")
+        return self._inner.bool_online_parts(m_x, m_y, lam_x, lam_y,
+                                             gammas, lam_zs, js)
+
+
+_BACKENDS = {"torch": TorchKernels, "hopper": HopperKernels}
+
+
+def make_kernel_backend(spec, device: torch.device):
+    """A backend by name ("torch" or "hopper"); an instance passes
+    through.  "torch" refuses a CUDA device."""
+    if not isinstance(spec, str):
+        return spec
+    if spec not in _BACKENDS:
+        raise ValueError(f"unknown kernel backend {spec!r}: expected one of "
+                         f"{sorted(_BACKENDS)}")
+    if spec == "torch" and device.type != "cpu":
+        raise ValueError("the 'torch' kernel backend runs on the CPU only "
+                         "(no integer matmul on CUDA): use 'hopper'")
+    return _BACKENDS[spec]()

@@ -1,0 +1,108 @@
+"""FourPartyRuntime: the party-sliced execution engine
+(``repro/runtime/runtime.py``).
+
+Holds the four ``Party`` objects, the ``Transport``, the kernel backend
+and the statically allocated PRF counter stream.  The counter and tag
+order is the JAX package's, so a runtime seeded like a JAX
+``FourPartyRuntime`` draws bit-identical streams and opens bit-identical
+words.  All ring words live on ``device``: CUDA unless the caller asks
+for the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core.algebra import PARTIES, CheckLedger, all_ok
+from ..core.prf import ThreefryKey
+from ..core.ring import RING64, Ring
+from .kernel_backend import MeteredKernels, make_kernel_backend
+from .party import Party, PartyKeys
+from .transport import LocalTransport, Transport
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` if given, else CUDA;
+    with no device given and no CUDA, refuse rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: pass device='cpu' to "
+                           "run the port on the CPU")
+    return torch.device("cuda")
+
+
+class InlinePrep:
+    """Preprocessing seam: every protocol acquires its data-independent
+    randomness through ``rt.prep.acquire(tag, kind, build)``; inline prep
+    runs ``build()`` here and now, interleaved with the online phase.  (The
+    dealt and online-only modes come with the port of the offline
+    subsystem.)"""
+
+    mode = "inline"
+
+    def acquire(self, tag: str, kind: str, build):
+        return build()
+
+
+class FourPartyRuntime:
+    def __init__(self, ring: Ring = RING64, seed: int = 0,
+                 transport: Transport | None = None,
+                 malicious_checks: bool = True,
+                 bitext_guard: int = 24, bitext_method: str = "mul",
+                 norm_window: tuple = (4, 40),
+                 kernel_backend="hopper", device=None):
+        self.ring = ring
+        self.device = resolve_device(device)
+        self.transport = transport if transport is not None \
+            else LocalTransport()
+        self.malicious_checks = malicious_checks
+        self.prep = InlinePrep()
+        self.kernels = MeteredKernels(
+            make_kernel_backend(kernel_backend, self.device))
+        self.bitext_guard = bitext_guard
+        self.bitext_method = bitext_method
+        self.norm_window = norm_window
+        master = ThreefryKey.from_seed(seed)
+        self.parties = tuple(
+            Party(i, PartyKeys(master, i), CheckLedger()) for i in PARTIES)
+        self._counter = 0
+        self._tagno = 0
+
+    # -- PRF sampling (counter parity with the JAX runtime) -----------------
+    def fresh_counter(self) -> int:
+        c = self._counter
+        self._counter += 1
+        return c
+
+    def sample(self, subset, shape) -> torch.Tensor:
+        """Non-interactive joint sampling by `subset`; the value is derived
+        from a key held by a member party (identical at every member)."""
+        key = self.parties[min(subset)].keys.subset_key(subset)
+        return self.kernels.prf_bits(key, self.fresh_counter(), shape,
+                                     self.ring, self.device)
+
+    def sample_bounded(self, subset, shape, bits: int) -> torch.Tensor:
+        """Joint sampling of values uniform over [0, 2^bits)."""
+        key = self.parties[min(subset)].keys.subset_key(subset)
+        return self.kernels.prf_bounded(key, self.fresh_counter(), shape,
+                                        self.ring, bits, self.device)
+
+    # -- bookkeeping -------------------------------------------------------
+    def next_tag(self, op: str) -> str:
+        self._tagno += 1
+        return f"{op}#{self._tagno}"
+
+    def words(self, v) -> torch.Tensor:
+        """Ring words (already encoded) as a tensor on this runtime's
+        device."""
+        return torch.as_tensor(v).to(device=self.device,
+                                     dtype=self.ring.dtype)
+
+    def encode(self, x) -> torch.Tensor:
+        """Fixed-point encoding on this runtime's device."""
+        return self.ring.encode(x, device=self.device)
+
+    def abort_flag(self) -> bool:
+        """OR over the four parties' check ledgers (any party aborts); the
+        only place the checks are read back from the device."""
+        return not all_ok([c for p in self.parties for c in p.ledger.checks])

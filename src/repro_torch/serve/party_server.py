@@ -1,0 +1,192 @@
+"""Batched secure prediction on the party-sliced runtime
+(``repro/serve/party_server.py``).
+
+Queries are queued by ``submit`` and served by ``flush`` in batches of
+``batch_size`` (the tail batch zero-padded); each batch runs on a fresh
+``FourPartyRuntime`` over a fresh ``LocalTransport``, as a deployment
+provisions fresh offline material per batch, in this process.  The report
+carries the measured wire traffic per batch and per link, and with
+``net_model`` (a ``runtime.net.NetModel``) the modeled LAN/WAN time.
+
+Example -- the paper's NN at full width, on the card::
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.paper_models import NN
+    from repro_torch.core.ring import RING64
+    from repro_torch.serve.party_server import PartyPredictionServer
+    from repro_torch.train.paper_ml import (MLPNet, mlp_net_init,
+                                            mlp_net_predict,
+                                            params_from_numpy)
+
+    net = MLPNet(NN["features"], NN["layers"])
+    params = params_from_numpy(
+        mlp_net_init(np.random.RandomState(0), net), RING64, "cuda")
+    srv = PartyPredictionServer(
+        lambda rt, X: mlp_net_predict(rt, params, net, X), batch_size=128)
+    for x in np.random.RandomState(1).randn(256, 784):
+        srv.submit(x)
+    words = srv.flush()            # opened ring words, one row per query
+    probs = RING64.decode(torch.stack(words))
+    srv.report()                   # measured bits/rounds per batch and link
+
+The JAX package serves through its ``ServingGateway`` pool, with pipelined
+preprocessing and a socket path; those come with later slices of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from ..core.ring import RING64
+from ..obs import get_registry
+from ..runtime.runtime import FourPartyRuntime, resolve_device
+from ..runtime.transport import LocalTransport
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkModel:
+    """Coarse latency model: rounds * rtt + bits / bandwidth (the JAX
+    package's core.costs presets, the paper's Section VI environment)."""
+
+    name: str
+    rtt_s: float
+    bandwidth_bps: float
+
+    def seconds(self, rounds, bits) -> float:
+        return rounds * self.rtt_s + bits / self.bandwidth_bps
+
+
+LAN = NetworkModel("LAN", rtt_s=0.296e-3, bandwidth_bps=1e9)
+WAN = NetworkModel("WAN", rtt_s=274.83e-3, bandwidth_bps=40e6)
+
+
+@dataclasses.dataclass
+class PartyServeStats:
+    batches: int = 0
+    queries: int = 0
+    online_rounds: int = 0
+    online_bits: int = 0
+    offline_bits: int = 0
+    batch_walls_s: list = dataclasses.field(default_factory=list)
+    modeled_s: dict = dataclasses.field(
+        default_factory=lambda: {"offline": 0.0, "online": 0.0})
+    link_online_bits: dict = dataclasses.field(default_factory=dict)
+    aborted: bool = False
+
+    def add_transport(self, tp) -> None:
+        t = tp.totals()
+        self.online_rounds += t["online"]["rounds"]
+        self.online_bits += t["online"]["bits"]
+        self.offline_bits += t["offline"]["bits"]
+        for link, bits in tp.per_link().items():
+            acc = self.link_online_bits.setdefault(link, 0)
+            self.link_online_bits[link] = acc + bits["online"]
+
+    def latency(self, net: NetworkModel) -> float:
+        if self.batches == 0:
+            return 0.0
+        return net.seconds(self.online_rounds / self.batches,
+                           self.online_bits / self.batches)
+
+
+def form_batches(queue: list, batch_size: int) -> list:
+    """Pop `queue` into (X, n) pairs of batch_size rows, zero-padding the
+    tail batch (n = valid rows)."""
+    out = []
+    while queue:
+        take = queue[:batch_size]
+        del queue[:batch_size]
+        n = len(take)
+        X = np.stack(take)
+        pad = batch_size - n
+        if pad:
+            X = np.concatenate([X, np.zeros((pad,) + X.shape[1:])])
+        out.append((X, n))
+    return out
+
+
+class PartyPredictionServer:
+    """``predict_fn(rt, X_batch)`` returns one tensor row per query; each
+    batch runs on a fresh ``FourPartyRuntime`` seeded with ``seed``.
+
+    Runs on CUDA unless ``device`` says otherwise; ``kernel_backend`` is
+    the runtime's ("hopper" by default)."""
+
+    def __init__(self, predict_fn: Callable, batch_size: int = 32,
+                 ring=RING64, seed: int = 0, net_model=None,
+                 kernel_backend="hopper", device=None):
+        self.predict_fn = predict_fn
+        self.batch_size = batch_size
+        self.ring = ring
+        self.seed = seed
+        self.net_model = net_model
+        self.kernel_backend = kernel_backend
+        self.device = resolve_device(device)
+        self.stats = PartyServeStats()
+        # each batch's (per_link(), totals()), in serving order
+        self.batch_traffic: list = []
+        self._queue: list[np.ndarray] = []
+
+    def submit(self, x: np.ndarray) -> None:
+        self._queue.append(np.asarray(x))
+
+    def _run_batch(self, X, n):
+        base = LocalTransport()
+        tp = base
+        if self.net_model is not None:
+            from ..runtime.net import NetModelTransport
+            tp = NetModelTransport(base, self.net_model)
+        t0 = time.perf_counter()
+        rt = FourPartyRuntime(self.ring, seed=self.seed, transport=tp,
+                              kernel_backend=self.kernel_backend,
+                              device=self.device)
+        preds = self.predict_fn(rt, X)[:n].cpu()   # waits for the device
+        aborted = rt.abort_flag()
+        wall = time.perf_counter() - t0
+        self.stats.batch_walls_s.append(wall)
+        self.stats.batches += 1
+        self.stats.queries += n
+        self.stats.add_transport(base)
+        self.batch_traffic.append((base.per_link(), base.totals()))
+        if self.net_model is not None:
+            for phase in ("offline", "online"):
+                self.stats.modeled_s[phase] += tp.seconds(phase)
+        self.stats.aborted = self.stats.aborted or aborted
+        reg = get_registry()
+        reg.counter("trident_serve_queries_total", "queries served").inc(n)
+        reg.counter("trident_serve_batches_total", "batches served").inc()
+        return preds
+
+    def flush(self) -> list:
+        """Serve every queued query; returns one prediction row each."""
+        out: list = []
+        for X, n in form_batches(self._queue, self.batch_size):
+            out.extend(torch.unbind(self._run_batch(X, n)))
+        return out
+
+    def report(self) -> dict:
+        links = {f"P{a}->P{b}": bits for (a, b), bits
+                 in sorted(self.stats.link_online_bits.items())}
+        nb = max(self.stats.batches, 1)
+        out = {
+            "queries": self.stats.queries,
+            "batches": self.stats.batches,
+            "aborted": self.stats.aborted,
+            "online_rounds_per_batch": self.stats.online_rounds / nb,
+            "online_bits_per_batch": self.stats.online_bits / nb,
+            "offline_bits_per_batch": self.stats.offline_bits / nb,
+            "lan_latency_ms": self.stats.latency(LAN) * 1e3,
+            "wan_latency_s": self.stats.latency(WAN),
+            "link_online_bits": links,
+        }
+        if self.net_model is not None:
+            out[f"modeled_{self.net_model.name}_online_s_per_batch"] = \
+                self.stats.modeled_s["online"] / nb
+            out[f"modeled_{self.net_model.name}_offline_s_per_batch"] = \
+                self.stats.modeled_s["offline"] / nb
+        return out

@@ -1,0 +1,55 @@
+"""The hand-written Hopper kernels on the card, each against its plain
+PyTorch version, word for word, on 64- and 32-bit ring words.  They need
+an NVIDIA GPU and skip without one.  This file imports neither jax nor the
+JAX package, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
+        tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import gamma_parts as GP  # noqa: E402
+from repro_torch.kernels import prf_mask as PM  # noqa: E402
+from repro_torch.kernels import ring_matmul as RM  # noqa: E402
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_kernels_equal_plain_on_card(cuda_device):
+    rng = np.random.RandomState(3)
+    for dtype in (torch.int64, torch.int32):
+        info = torch.iinfo(dtype)
+
+        def words(*shape):
+            return torch.from_numpy(rng.randint(
+                info.min, info.max, size=shape, dtype=np.int64)).to(dtype)
+
+        for M, K, N in [(5, 7, 3), (128, 2352, 128), (384, 784, 384),
+                        (70, 300, 65)]:
+            a, b = words(M, K), words(K, N)
+            got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
+            assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), \
+                (dtype, M, K, N)
+        for J, T, n, signs in [(3, 3, 16384, (1, 1, 1)),
+                               (3, 2, 1000, (1, -1)), (1, 3, 5, (-1, 1, -1))]:
+            a, b, c = words(J, T, n), words(J, T, n), words(J, n)
+            dev = [t.to(cuda_device) for t in (a, b, c)]
+            assert torch.equal(GP.mult_terms_cuda(*dev, signs).cpu(),
+                               GP.mult_terms_plain(a, b, c, signs)), \
+                (dtype, J, T, n)
+            assert torch.equal(GP.and_terms_cuda(*dev).cpu(),
+                               GP.and_terms_plain(a, b, c)), (dtype, J, T, n)
+    key = 0x9E3779B97F4A7C15
+    for n, counter0 in [(1, 0), (100352, 0), (1000, 12345)]:
+        assert torch.equal(PM.prf_mask_cuda(key, n, counter0, cuda_device),
+                           PM.prf_mask_plain(key, n, counter0,
+                                             device=cuda_device)), n

@@ -1,0 +1,117 @@
+"""The port's kernel wrappers (repro_torch.kernels.ops) on the CPU, where
+each takes its kernel's plain PyTorch version, against the JAX package's
+Pallas kernels run as its own tests run them (interpret mode), word for
+word, at ragged shapes and both ring widths; plus the routing rules that
+keep a non-CPU tensor off the plain path.  The kernels themselves run only
+on the card (tests/test_torch_cuda.py)."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one intra-op thread, so idle torch threads do not spin
+# beside the JAX tests that share this worker
+torch.set_num_threads(1)
+
+import jax.numpy as jnp  # noqa: E402
+
+import repro.core.ring  # noqa: E402,F401  (turns on jax x64 for uint64 words)
+from repro.kernels import ops as JOPS  # noqa: E402
+from repro_torch.core.ring import words_from_numpy, words_to_numpy  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ring_matmul as RM  # noqa: E402
+
+UNSIGNED = {64: np.uint64, 32: np.uint32}
+
+
+def _words(rng, ell, *shape):
+    return rng.randint(0, 2**ell, size=shape, dtype=np.uint64).astype(
+        UNSIGNED[ell])
+
+
+def _same(got, want) -> bool:
+    want = np.asarray(want)
+    got = words_to_numpy(got)
+    return got.dtype == want.dtype and np.array_equal(got, want)
+
+
+def test_ring_matmul_matches_limb_kernel():
+    for ell in (64, 32):
+        for M, K, N in [(5, 7, 3), (70, 10, 9), (3, 300, 2)]:
+            rng = np.random.RandomState(M + K + N + ell)
+            a, b = _words(rng, ell, M, K), _words(rng, ell, K, N)
+            want = JOPS.ring_matmul(jnp.asarray(a), jnp.asarray(b))
+            got = ops.ring_matmul(words_from_numpy(a), words_from_numpy(b))
+            assert _same(got, want), (ell, M, K, N)
+
+
+def test_mpc_matmul_grid_matches():
+    for ell in (64, 32):
+        rng = np.random.RandomState(ell)
+        xs = [_words(rng, ell, 6, 5) for _ in range(3)]
+        ys = [_words(rng, ell, 5, 4) for _ in range(3)]
+        want = JOPS.mpc_matmul_grid([jnp.asarray(x) for x in xs],
+                                    [jnp.asarray(y) for y in ys])
+        got = ops.mpc_matmul_grid([words_from_numpy(x) for x in xs],
+                                  [words_from_numpy(y) for y in ys])
+        for i in range(3):
+            for j in range(3):
+                assert _same(got[i][j], want[i][j]), (ell, i, j)
+
+
+def test_grouped_terms_match():
+    """mult_terms with signs +-1 and and_terms, (J, T, n) groups."""
+    for ell in (64, 32):
+        for (J, T, n), signs in [((3, 3, 7), (1, 1, 1)),
+                                 ((4, 2, 600), (1, -1)),
+                                 ((1, 3, 512), (-1, 1, -1))]:
+            rng = np.random.RandomState(n + ell)
+            a, b = _words(rng, ell, J, T, n), _words(rng, ell, J, T, n)
+            c = _words(rng, ell, J, n)
+            ja, jb, jc = (jnp.asarray(v) for v in (a, b, c))
+            ta, tb, tc = (words_from_numpy(v) for v in (a, b, c))
+            assert _same(ops.mult_terms(ta, tb, tc, signs),
+                         JOPS.mult_terms(ja, jb, jc, signs)), \
+                (ell, J, T, n, signs)
+            assert _same(ops.and_terms(ta, tb, tc),
+                         JOPS.and_terms(ja, jb, jc)), (ell, J, T, n)
+
+
+def test_lambda_masks_matches_prf_kernel():
+    key64 = (0x243F6A8885A308D3 << 1 | 1) & (2**64 - 1)
+    for n, counter0 in [(7, 0), (513, 0), (1000, 4096)]:
+        want = JOPS.lambda_masks(jnp.asarray([key64], jnp.uint64), n,
+                                 counter0)
+        assert _same(ops.lambda_masks(key64, n, counter0), want), \
+            (n, counter0)
+
+
+def test_wrappers_route_by_device():
+    """CPU tensors take the plain versions and count no launch; a tensor
+    off the CPU goes to the kernel or raises -- here (a meta tensor, no
+    CUDA) it raises before any pointer is passed."""
+    ops.reset_launches()
+    calls = [
+        lambda t: ops.ring_matmul(t, t),
+        lambda t: ops.mpc_matmul_grid([t, t], [t]),
+        lambda t: ops.mult_terms(t[None], t[None], t[:1], (1,) * 4),
+        lambda t: ops.and_terms(t[None], t[None], t[:1]),
+        lambda t: ops.lambda_masks(5, 8, device=t.device),
+    ]
+    for call in calls:
+        call(torch.ones((4, 4), dtype=torch.int64))
+    assert all(k.launches == 0 for k in ops.KERNELS)
+    meta = torch.empty((4, 4), dtype=torch.int64, device="meta")
+    for call in calls:
+        with pytest.raises(ValueError, match="CUDA"):
+            call(meta)
+
+
+def test_k_chunk_covers_k_in_kernel_steps():
+    for M, N, K in [(128, 128, 2352), (384, 384, 784), (128, 10, 128),
+                    (1, 1, 5), (4000, 4000, 64)]:
+        chunk = RM.k_chunk(M, N, K, 264)
+        chunks = -(-K // chunk)
+        tiles = -(-M // RM.TILE) * -(-N // RM.TILE)
+        assert chunk % RM.STEP_K == 0 and chunk >= RM.STEP_K
+        assert (chunks - 1) * chunk < K <= chunks * chunk
+        assert chunks == 1 or tiles * chunks <= 2 * 264

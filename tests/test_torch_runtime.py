@@ -1,0 +1,216 @@
+"""The port's party runtime (repro_torch.runtime) against the JAX runtime,
+protocol by protocol: the same program on the same seed must open the same
+ring words, leave the same share components at every party, move the same
+bits on every link in the same rounds, and agree on the abort flag -- under
+both of the port's kernel backends ("torch", and "hopper" on the CPU, where
+every kernel wrapper takes its plain version).  The JAX reference
+(``kernel_backend="jnp"``) runs once per program."""
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+# tiny shapes: one intra-op thread, so idle torch threads do not spin
+# beside the JAX tests that share this worker
+torch.set_num_threads(1)
+
+from repro.core.ring import RING64 as J64  # noqa: E402
+from repro.runtime import FourPartyRuntime as JRuntime  # noqa: E402
+from repro.runtime import activations as JA  # noqa: E402
+from repro.runtime import boolean as JB  # noqa: E402
+from repro.runtime import conversions as JC  # noqa: E402
+from repro.runtime import protocols as JP  # noqa: E402
+from repro_torch.core.ring import RING64 as T64, words_to_numpy  # noqa: E402
+from repro_torch.runtime import FourPartyRuntime as TRuntime  # noqa: E402
+from repro_torch.runtime import activations as TA  # noqa: E402
+from repro_torch.runtime import boolean as TB  # noqa: E402
+from repro_torch.runtime import conversions as TC  # noqa: E402
+from repro_torch.runtime import protocols as TP  # noqa: E402
+
+SEED = 5
+_rng = np.random.RandomState(2024)
+X1 = _rng.randn(3, 4) * 2.0
+X2 = _rng.randn(3, 4)
+W = _rng.randn(4, 2)
+
+
+def jax_pkg():
+    return types.SimpleNamespace(
+        P=JP, B=JB, C=JC, A=JA,
+        runtime=lambda: JRuntime(J64, seed=SEED, kernel_backend="jnp"),
+        enc=lambda rt, x: rt.ring.encode(x),
+        np=lambda v: np.asarray(v))
+
+
+def torch_pkg(backend):
+    return types.SimpleNamespace(
+        P=TP, B=TB, C=TC, A=TA,
+        runtime=lambda: TRuntime(T64, seed=SEED, kernel_backend=backend,
+                                 device="cpu"),
+        enc=lambda rt, x: rt.encode(x),
+        np=words_to_numpy)
+
+
+def _share(L, rt, x):
+    return L.P.share(rt, L.enc(rt, x))
+
+
+# each program returns (opened {party: words}, share whose views to compare)
+def p_share(L, rt):
+    return L.P.reconstruct(rt, _share(L, rt, X1)), None
+
+
+def p_mult(L, rt):
+    return L.P.reconstruct(rt, L.P.mult(rt, _share(L, rt, X1),
+                                        _share(L, rt, X2))), None
+
+
+def p_mult_tr(L, rt):
+    return L.P.reconstruct(rt, L.P.mult_tr(rt, _share(L, rt, X1),
+                                           _share(L, rt, X2))), None
+
+
+def p_matmul(L, rt):
+    return L.P.reconstruct(rt, L.P.matmul(rt, _share(L, rt, X1),
+                                          _share(L, rt, W))), None
+
+
+def p_matmul_tr(L, rt):
+    return L.P.reconstruct(rt, L.P.matmul_tr(rt, _share(L, rt, X1),
+                                             _share(L, rt, W))), None
+
+
+def p_truncate(L, rt):
+    x = _share(L, rt, X1).mul_public(L.enc(rt, 0.5))
+    return L.P.reconstruct(rt, L.P.truncate_share(rt, x)), None
+
+
+def p_bit_extract(L, rt):
+    b = L.C.bit_extract(rt, _share(L, rt, X1))
+    return L.P.reconstruct(rt, L.P.b2a(rt, b)), b
+
+
+def p_bit_extract_ppa(L, rt):
+    b = L.C.bit_extract(rt, _share(L, rt, X1), method="ppa")
+    return L.P.reconstruct(rt, L.P.b2a(rt, b)), b
+
+
+def p_bit2a(L, rt):
+    b = L.C.bit_extract(rt, _share(L, rt, X2))
+    return L.P.reconstruct(rt, L.C.bit2a(rt, b)), None
+
+
+def p_bit_inject(L, rt):
+    nb = L.C.bit_extract(rt, _share(L, rt, X1)).invert()
+    return L.P.reconstruct(rt, L.C.bit_inject(rt, nb, _share(L, rt, X2))), \
+        None
+
+
+def p_a2b(L, rt):
+    b = L.C.a2b(rt, _share(L, rt, X1))
+    return L.P.reconstruct(rt, L.P.b2a(rt, b)), b
+
+
+def p_and_bshare(L, rt):
+    a = L.C.a2b(rt, _share(L, rt, X1))
+    b = L.C.a2b(rt, _share(L, rt, X2))
+    c = L.B.and_bshare(rt, a, b)
+    return L.P.reconstruct(rt, L.P.b2a(rt, c)), c
+
+
+def p_prefix_or(L, rt):
+    pf = L.B.prefix_or(rt, L.C.a2b(rt, _share(L, rt, X2)))
+    return {}, pf
+
+
+def p_relu(L, rt):
+    return L.P.reconstruct(rt, L.A.relu(rt, _share(L, rt, X1))), None
+
+
+def p_sigmoid(L, rt):
+    return L.P.reconstruct(rt, L.A.sigmoid(rt, _share(L, rt, X1))), None
+
+
+def p_smx_softmax(L, rt):
+    return L.P.reconstruct(rt, L.A.smx_softmax(rt, _share(L, rt, X1))), None
+
+
+GROUPS = {
+    "arithmetic": (p_share, p_mult, p_mult_tr, p_matmul, p_matmul_tr,
+                   p_truncate),
+    "conversions": (p_bit_extract, p_bit_extract_ppa, p_bit2a,
+                    p_bit_inject),
+    "boolean": (p_a2b, p_and_bshare, p_prefix_or),
+    "activations": (p_relu, p_sigmoid, p_smx_softmax),
+}
+
+# plain results the opened words must decode to (13 fractional bits)
+DECODED = {"mult_tr": X1 * X2, "matmul_tr": X1 @ W,
+           "relu": np.maximum(X1, 0.0),
+           "sigmoid": np.clip(X1 + 0.5, 0.0, 1.0)}
+
+
+def run(L, program, tamper=None):
+    rt = L.runtime()
+    if tamper is not None:
+        rt.transport.tamper(**tamper)
+    opened, sh = program(L, rt)
+    views = None
+    if sh is not None:
+        views = [(None if v.m is None else L.np(v.m),
+                  {j: L.np(lv) for j, lv in v.lam.items()})
+                 for v in sh.views]
+    return {"opened": {p: L.np(v) for p, v in opened.items()},
+            "views": views, "per_link": rt.transport.per_link(),
+            "totals": rt.transport.totals(), "abort": bool(rt.abort_flag())}
+
+
+def _same(a, b):
+    return a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _assert_matches(got, want, where):
+    assert got["opened"].keys() == want["opened"].keys(), where
+    for p in want["opened"]:
+        assert _same(got["opened"][p], want["opened"][p]), \
+            f"{where}: P{p} opened"
+    if want["views"] is not None:
+        for i, ((gm, gl), (wm, wl)) in enumerate(zip(got["views"],
+                                                     want["views"])):
+            assert (gm is None) == (wm is None), f"{where}: P{i} m"
+            assert gm is None or _same(gm, wm), f"{where}: P{i} m"
+            assert gl.keys() == wl.keys(), where
+            for j in wl:
+                assert _same(gl[j], wl[j]), f"{where}: P{i} lambda_{j}"
+    assert got["per_link"] == want["per_link"], where
+    assert got["totals"] == want["totals"], where
+    assert got["abort"] is want["abort"] is False, where
+
+
+@pytest.mark.parametrize("group", sorted(GROUPS))
+def test_protocols_match_jax_runtime(group):
+    for program in GROUPS[group]:
+        name = program.__name__[2:]
+        want = run(jax_pkg(), program)
+        for backend in ("torch", "hopper"):
+            got = run(torch_pkg(backend), program)
+            _assert_matches(got, want, f"{name} [{backend}]")
+        if name in DECODED:
+            opened = got["opened"][1].view(np.int64) / 2**13
+            np.testing.assert_allclose(opened, DECODED[name], atol=2e-3,
+                                       err_msg=name)
+
+
+def test_tamper_flips_abort_in_both_packages():
+    for tamper in [
+        {"tag": ".p1", "delta": 9},                  # online part of Pi_Mult
+        {"tag": ".g2", "delta": 1},                  # offline gamma piece
+        {"src": 2, "dst": 1, "tag": ".c1", "delta": 2**63},   # opening
+    ]:
+        want = run(jax_pkg(), p_mult, tamper=tamper)
+        assert want["abort"] is True, tamper
+        for backend in ("torch", "hopper"):
+            got = run(torch_pkg(backend), p_mult, tamper=tamper)
+            assert got["abort"] is True, (tamper, backend)
+            assert got["totals"] == want["totals"], (tamper, backend)
