@@ -13,12 +13,23 @@ from the root of a checkout.  In order, it
      kernel and plain version;
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
-     backend, and checks that every kernel was launched while serving, that
-     no party aborted, that the opened words, ``per_link()`` and
-     ``totals()`` equal a CPU run of the port with the "torch" backend on
-     the same seed, and that the probabilities are close to a float64
-     numpy forward pass.
+     backend, and checks that every kernel of that path was launched while
+     serving, that no party aborted, that the opened words, ``per_link()``
+     and ``totals()`` equal a CPU run of the port with the "torch" backend
+     on the same seed, and that the probabilities are close to a float64
+     numpy forward pass; then profiles one more batch;
+  5. joint path A: serves the same 2 batches through the joint simulation's
+     ``PredictionServer`` (faithful mode, Newton-Raphson division) and
+     checks the kernels of that path launched, no abort, the opened words
+     and ``ServeStats`` equal to a CPU run of the port, the words and
+     ``totals()`` equal to the runtime path's, and the probabilities;
+     then profiles one more joint batch;
+  6. joint path B: one batch on a collapsed context (the
+     ``mpc_matmul_fused`` route): the kernels launched, the words equal to
+     a CPU run, ``totals()`` equal to path A's, and the probabilities.
 
+Each path is driven with the launch counts set to 0 just before it and
+read just after; the kernel rows report the sum over the paths.
 Any failure exits nonzero.  The line before the last is a JSON object
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
@@ -120,7 +131,9 @@ def kernel_phase(rng) -> list:
     """Each kernel against its plain version at main-path shapes."""
     import torch
     from repro_torch.kernels import gamma_parts as GP
+    from repro_torch.kernels import mpc_matmul_fused as MF
     from repro_torch.kernels import ops
+    from repro_torch.kernels import ppa_msb as PPA
     from repro_torch.kernels import prf_mask as PM
     from repro_torch.kernels import ring_matmul as RM
 
@@ -130,10 +143,16 @@ def kernel_phase(rng) -> list:
         return torch.from_numpy(rng.randint(
             -2**63, 2**63 - 1, size=shape, dtype=np.int64)).to(dev)
 
+    def words32(*shape):
+        return torch.from_numpy(rng.randint(
+            -2**31, 2**31 - 1, size=shape, dtype=np.int64).astype(
+                np.int32)).to(dev)
+
     rows = {}
 
     def row(k, out, ref, timed, plain_ms, nbytes, ops_):
-        """`timed` = (kernel call, name of its CUDA function)."""
+        """`timed` = (kernel call, name of its CUDA function, or None for
+        every device operation of the call)."""
         torch.cuda.synchronize()
         check(torch.equal(out.cpu(), ref.cpu()),
               f"{k.name}: kernel disagrees with its plain version")
@@ -204,6 +223,68 @@ def kernel_phase(rng) -> list:
         device_ms(lambda: GP.and_terms_plain(a, b, c)),
         8 * (2 * J * T * nn + 2 * J * nn), 2 * J * T * nn)
 
+    # mpc_matmul_fused: layer 1's collapsed secure matmul, 128x784x128
+    M, K, N = BATCH, 784, 128
+    mm_in = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
+    mm_cpu = [t.cpu() for t in mm_in]
+    out = torch.stack(MF.mpc_matmul_fused_cuda(*mm_in))
+    ref = torch.stack(MF.mpc_matmul_fused_plain(*mm_cpu))
+    row(ops.MPC_MATMUL_FUSED, out, ref,
+        (lambda: MF.mpc_matmul_fused_cuda(*mm_in), "mpc_matmul_fused_kernel"),
+        host_ms(lambda: MF.mpc_matmul_fused_plain(*mm_cpu)),
+        8 * (4 * M * K + 4 * K * N + 3 * M * N),
+        8 * M * N * K + 4 * (M * K + K * N))
+    for M, K, N in ((BATCH, 128, 128), (BATCH, 128, 10)):
+        a = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
+        got = MF.mpc_matmul_fused_cuda(*a)
+        want = MF.mpc_matmul_fused_plain(*(t.cpu() for t in a))
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+              f"mpc_matmul_fused disagrees at {M}x{K}x{N}")
+
+    # and_level: an AND of smx's adder on words of (128, 1); every word of
+    # a 2^20-word level checked and timed beside it
+    def level_inputs(n, make=words):
+        return make(4, n), make(4, n), make(3, n), make(3, n)
+
+    lv = level_inputs(BATCH)
+    row(ops.AND_LEVEL, PPA.and_level_cuda(*lv), PPA.and_level_plain(*lv),
+        (lambda: PPA.and_level_cuda(*lv), "and_level_kernel"),
+        device_ms(lambda: PPA.and_level_plain(*lv)),
+        8 * 18 * BATCH, 30 * BATCH)
+    big = level_inputs(1 << 20)
+    check(torch.equal(PPA.and_level_cuda(*big), PPA.and_level_plain(*big)),
+          "and_level disagrees at n = 2^20")
+    check(torch.equal(PPA.and_level_cuda(*big[:3]),
+                      PPA.and_level_plain(*big[:3])),
+          "and_level disagrees with zero = None (collapsed) at n = 2^20")
+    b_ms, b_by = bound(8 * 18 * (1 << 20), 30 * (1 << 20))
+    rows[ops.AND_LEVEL.name]["at_n_2^20"] = {
+        "ms": device_ms(lambda: PPA.and_level_cuda(*big), "and_level_kernel"),
+        "plain_ms": device_ms(lambda: PPA.and_level_plain(*big)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    lv32 = level_inputs(5000, words32)
+    check(torch.equal(PPA.and_level_cuda(*lv32), PPA.and_level_plain(*lv32)),
+          "and_level disagrees on 32-bit words")
+
+    # ppa_msb: the Sklansky loop over and_level at n = 4096, held against
+    # its plain version and the exact msb(x + y)
+    n, levels = 4096, 7
+    x, y, lamz = words(n), words(n), words(levels, 3, n)
+    zero = torch.stack([lamz[:, 0], lamz[:, 1], lamz[:, 0] ^ lamz[:, 1]],
+                       dim=1)
+
+    def msb_kernel():
+        return PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_cuda)
+
+    exact = ((x + y) >> 63) & 1
+    check(torch.equal(msb_kernel(), exact),
+          "ppa_msb disagrees with the exact msb(x + y)")
+    row(ops.PPA_MSB, msb_kernel(),
+        PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_plain),
+        (msb_kernel, None),
+        device_ms(lambda: PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_plain)),
+        8 * (2 * n + 2 * levels * 3 * n + n), levels * 30 * n)
+
     # 32-bit ring words through the same sources (not on the main path)
     a32 = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(70, 300),
                                        dtype=np.int64).astype(np.int32))
@@ -222,6 +303,12 @@ def kernel_phase(rng) -> list:
     check(torch.equal(GP.and_terms_cuda(*g32_dev).cpu(),
                       GP.and_terms_plain(*g32)),
           "and_terms disagrees on 32-bit words")
+    m32 = (words32(70, 300), words32(3, 70, 300), words32(300, 65),
+           words32(3, 300, 65))
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(
+        MF.mpc_matmul_fused_cuda(*m32),
+        MF.mpc_matmul_fused_plain(*(t.cpu() for t in m32)))),
+        "mpc_matmul_fused disagrees on 32-bit words")
     return [rows[k.name] for k in ops.KERNELS]
 
 
@@ -253,27 +340,95 @@ def serve(device: str, backend: str, params: dict, net, queries) -> tuple:
     return srv, words
 
 
-def profile_batch(params: dict, net, X, steady_wall_s: float) -> None:
-    """One more served batch under the profiler (CUDA activity): device
+def serve_joint(device: str, params: dict, net, queries) -> tuple:
+    """Joint path A: the joint simulation's PredictionServer, faithful
+    mode, Newton-Raphson division (the runtime's program)."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.serve.engine import PredictionServer
+    from repro_torch.train.paper_ml import (mlp_net_predict_joint,
+                                            params_from_numpy)
+
+    enc = params_from_numpy(params, RING64, device)
+    srv = PredictionServer(
+        lambda ctx, X: mlp_net_predict_joint(ctx, enc, net, X),
+        batch_size=BATCH, seed=SEED, device=device)
+    for q in queries:
+        srv.submit(q)
+    words = torch.stack(srv.flush())
+    return srv, words
+
+
+def predict_collapsed(device: str, params: dict, net, X) -> tuple:
+    """Joint path B: one batch on a collapsed context (the entry the JAX
+    package's launch/steps.py uses)."""
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.train.paper_ml import (mlp_net_predict_joint,
+                                            params_from_numpy)
+
+    ctx = make_context(RING64, SEED, collapse=True, device=device)
+    words = mlp_net_predict_joint(
+        ctx, params_from_numpy(params, RING64, device), net, X).cpu()
+    return ctx, words
+
+
+def profile_batch(label: str, run, steady_wall_s: float) -> None:
+    """One more batch (`run()`) under the profiler (CUDA activity): device
     busy time against the unprofiled steady batch wall, and device time by
     kernel name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve("cuda", "hopper", params, net, X)
+        run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     evs = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in evs) / 1e3
     launches = sum(e.count for e in evs)
-    print(f"profiled batch: device busy {busy_ms:.3f} ms in {launches} "
-          f"device ops; wall {wall * 1e3:.1f} ms profiled, "
+    print(f"profiled {label} batch: device busy {busy_ms:.3f} ms in "
+          f"{launches} device ops; wall {wall * 1e3:.1f} ms profiled, "
           f"{steady_wall_s * 1e3:.1f} ms unprofiled -> busy share "
           f"{busy_ms / (steady_wall_s * 1e3):.4f} of the unprofiled wall")
     for e in evs[:12]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+
+
+def drive(path: str, kernels: list, needed: tuple, run):
+    """Run one path with every launch count set to 0 just before it; read
+    the counts just after, add them to the kernel rows, and fail if a
+    kernel of the path was not launched."""
+    import torch
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in ops.KERNELS}
+    for k in kernels:
+        k["launches"] += launches[k["name"]]
+        k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
+    missing = [n for n in needed if launches[n] == 0]
+    check(not missing, f"{path}: kernels of the path not launched: "
+          f"{missing} ({launches})")
+    print(f"{path}: {wall:.3f} s; launches "
+          f"{ {n: c for n, c in launches.items() if c} }")
+    return out, wall
+
+
+def check_probs(path: str, words, want: np.ndarray) -> None:
+    from repro_torch.core.ring import RING64
+    probs = RING64.decode(words.cpu()).numpy()
+    check(probs.shape == want.shape and np.isfinite(probs).all(),
+          f"{path}: probabilities are not finite or of the wrong shape")
+    err = float(np.abs(probs - want).max())
+    check(err <= PROB_ATOL, f"{path}: probabilities off by {err} > "
+          f"{PROB_ATOL}")
+    print(f"{path}: probabilities within {err:.3e} of the float64 forward "
+          f"pass (tolerance {PROB_ATOL})")
 
 
 def main() -> int:
@@ -282,10 +437,10 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     from repro_torch.configs.paper_models import NN
-    from repro_torch.core.ring import RING64
-    from repro_torch.kernels import build, ops
+    from repro_torch.kernels import build
     from repro_torch.train.paper_ml import MLPNet, mlp_net_init
 
+    t_start = time.perf_counter()
     card = gpu_name_and_limit()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -311,47 +466,88 @@ def main() -> int:
     params = mlp_net_init(np.random.RandomState(SEED), net)
     queries = np.random.RandomState(SEED + 1).randn(N_BATCHES * BATCH,
                                                     net.features)
+    want = forward_float64(params, queries)
 
-    ops.reset_launches()
-    t0 = time.perf_counter()
-    srv, words = serve("cuda", "hopper", params, net, queries)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k.name: k.launches for k in ops.KERNELS}
-    for k in kernels:
-        k["launches"] = launches[k["name"]]
-    check(all(n > 0 for n in launches.values()),
-          f"a kernel of the main path was not launched: {launches}")
-    check(not srv.stats.aborted, "a party aborted on the card")
+    # --- the party runtime ----------------------------------------------
+    (srv, words), wall = drive(
+        "runtime", kernels, ("prf_mask", "ring_matmul", "mpc_matmul_grid",
+                             "mult_terms", "and_terms"),
+        lambda: serve("cuda", "hopper", params, net, queries))
+    check(not srv.stats.aborted, "runtime: a party aborted on the card")
     for i, w in enumerate(srv.stats.batch_walls_s):
-        print(f"batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} queries/s")
-    print(f"served {srv.stats.queries} queries in {wall:.3f} s: "
-          f"{srv.stats.queries / wall:.1f} queries/s; launches {launches}")
+        print(f"runtime batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} "
+              f"queries/s")
+    print(f"runtime served {srv.stats.queries} queries in {wall:.3f} s: "
+          f"{srv.stats.queries / wall:.1f} queries/s")
 
     t0 = time.perf_counter()
     ref_srv, ref_words = serve("cpu", "torch", params, net, queries)
-    print(f"cpu reference ('torch' backend) in "
+    print(f"runtime cpu reference ('torch' backend) in "
           f"{time.perf_counter() - t0:.1f} s")
-    check(not ref_srv.stats.aborted, "a party aborted on the CPU")
+    check(not ref_srv.stats.aborted, "runtime: a party aborted on the CPU")
     check(torch.equal(words.cpu(), ref_words),
-          "opened words differ between the card and the CPU")
+          "runtime: opened words differ between the card and the CPU")
     check(srv.batch_traffic == ref_srv.batch_traffic,
-          "per_link() or totals() differ between the card and the CPU")
-    print(f"words, per_link() and totals() equal to the CPU run; per batch "
-          f"{srv.batch_traffic[0][1]}")
-
-    probs = RING64.decode(words.cpu()).numpy()
-    want = forward_float64(params, queries)
-    err = float(np.abs(probs - want).max())
-    check(probs.shape == want.shape and np.isfinite(probs).all(),
-          "probabilities are not finite or of the wrong shape")
-    check(err <= PROB_ATOL, f"probabilities off by {err} > {PROB_ATOL}")
-    print(f"probabilities within {err:.3e} of the float64 forward pass "
-          f"(tolerance {PROB_ATOL})")
-
-    profile_batch(params, net, queries[:BATCH],
+          "runtime: per_link() or totals() differ between the card and the "
+          "CPU")
+    print(f"runtime: words, per_link() and totals() equal to the CPU run; "
+          f"per batch {srv.batch_traffic[0][1]}")
+    check_probs("runtime", words, want)
+    profile_batch("runtime", lambda: serve("cuda", "hopper", params, net,
+                                           queries[:BATCH]),
                   min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s))
 
+    # --- joint path A: faithful joint simulation, served ------------------
+    (jsrv, jwords), wall = drive(
+        "joint_faithful", kernels, ("prf_mask", "ring_matmul", "and_level"),
+        lambda: serve_joint("cuda", params, net, queries))
+    check(not jsrv.stats.aborted, "joint A: the joint world aborted")
+    for i, w in enumerate(jsrv.batch_walls_s):
+        print(f"joint A batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} "
+              f"queries/s")
+    print(f"joint A served {jsrv.stats.queries} queries in {wall:.3f} s: "
+          f"{jsrv.stats.queries / wall:.1f} queries/s")
+    t0 = time.perf_counter()
+    jref_srv, jref_words = serve_joint("cpu", params, net, queries)
+    print(f"joint A cpu reference in {time.perf_counter() - t0:.1f} s")
+    check(torch.equal(jwords.cpu(), jref_words),
+          "joint A: opened words differ between the card and the CPU")
+    stat_keys = ("batches", "queries", "online_rounds", "online_bits",
+                 "offline_bits", "aborted")
+    check(all(getattr(jsrv.stats, f) == getattr(jref_srv.stats, f)
+              for f in stat_keys),
+          "joint A: ServeStats differ between the card and the CPU")
+    check(torch.equal(jwords.cpu(), words.cpu()),
+          "joint A: opened words differ from the runtime path's")
+    check(jsrv.batch_totals == [t for _, t in srv.batch_traffic],
+          "joint A: totals() differ from the runtime path's")
+    print(f"joint A: words and ServeStats equal to the CPU run; words and "
+          f"totals() equal to the runtime path's; per batch "
+          f"{jsrv.batch_totals[0]}")
+    check_probs("joint A", jwords, want)
+    profile_batch("joint A", lambda: serve_joint("cuda", params, net,
+                                                 queries[:BATCH]),
+                  min(jsrv.batch_walls_s[1:] or jsrv.batch_walls_s))
+
+    # --- joint path B: collapsed joint simulation, one batch --------------
+    X = queries[:BATCH]
+    (ctx, cwords), wall = drive(
+        "joint_collapsed", kernels,
+        ("prf_mask", "mpc_matmul_fused", "and_level"),
+        lambda: predict_collapsed("cuda", params, net, X))
+    print(f"joint B batch: {wall * 1e3:.1f} ms, {BATCH / wall:.1f} "
+          f"queries/s (the first collapsed batch)")
+    check(not ctx.abort_flag(), "joint B: the joint world aborted")
+    cref_ctx, cref_words = predict_collapsed("cpu", params, net, X)
+    check(torch.equal(cwords, cref_words),
+          "joint B: opened words differ between the card and the CPU")
+    check(ctx.tally.totals() == cref_ctx.tally.totals()
+          == jsrv.batch_totals[0],
+          "joint B: totals() differ from the CPU run or from path A")
+    print("joint B: words equal to the CPU run; totals() equal to path A")
+    check_probs("joint B", cwords, want[:BATCH])
+
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,2 @@
-"""Ring, PRF and protocol algebra of the port (``repro/core``)."""
+"""Ring, PRF, protocol algebra, and the joint simulation of the four
+parties with its cost tally (``repro/core``)."""

@@ -64,6 +64,22 @@ GAMMA_LOCAL = {1: 3, 2: 1, 3: 2}
 GAMMA_RECV = {1: 2, 2: 3, 3: 1}
 PART_HOLDERS = {1: (3, 2), 2: (1, 3), 3: (2, 1)}
 
+
+def bit_masks(ell: int, level: int) -> tuple:
+    """(boundary_mask, upper_mask) of Sklansky adder level `level`: the top
+    bit of each lower half-block, and every bit of the upper half-blocks."""
+    half = 1 << level
+    block = half * 2
+    boundary = 0
+    upper = 0
+    for pos in range(ell):
+        if pos % block == half - 1:
+            boundary |= 1 << pos
+        if pos % block >= half:
+            upper |= 1 << pos
+    return boundary, upper
+
+
 # Pi_Rec (Fig. 3): component c -> (value sender, hash sender); receiver c.
 REC_ROUTE = {0: (1, 2), 1: (2, 3), 2: (3, 1), 3: (1, 2)}
 

@@ -1,0 +1,149 @@
+"""Trident execution context of the joint simulation: ring + keys + cost
+tally + phase mode + device (``repro/core/context.py``).
+
+A ``TridentContext`` is created per program run (per served batch).  It
+provides:
+
+  * PRF sampling with statically allocated counters, drawn on the context's
+    device through the ``prf_mask`` kernel (``kernels.ops.lambda_masks``):
+    the same squares streams as the JAX package's, word for word;
+  * the communication ``CostTally``;
+  * malicious-security check collection (recompute-and-compare emulation of
+    the paper's hash exchanges, folded into one abort flag);
+  * the offline/online material channel that realizes the paper's
+    offline-online paradigm as twin runs of the same program.
+
+Modes:
+  fused    -- offline + online inlined in one program (default).
+  offline  -- runs only the data-independent part; every protocol pushes its
+              preprocessing material (gamma shares, truncation pairs, ...)
+              into ``materials``.
+  online   -- consumes the materials of an offline run of the *same*
+              program (identical call order), popped by index.
+
+The JAX package's traced-key seam for ``lax.scan`` bodies (``key_override``,
+``scan_keys``) is not ported: no program of this slice scans.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+from ..kernels import ops
+from .algebra import CheckLedger, numel
+from .costs import CostTally
+from .prf import SetupKeys, make_setup_keys, squares_key
+from .ring import RING64, Ring, lshr
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: `device` if given, else CUDA;
+    with no device given and no CUDA, refuse rather than run on the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device available: pass device='cpu' to "
+                           "run the port on the CPU")
+    return torch.device("cuda")
+
+
+@dataclasses.dataclass
+class TridentContext:
+    ring: Ring
+    keys: SetupKeys
+    tally: CostTally
+    mode: str = "fused"                 # fused | offline | online
+    malicious_checks: bool = True
+    # Beyond-paper "component-collapsed" evaluation: the joint simulation
+    # computes reconstructed wire values from collapsed lambda sums (4
+    # matmuls per secure matmul instead of 16).  Identical communication
+    # tallies, other PRF draws (no zero shares), so other words.
+    collapse: bool = False
+    # BitExt (Fig. 19) guard bits: |r| < 2^{ell-1-guard}; correctness holds
+    # for |v| < 2^guard.
+    bitext_guard: int = 24
+    # "mul" = paper-faithful Fig. 19 (constant rounds, guarded r);
+    # "ppa" = robust boolean-PPA msb (log ell rounds, no precondition).
+    bitext_method: str = "mul"
+    # Leading-one window [lo, hi) for the NR reciprocal/rsqrt normalization
+    # (bit positions of the ring); covers reals in [2^{lo-f}, 2^{hi-f}).
+    norm_window: tuple = (4, 40)
+    device: torch.device = torch.device("cpu")
+
+    def __post_init__(self):
+        self._counter = 0
+        self.materials: list[Any] = []
+        self._mat_idx = 0
+        self.ledger = CheckLedger()
+
+    # --- PRF sampling ---------------------------------------------------
+    def fresh_counter(self) -> int:
+        c = self._counter
+        self._counter += 1
+        return c
+
+    def sample(self, subset, shape) -> torch.Tensor:
+        """Non-interactive joint sampling by `subset` (F_setup stream)."""
+        key = squares_key(self.keys.subset_key(subset), self.fresh_counter())
+        out = ops.lambda_masks(key, numel(shape), device=self.device)
+        return out.reshape(tuple(shape)).to(self.ring.dtype)
+
+    def sample_bounded(self, subset, shape, bits: int) -> torch.Tensor:
+        """Uniform over [0, 2^bits) embedded in the ring."""
+        return lshr(self.sample(subset, shape), self.ring.ell - bits)
+
+    # --- ring words on the context's device -------------------------------
+    def words(self, v) -> torch.Tensor:
+        """Ring words (already encoded) as a tensor on this context's
+        device."""
+        return torch.as_tensor(v).to(device=self.device,
+                                     dtype=self.ring.dtype)
+
+    def encode(self, x) -> torch.Tensor:
+        """Fixed-point encoding on this context's device."""
+        return self.ring.encode(x, device=self.device)
+
+    # --- offline/online material channel ---------------------------------
+    def put_material(self, mat) -> None:
+        self.materials.append(mat)
+
+    def get_material(self):
+        mat = self.materials[self._mat_idx]
+        self._mat_idx += 1
+        return mat
+
+    def offer(self, mat):
+        """fused: pass through; offline: record; online: replace with the
+        recorded material."""
+        if self.mode == "fused":
+            return mat
+        if self.mode == "offline":
+            self.put_material(mat)
+            return mat
+        return self.get_material()
+
+    # --- malicious-security checks (shared CheckLedger, algebra.py) -------
+    def check_equal(self, a, b, tag: str = "") -> None:
+        """Emulates a hash-consistency exchange: both senders' copies must
+        agree.  Tampering flips the abort flag."""
+        if not self.malicious_checks:
+            return
+        self.ledger.check_equal(a, b, tag)
+
+    def abort_flag(self) -> bool:
+        """False if all consistency checks passed (continue), True = abort;
+        the only place the checks are read back from the device."""
+        return self.ledger.abort_flag()
+
+
+def make_context(ring: Ring = RING64, seed: int = 0, mode: str = "fused",
+                 malicious_checks: bool = True, device=None,
+                 **kw) -> TridentContext:
+    """A fresh context; on CUDA unless `device` says otherwise (and refused
+    without CUDA when no device is given)."""
+    return TridentContext(ring=ring, keys=make_setup_keys(seed),
+                          tally=CostTally(), mode=mode,
+                          malicious_checks=malicious_checks,
+                          device=resolve_device(device), **kw)

@@ -74,6 +74,28 @@ def subset_id(subset: Iterable[int]) -> int:
     return m
 
 
+class SetupKeys:
+    """F_setup output of the joint simulation: one master key; each subset
+    key is ``fold_in(master, subset_id)``, as the JAX package derives it.
+    The joint simulation holds the master and derives every subset's
+    stream (a party outside subset S could not predict S's stream)."""
+
+    def __init__(self, master: ThreefryKey):
+        self.master = master
+        self._subset: dict = {}
+
+    def subset_key(self, subset: Iterable[int]) -> ThreefryKey:
+        sid = subset_id(subset)
+        key = self._subset.get(sid)
+        if key is None:
+            key = self._subset[sid] = self.master.fold_in(sid)
+        return key
+
+
+def make_setup_keys(seed: int = 0) -> SetupKeys:
+    return SetupKeys(ThreefryKey.from_seed(seed))
+
+
 _GOLDEN = 0x9E3779B97F4A7C15
 
 

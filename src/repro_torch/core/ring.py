@@ -107,6 +107,10 @@ class Ring:
         """Arithmetic (sign-preserving) right shift by `bits` (default frac)."""
         return a >> (self.frac if bits is None else bits)
 
+    def low_bits(self, a: torch.Tensor, bits: int) -> torch.Tensor:
+        """The low `bits` bits of each word."""
+        return a & signed((1 << bits) - 1, self.ell)
+
 
 RING64 = Ring(ell=64, frac=13)
 RING32 = Ring(ell=32, frac=13)

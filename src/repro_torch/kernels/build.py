@@ -19,7 +19,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch_kernels"
-SOURCES = ("prf_mask", "ring_matmul", "gamma_parts")
+SOURCES = ("prf_mask", "ring_matmul", "gamma_parts", "and_level",
+           "mpc_matmul_fused")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -34,6 +35,10 @@ SIGNATURES = {
     "mult_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),
     "and_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _P),
     "and_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _P),
+    "and_level_u64": (_P, _P, _P, _P, _P, _I64, _P),
+    "and_level_u32": (_P, _P, _P, _P, _P, _I64, _P),
+    "mpc_matmul_fused_u64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "mpc_matmul_fused_u32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 _LIBS: dict = {}

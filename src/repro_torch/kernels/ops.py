@@ -15,6 +15,8 @@ import torch
 
 from .gamma_parts import (and_terms_cuda, and_terms_plain, mult_terms_cuda,
                           mult_terms_plain)
+from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
+from .ppa_msb import and_level_cuda, and_level_plain, ppa_msb
 from .prf_mask import prf_mask_cuda, prf_mask_plain
 from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
 
@@ -41,7 +43,16 @@ MULT_TERMS = Kernel("mult_terms", _CSRC + "gamma_parts.cu",
                     "src/repro/kernels/gamma_parts.py:77")
 AND_TERMS = Kernel("and_terms", _CSRC + "gamma_parts.cu",
                    "src/repro/kernels/gamma_parts.py:86")
-KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MULT_TERMS, AND_TERMS)
+MPC_MATMUL_FUSED = Kernel("mpc_matmul_fused", _CSRC + "mpc_matmul_fused.cu",
+                          "src/repro/kernels/mpc_matmul_fused.py:72")
+AND_LEVEL = Kernel("and_level", _CSRC + "and_level.cu",
+                   "src/repro/kernels/ppa_msb.py:43")
+# the msb(x + y) loop (kernels/ppa_msb.py) launching and_level per level;
+# its count is of loop runs on the card, each level also counted by AND_LEVEL
+PPA_MSB = Kernel("ppa_msb", _CSRC + "and_level.cu",
+                 "src/repro/kernels/ppa_msb.py:65")
+KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MPC_MATMUL_FUSED,
+           MULT_TERMS, AND_TERMS, AND_LEVEL, PPA_MSB)
 
 
 def reset_launches() -> None:
@@ -105,4 +116,34 @@ def and_terms(a, b, c) -> torch.Tensor:
         return and_terms_plain(a, b, c)
     out = and_terms_cuda(a, b, c)
     AND_TERMS.launches += 1
+    return out
+
+
+def mpc_matmul_fused(mx, lx, my, ly) -> tuple:
+    """(mx @ my, lx_sum @ my + mx @ ly_sum, lx_sum @ ly_sum) mod 2^ell;
+    mx (M, K), lx (3, M, K), my (K, N), ly (3, K, N)."""
+    if _on_cpu(mx):
+        return mpc_matmul_fused_plain(mx, lx, my, ly)
+    out = mpc_matmul_fused_cuda(mx, lx, my, ly)
+    MPC_MATMUL_FUSED.launches += 1
+    return out
+
+
+def and_level(x, y, lamz, zero=None) -> torch.Tensor:
+    """One boolean AND level on (4, n) share stacks: returns the (4, n)
+    output stack (m_z, lamz); `zero` (3, n) Pi_Zero shares or None."""
+    if _on_cpu(x):
+        return and_level_plain(x, y, lamz, zero)
+    out = and_level_cuda(x, y, lamz, zero)
+    AND_LEVEL.launches += 1
+    return out
+
+
+def msb_of_sum_words(x, y, lamz_levels, zero_levels) -> torch.Tensor:
+    """msb(x + y) of (n,) public words through the Sklansky loop; one
+    ``and_level`` per level, lamz/zero levels (log2(ell) + 1, 3, n)."""
+    if _on_cpu(x):
+        return ppa_msb(x, y, lamz_levels, zero_levels, and_level_plain)
+    out = ppa_msb(x, y, lamz_levels, zero_levels, and_level)
+    PPA_MSB.launches += 1
     return out

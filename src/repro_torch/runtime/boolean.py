@@ -12,26 +12,12 @@ import torch
 
 from ..core import algebra as AL
 from ..core.algebra import (GAMMA_LOCAL, GAMMA_RECV, PARTIES, ZERO_SUBSETS,
-                            lam_holders)
+                            bit_masks, lam_holders)
 from ..core.ring import signed
 from ..obs import traced_protocol
 from .party import DistBShare, PartyBView
 from .protocols import _jmp, _open_parts, _vsh_exchange, _vsh_lam_parts
 from .runtime import FourPartyRuntime
-
-
-def _bit_masks(ell: int, level: int):
-    """(boundary_mask, upper_mask) for Sklansky level `level`."""
-    half = 1 << level
-    block = half * 2
-    boundary = 0
-    upper = 0
-    for pos in range(ell):
-        if pos % block == half - 1:
-            boundary |= 1 << pos
-        if pos % block >= half:
-            upper |= 1 << pos
-    return boundary, upper
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +148,7 @@ def ppa_add(rt: FourPartyRuntime, x: DistBShare, y: DistBShare,
         g = g.xor(p.and_public(1))
     for k in range(int(math.log2(ell))):
         half = 1 << k
-        bnd, upper = _bit_masks(ell, k)
+        bnd, upper = bit_masks(ell, k)
         gb = _smear_left(g.and_public(bnd).shift_left(1), half)
         pb = _smear_left(p.and_public(bnd).shift_left(1), half)
         pu = p.and_public(upper)

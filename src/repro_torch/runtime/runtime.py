@@ -13,22 +13,12 @@ from __future__ import annotations
 import torch
 
 from ..core.algebra import PARTIES, CheckLedger, all_ok
+from ..core.context import resolve_device
 from ..core.prf import ThreefryKey
 from ..core.ring import RING64, Ring
 from .kernel_backend import MeteredKernels, make_kernel_backend
 from .party import Party, PartyKeys
 from .transport import LocalTransport, Transport
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: `device` if given, else CUDA;
-    with no device given and no CUDA, refuse rather than run on the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device available: pass device='cpu' to "
-                           "run the port on the CPU")
-    return torch.device("cuda")
 
 
 class InlinePrep:

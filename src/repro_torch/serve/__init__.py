@@ -1,1 +1,2 @@
-"""Secure prediction serving on the party runtime (``repro/serve``)."""
+"""Secure prediction serving on the joint simulation and the party runtime
+(``repro/serve``)."""

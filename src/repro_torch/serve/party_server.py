@@ -42,27 +42,12 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.costs import LAN, WAN, NetworkModel
 from ..core.ring import RING64
 from ..obs import get_registry
 from ..runtime.runtime import FourPartyRuntime, resolve_device
 from ..runtime.transport import LocalTransport
-
-
-@dataclasses.dataclass(frozen=True)
-class NetworkModel:
-    """Coarse latency model: rounds * rtt + bits / bandwidth (the JAX
-    package's core.costs presets, the paper's Section VI environment)."""
-
-    name: str
-    rtt_s: float
-    bandwidth_bps: float
-
-    def seconds(self, rounds, bits) -> float:
-        return rounds * self.rtt_s + bits / self.bandwidth_bps
-
-
-LAN = NetworkModel("LAN", rtt_s=0.296e-3, bandwidth_bps=1e9)
-WAN = NetworkModel("WAN", rtt_s=274.83e-3, bandwidth_bps=40e6)
+from .engine import form_batches
 
 
 @dataclasses.dataclass
@@ -92,22 +77,6 @@ class PartyServeStats:
             return 0.0
         return net.seconds(self.online_rounds / self.batches,
                            self.online_bits / self.batches)
-
-
-def form_batches(queue: list, batch_size: int) -> list:
-    """Pop `queue` into (X, n) pairs of batch_size rows, zero-padding the
-    tail batch (n = valid rows)."""
-    out = []
-    while queue:
-        take = queue[:batch_size]
-        del queue[:batch_size]
-        n = len(take)
-        X = np.stack(take)
-        pad = batch_size - n
-        if pad:
-            X = np.concatenate([X, np.zeros((pad,) + X.shape[1:])])
-        out.append((X, n))
-    return out
 
 
 class PartyPredictionServer:

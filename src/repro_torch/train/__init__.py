@@ -1,1 +1,2 @@
-"""The paper's ML workloads on the party runtime (``repro/train``)."""
+"""The paper's ML workloads on the party runtime and over the engines
+(``repro/train``)."""

@@ -1,11 +1,14 @@
-"""The paper's NN workload on the party runtime (``repro/train/paper_ml.py``).
+"""The paper's NN workload (``repro/train/paper_ml.py``).
 
-NN: 784-128-128-10, ReLU hidden, smx output (Section VI-A c).  This slice
-of the port carries the network description, its initialisation, the
-carry-over of the JAX package's parameters, and secure prediction -- the
-forward pass of ``mlp_net_fwd`` on the runtime: share X and the weights,
-``matmul_tr`` -> ``relu`` per hidden layer, ``matmul_tr`` -> ``smx_softmax``
-at the output, then open the probabilities.
+NN: 784-128-128-10, ReLU hidden, smx output (Section VI-A c).  The port
+carries the network description, its initialisation, the carry-over of the
+JAX package's parameters, the engine-generic forward pass ``mlp_net_fwd``,
+and secure prediction in two worlds: ``mlp_net_predict`` on the party
+runtime and ``mlp_net_predict_joint`` on the joint simulation.  Both share
+X and then the weights, run ``matmul_tr`` -> ``relu`` per hidden layer and
+``matmul_tr`` -> ``smx`` at the output, and open the probabilities.  (The
+runtime's ``mlp_net_predict`` becomes engine-generic when the runtime's
+engine is ported.)
 """
 from __future__ import annotations
 
@@ -14,7 +17,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core import protocols as PR
+from ..core.context import TridentContext
 from ..core.ring import Ring
+from ..nn.engine import Engine, TridentEngine
 from ..runtime import activations as RA
 from ..runtime import protocols as RT
 from ..runtime.runtime import FourPartyRuntime
@@ -58,3 +64,37 @@ def mlp_net_predict(rt: FourPartyRuntime, params: dict, net: MLPNet,
         z = RT.matmul_tr(rt, h, w)
         h = RA.relu(rt, z) if i < len(ws) - 1 else RA.smx_softmax(rt, z)
     return RT.reconstruct(rt, h)[1]
+
+
+def mlp_net_fwd(eng: Engine, params: dict, net: MLPNet, X):
+    """Returns (probs, caches).  Hidden ReLU; output smx softmax.  `X` and
+    `params` are the engine's tensors."""
+    h = X
+    caches = []
+    n = len(net.dims) - 1
+    for i in range(n):
+        z = eng.matmul(h, params[f"w{i}"])
+        if i < n - 1:
+            a, bit = eng.relu(z)
+            caches.append((h, bit))
+            h = a
+        else:
+            p, csm = eng.softmax(z, axis=-1)
+            caches.append((h, csm))
+            h = p
+    return h, caches
+
+
+def mlp_net_predict_joint(ctx: TridentContext, params: dict, net: MLPNet,
+                          X, nonlinear: str = "newton") -> torch.Tensor:
+    """Secure prediction of one batch on the joint simulation: share X,
+    then the encoded weights (``params_from_numpy``), then ``mlp_net_fwd``
+    on a ``TridentEngine``; returns the opened probabilities as ring words.
+    With nonlinear="newton" this is ``mlp_net_predict``'s program, word
+    for word on the same seed."""
+    eng = TridentEngine(ctx, nonlinear=nonlinear)
+    h = eng.from_plain(X)
+    ws = {f"w{i}": PR.share(ctx, params[f"w{i}"])
+          for i in range(len(net.layers))}
+    p, _ = mlp_net_fwd(eng, ws, net, h)
+    return PR.reconstruct(ctx, p)

@@ -12,6 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import gamma_parts as GP  # noqa: E402
+from repro_torch.kernels import mpc_matmul_fused as MF  # noqa: E402
+from repro_torch.kernels import ppa_msb as PPA  # noqa: E402
 from repro_torch.kernels import prf_mask as PM  # noqa: E402
 from repro_torch.kernels import ring_matmul as RM  # noqa: E402
 
@@ -48,6 +50,31 @@ def test_kernels_equal_plain_on_card(cuda_device):
                 (dtype, J, T, n)
             assert torch.equal(GP.and_terms_cuda(*dev).cpu(),
                                GP.and_terms_plain(a, b, c)), (dtype, J, T, n)
+        for M, K, N in [(5, 37, 3), (128, 784, 128), (128, 128, 10)]:
+            ops_ = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
+            got = MF.mpc_matmul_fused_cuda(*(t.to(cuda_device)
+                                             for t in ops_))
+            for g, w in zip(got, MF.mpc_matmul_fused_plain(*ops_)):
+                assert torch.equal(g.cpu(), w), (dtype, M, K, N)
+        for n in (1, 128, 1000, 1 << 20):
+            x, y, lamz, zero = (words(4, n), words(4, n), words(3, n),
+                                words(3, n))
+            dev = [t.to(cuda_device) for t in (x, y, lamz, zero)]
+            assert torch.equal(PPA.and_level_cuda(*dev).cpu(),
+                               PPA.and_level_plain(x, y, lamz, zero)), n
+            assert torch.equal(PPA.and_level_cuda(*dev[:3]).cpu(),
+                               PPA.and_level_plain(x, y, lamz)), n
+        n = 4096
+        x, y = words(n), words(n)
+        lamz = words(8, 3, n)
+        zero = torch.stack([lamz[:, 0], lamz[:, 1], lamz[:, 0] ^ lamz[:, 1]],
+                           dim=1)
+        dev = [t.to(cuda_device) for t in (x, y, lamz, zero)]
+        got = PPA.ppa_msb(*dev, PPA.and_level_cuda).cpu()
+        assert torch.equal(got, PPA.ppa_msb(x, y, lamz, zero,
+                                            PPA.and_level_plain))
+        ell = torch.iinfo(dtype).bits
+        assert torch.equal(got, ((x + y) >> (ell - 1)) & 1)
     key = 0x9E3779B97F4A7C15
     for n, counter0 in [(1, 0), (100352, 0), (1000, 12345)]:
         assert torch.equal(PM.prf_mask_cuda(key, n, counter0, cuda_device),

@@ -21,10 +21,12 @@ from repro.runtime import protocols as JP  # noqa: E402
 from repro.serve.party_server import (  # noqa: E402
     PartyPredictionServer as JServer)
 from repro.train.paper_ml import MLPNet as JNet, mlp_net_init  # noqa: E402
+from repro_torch.core.context import make_context  # noqa: E402
 from repro_torch.core.ring import RING64 as T64, words_to_numpy  # noqa: E402
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
 from repro_torch.runtime.kernel_backend import (  # noqa: E402
     HopperKernels, make_kernel_backend)
+from repro_torch.serve.engine import PredictionServer  # noqa: E402
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
 from repro_torch.train.paper_ml import (MLPNet, mlp_net_predict,  # noqa: E402
                                         params_from_numpy)
@@ -123,15 +125,26 @@ def test_port_imports_neither_jax_nor_repro():
 
 
 def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
-    """No CUDA and no device given: refuse rather than run on the CPU; the
-    "torch" backend refuses CUDA; a batched ring matmul on a non-CPU
-    device names the slice that brings it."""
+    """No CUDA and no device given: refuse rather than run on the CPU (the
+    party runtime and its server, the joint simulation's context and its
+    server); the "torch" backend refuses CUDA; a batched ring matmul on a
+    non-CPU device names the slice that brings it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FourPartyRuntime(T64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PartyPredictionServer(lambda rt, X: X)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_context(T64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PredictionServer(lambda ctx, X: X)
     assert FourPartyRuntime(T64, device="cpu").device.type == "cpu"
+    assert make_context(T64, device="cpu").device.type == "cpu"
+    srv = PredictionServer(lambda ctx, X: ctx.encode(X), batch_size=2,
+                           device="cpu")
+    for q in np.eye(3):
+        srv.submit(q)
+    assert torch.equal(torch.stack(srv.flush()), T64.encode(np.eye(3)))
     with pytest.raises(ValueError, match="CPU only"):
         make_kernel_backend("torch", torch.device("cuda"))
     lam = {j: torch.empty((2, 3, 3), dtype=torch.int64, device="meta")
