@@ -10,7 +10,17 @@ from the root of a checkout.  In order, it
      nvcc per source, all at once);
   3. holds each kernel against its plain PyTorch version at the shapes the
      main path gives it (``torch.equal``: ring words are exact) and times
-     kernel and plain version;
+     kernel and plain version.  The ring matmul (int8 tensor cores) is also
+     checked on all-ones words with K past one chunk of its exactness
+     bound; its build must not serialize its wgmma (ptxas C7520) and, where
+     cuobjdump exists, its SASS must hold integer GMMA instructions; its
+     bound is given by bytes and by int8 limb-pair operations; its device
+     time is split into a fixed cost a block and a cost a main-loop step;
+     and a cuBLAS int8 GEMM of the stacked limb planes (``torch._int_mm``,
+     B in both layouts) is timed as a yardstick of the int8 stage.  The
+     PRF row times the wrapper the paths call on the main path's largest
+     group (the three lambda streams of the (128, 784) input share) as one
+     grouped launch and as three lone draws;
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
      backend, and checks that every kernel of that path was launched while
@@ -29,7 +39,8 @@ from the root of a checkout.  In order, it
      a CPU run, ``totals()`` equal to path A's, and the probabilities.
 
 Each path is driven with the launch counts set to 0 just before it and
-read just after; the kernel rows report the sum over the paths.
+read just after; the kernel rows report the sum over the paths, and each
+path prints its ``prf_mask`` launches and PRF streams per batch.
 Any failure exits nonzero.  The line before the last is a JSON object
 ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
@@ -48,11 +59,14 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth, and the float32
-# CUDA-core rate, which stands in for the integer rate (the data sheet
-# gives none; a 64-bit integer multiply takes several 32-bit instructions,
-# so this rate is an upper bound and the bounds below are optimistic).
+# H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth; the dense int8
+# tensor-core rate, which bounds the ring matmul's limb-pair products; and
+# the float32 CUDA-core rate, which stands in for the integer rate of the
+# other kernels (the data sheet gives none; a 64-bit integer multiply takes
+# several 32-bit instructions, so this rate is an upper bound and those
+# bounds are optimistic).
 HBM_BYTES_PER_S = 3.35e12
+INT8_TC_OPS_PER_S = 1979e12
 CUDA_CORE_OPS_PER_S = 67e12
 
 BATCH = 128
@@ -96,21 +110,30 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, match: str | None = None, reps: int = 20) -> float:
-    """Device time per call of `fn` from the profiler's CUDA activity: the
-    kernels whose name contains `match` (every kernel when None)."""
+def device_kernels(fn, reps: int = 20, warmup: int = 1) -> dict:
+    """{device function name: device ms per call of `fn`} from the
+    profiler's CUDA activity, after `warmup` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in prof.key_averages()
-             if match is None or match in e.key)
-    check(us > 0, f"the profiler saw no device time for {match or fn}")
-    return us / reps / 1e3
+    return {e.key: e.device_time_total / reps / 1e3
+            for e in prof.key_averages() if e.device_time_total > 0}
+
+
+def device_ms(fn, match: str | None = None, reps: int = 20,
+              warmup: int = 1) -> float:
+    """Device time per call of `fn`: the kernels whose name contains
+    `match` (every kernel when None)."""
+    ms = sum(t for k, t in device_kernels(fn, reps, warmup).items()
+             if match is None or match in k)
+    check(ms > 0, f"the profiler saw no device time for {match or fn}")
+    return ms
 
 
 def host_ms(fn, reps: int = 5) -> float:
@@ -121,14 +144,96 @@ def host_ms(fn, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def bound(nbytes: int, ops: int) -> tuple:
+def bound(nbytes: int, ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S
+          ) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S
-    to = ops / CUDA_CORE_OPS_PER_S
+    to = ops / ops_per_s
     return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
 
-def kernel_phase(rng) -> list:
-    """Each kernel against its plain version at main-path shapes."""
+def ring_matmul_bound(M: int, K: int, N: int) -> dict:
+    """The ring matmul's bound: its bytes (each operand read once, C written
+    once) against its limb-pair int8 operations (36 pairs of 8-bit limbs,
+    2 M N K each) at the tensor-core rate; beside it, the count of 2 M N K
+    64-bit operations at the CUDA-core rate that bounded the earlier
+    native-uint64 kernel."""
+    nbytes = 8 * (M * K + K * N + M * N)
+    b_ms, b_by = bound(nbytes, 36 * 2 * M * N * K, INT8_TC_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_int8_ops": 36 * 2 * M * N * K / INT8_TC_OPS_PER_S
+            * 1e3,
+            "bound_ms_u64_cuda_core": bound(nbytes, 2 * M * N * K)[0]}
+
+
+def ring_matmul_phases(M: int, N: int, K: int, chunk: int, dev) -> dict:
+    """The ring matmul's device time split into a fixed cost per block
+    (staging of the first step, the partial-tile epilogue, the atomic adds)
+    and a cost per 32-word step of its main loop: the main path's grid
+    (same tiles, same number of K chunks) run with 1 to 4 times its steps a
+    block, each result held against torch.matmul, and a line fitted to the
+    times."""
+    import torch
+    from repro_torch.kernels import ring_matmul as RM
+    from repro_torch.kernels.build import launch
+    chunks = -(-K // chunk)
+    main_steps = chunk // RM.STEP_K
+    steps = sorted({1, main_steps, 2 * main_steps, 4 * main_steps})
+    gen = torch.Generator().manual_seed(SEED)
+    times = []
+    for st in steps:
+        kk = chunks * st * RM.STEP_K
+        a = torch.randint(-2**63, 2**63 - 1, (M, kk), dtype=torch.int64,
+                          generator=gen)
+        b = torch.randint(-2**63, 2**63 - 1, (kk, N), dtype=torch.int64,
+                          generator=gen)
+        a_d, b_d = a.to(dev), b.to(dev)
+
+        def run(kk=kk, a_d=a_d, b_d=b_d, st=st):
+            out = torch.zeros((M, N), dtype=torch.int64, device=dev)
+            launch("ring_matmul", "ring_matmul_u64", dev, a_d.data_ptr(),
+                   b_d.data_ptr(), out.data_ptr(), M, N, kk,
+                   st * RM.STEP_K)
+            return out
+
+        check(torch.equal(run().cpu(), RM.ring_matmul_plain(a, b)),
+              f"ring_matmul disagrees at {M}x{kk}x{N}, {st} steps a block")
+        times.append(device_ms(run, "ring_matmul_kernel", reps=50,
+                               warmup=5))
+    slope, fixed = np.polyfit(np.array(steps, float), np.array(times), 1)
+    return {"blocks": -(-M // RM.TILE) * -(-N // RM.TILE) * chunks,
+            "steps_a_block": steps, "ms": times, "fixed_ms": float(fixed),
+            "per_step_ms": float(slope), "main_path_steps": main_steps}
+
+
+def int_mm_yardstick(M: int, K: int, N: int, dev) -> dict:
+    """Yardstick of the int8 stage, never called by the port and not a
+    library call of the same function (none computes a ring matmul): one
+    cuBLAS int8 GEMM of the stacked limb planes, (8M, K) @ (K, 8N), a
+    superset of the 36 limb-pair products.  Timed with B row-major and
+    with B column-major (cuBLAS's "TN" int8 layout), after 10 warm-up
+    calls, with the device functions each call ran."""
+    import torch
+    a8 = torch.randint(-128, 128, (8 * M, K), dtype=torch.int8, device=dev)
+    b8 = torch.randint(-128, 128, (K, 8 * N), dtype=torch.int8, device=dev)
+    out = {"shape": f"{8 * M}x{K}x{8 * N}",
+           "bound_ms_int8_ops": 2 * 64 * M * N * K / INT8_TC_OPS_PER_S
+           * 1e3}
+    for label, b in (("b_row_major", b8),
+                     ("b_col_major", b8.t().contiguous().t())):
+        try:
+            ks = device_kernels(lambda b=b: torch._int_mm(a8, b), reps=50,
+                                warmup=10)
+            out[label] = {"ms": sum(ks.values()),
+                          "kernels": {k[:100]: v for k, v in ks.items()}}
+        except RuntimeError as exc:
+            out[label] = {"ms": None, "error": str(exc)[:200]}
+    return out
+
+
+def kernel_phase(rng, ptxas: dict) -> list:
+    """Each kernel against its plain version at main-path shapes; `ptxas`:
+    {source: compiler lines (registers, spills)} from the build."""
     import torch
     from repro_torch.kernels import gamma_parts as GP
     from repro_torch.kernels import mpc_matmul_fused as MF
@@ -165,37 +270,82 @@ def kernel_phase(rng) -> list:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 
-    # prf_mask: the largest draw of a batch, a lambda of the (128, 784) X
+    # prf_mask: the largest group of a batch, the three lambda streams of
+    # the (128, 784) input share, through the wrapper the paths call
+    # (``ops.lambda_masks_group``: output allocated, one launch, keys
+    # derived on the card, a view per stream); beside it the same three
+    # streams as three lone draws (three groups of one) through the same
+    # wrapper.  A single stream and a mixed group are held against the
+    # plain version too.
     n = BATCH * 784
-    key = int(rng.randint(0, 2**62)) * 4 + 1
-    out = PM.prf_mask_cuda(key, n, 0, dev)
-    ref = PM.prf_mask_plain(key, n, 0, device=dev)
-    row(ops.PRF_MASK, out, ref,
-        (lambda: PM.prf_mask_cuda(key, n, 0, dev), "squares_kernel"),
-        device_ms(lambda: PM.prf_mask_plain(key, n, 0, device=dev)),
-        8 * n, 27 * n)
+    kd = (int(rng.randint(0, 2**32)), int(rng.randint(0, 2**32)))
+    group = [(kd, c, n, 0) for c in range(3)]
+    draws = [(kd, c, (BATCH, 784), 0) for c in range(3)]
 
-    # ring_matmul: layer 1's gamma piece, three terms fused on K
-    M, K, N = BATCH, 3 * 784, 128
-    a, b = words(M, K), words(K, N)
-    out = RM.ring_matmul_cuda(a, b)
-    a_c, b_c = a.cpu(), b.cpu()
-    ref = RM.ring_matmul_plain(a_c, b_c)
-    row(ops.RING_MATMUL, out, ref,
-        (lambda: RM.ring_matmul_cuda(a, b), "ring_matmul_kernel"),
-        host_ms(lambda: RM.ring_matmul_plain(a_c, b_c)),
-        8 * (M * K + K * N + M * N), 2 * M * N * K)
+    def draw_group():
+        return ops.lambda_masks_group(draws, torch.int64, dev)
 
-    # mpc_matmul_grid: layer 1's online 3x3 grid, (3*128, 784) @ (784, 3*128)
-    M, K, N = 3 * BATCH, 784, 3 * 128
-    a, b = words(M, K), words(K, N)
-    out = RM.ring_matmul_cuda(a, b)
-    a_c, b_c = a.cpu(), b.cpu()
-    ref = RM.ring_matmul_plain(a_c, b_c)
-    row(ops.MPC_MATMUL_GRID, out, ref,
-        (lambda: RM.ring_matmul_cuda(a, b), "ring_matmul_kernel"),
-        host_ms(lambda: RM.ring_matmul_plain(a_c, b_c)),
-        8 * (M * K + K * N + M * N), 2 * M * N * K)
+    def draw_lone():
+        return [ops.lambda_masks_group([d], torch.int64, dev) for d in draws]
+
+    row(ops.PRF_MASK, torch.cat([t.reshape(-1) for t in draw_group()]),
+        PM.prf_mask_group_plain(group, torch.int64, dev),
+        (draw_group, "squares_group_kernel"),
+        device_ms(lambda: PM.prf_mask_group_plain(group, torch.int64, dev)),
+        8 * 3 * n, 3 * 27 * n)
+    r = rows[ops.PRF_MASK.name]
+    r["streams_per_launch"] = 3
+    r["ms_per_stream"] = r["ms"] / 3
+    r["call_ms_per_stream"] = r["call_ms"] / 3
+    r["lone_draws_ms_per_stream"] = device_ms(
+        draw_lone, "squares_group_kernel") / 3
+    r["lone_draws_call_ms_per_stream"] = cuda_ms(draw_lone) / 3
+    one = [(kd, 12345, n, 0)]                # a lone draw: a group of one
+    check(torch.equal(
+        PM.prf_mask_group_cuda(one, torch.empty(n, dtype=torch.int64,
+                                                device=dev)),
+        PM.prf_mask_group_plain(one, torch.int64, dev)),
+        "prf_mask disagrees with its plain version on a single stream")
+    for dt in (torch.int64, torch.int32):
+        ell = torch.iinfo(dt).bits
+        mixed = [(kd, 2**32 + c, m, s) for c, (m, s) in enumerate(
+            [(n, 0), (5, ell - 1), (0, 0), (1000, 20), (3, 1), (257, 0),
+             (1, 4), (64, ell - 13)])]
+        out = torch.empty(sum(m for _, _, m, _ in mixed), dtype=dt,
+                          device=dev)
+        check(torch.equal(PM.prf_mask_group_cuda(mixed, out).cpu(),
+                          PM.prf_mask_group_plain(mixed, dt)),
+              f"prf_mask's grouped draw disagrees ({ell}-bit words, "
+              f"shifts, 8 streams)")
+
+    # ring_matmul: layer 1's gamma piece, three terms fused on K; and
+    # mpc_matmul_grid: layer 1's online 3x3 grid, (3*128, 784) @ (784,
+    # 3*128) -- both the int8 tensor-core kernel of ring_matmul.cu
+    for k, (M, K, N) in ((ops.RING_MATMUL, (BATCH, 3 * 784, 128)),
+                         (ops.MPC_MATMUL_GRID, (3 * BATCH, 784, 3 * 128))):
+        a, b = words(M, K), words(K, N)
+        a_c, b_c = a.cpu(), b.cpu()
+        row(k, RM.ring_matmul_cuda(a, b), RM.ring_matmul_plain(a_c, b_c),
+            (lambda: RM.ring_matmul_cuda(a, b), "ring_matmul_kernel"),
+            host_ms(lambda: RM.ring_matmul_plain(a_c, b_c)), 0, 0)
+        r = rows[k.name]
+        r.update(ring_matmul_bound(M, K, N))
+        r["shape"] = f"{M}x{K}x{N}"
+        r["k_chunk"] = RM.k_chunk(M, N, K, RM._sm_count(dev))
+        r["ptxas"] = ptxas.get("ring_matmul", [])
+        r["phases"] = ring_matmul_phases(M, N, K, r["k_chunk"], dev)
+        r["yardstick_int_mm_limb_planes"] = int_mm_yardstick(M, K, N, dev)
+    # all-ones words maximise every limb sum: K past one chunk of the
+    # exactness bound (two chunks meeting by atomicAdd), held against
+    # torch.matmul on the CPU
+    for dt in (torch.int64, torch.int32):
+        K = RM.max_k_chunk(torch.iinfo(dt).bits) + 64
+        a = torch.full((BATCH, K), -1, dtype=dt)
+        b = torch.full((K, 128), -1, dtype=dt)
+        check(torch.equal(RM.ring_matmul_cuda(a.to(dev), b.to(dev)).cpu(),
+                          RM.ring_matmul_plain(a, b)),
+              f"ring_matmul disagrees on all-ones words at K = {K} "
+              f"({dt})")
 
     # mult_terms: P0's three gamma pieces of BitExt's mult on (128, 128);
     # the online shape (J=3, T=2) and mixed signs are checked too
@@ -391,12 +541,26 @@ def profile_batch(label: str, run, steady_wall_s: float) -> None:
           f"{launches} device ops; wall {wall * 1e3:.1f} ms profiled, "
           f"{steady_wall_s * 1e3:.1f} ms unprofiled -> busy share "
           f"{busy_ms / (steady_wall_s * 1e3):.4f} of the unprofiled wall")
-    for e in evs[:12]:
+    for e in evs[:16]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
 
 
-def drive(path: str, kernels: list, needed: tuple, run):
+def tensor_core_instructions(build) -> tuple | None:
+    """(GMMA, IGMMA) counts of warpgroup MMA instructions in ring_matmul's
+    SASS, the integer ones being IGMMA; None where the toolkit has no
+    cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    sass = subprocess.run([cuobjdump, "-sass",
+                           str(build._target("ring_matmul"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    lines = [ln for ln in sass.splitlines() if "GMMA" in ln]
+    return len(lines), sum("IGMMA" in ln for ln in lines)
+
+
+def drive(path: str, kernels: list, needed: tuple, run, batches: int):
     """Run one path with every launch count set to 0 just before it; read
     the counts just after, add them to the kernel rows, and fail if a
     kernel of the path was not launched."""
@@ -411,11 +575,15 @@ def drive(path: str, kernels: list, needed: tuple, run):
     for k in kernels:
         k["launches"] += launches[k["name"]]
         k.setdefault("launches_by_path", {})[path] = launches[k["name"]]
+        if k["name"] == ops.PRF_MASK.name:
+            k.setdefault("streams_by_path", {})[path] = ops.PRF_MASK.streams
     missing = [n for n in needed if launches[n] == 0]
     check(not missing, f"{path}: kernels of the path not launched: "
           f"{missing} ({launches})")
     print(f"{path}: {wall:.3f} s; launches "
           f"{ {n: c for n, c in launches.items() if c} }")
+    print(f"{path}: prf_mask {ops.PRF_MASK.launches / batches:g} launches "
+          f"and {ops.PRF_MASK.streams / batches:g} streams per batch")
     return out, wall
 
 
@@ -449,18 +617,54 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    ptxas = {}
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+                ptxas.setdefault(name, []).append(line.strip())
+    # ptxas note C7520: wgmma serialized, the tensor-core route lost
+    check("C7520" not in logs.get("ring_matmul", ""),
+          "ring_matmul: ptxas serialized its wgmma instructions (C7520)")
+    gmma = tensor_core_instructions(build)
+    if gmma is None:
+        print("ring_matmul: GMMA instructions not counted (no cuobjdump)")
+    else:
+        print(f"ring_matmul: {gmma[0]} GMMA (tensor-core) instructions in "
+              f"the library's SASS, {gmma[1]} of them IGMMA")
+        check(gmma[1] > 0, "ring_matmul: no integer GMMA in its SASS")
 
     rng = np.random.RandomState(SEED)
-    kernels = kernel_phase(rng)
+    kernels = kernel_phase(rng, ptxas)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms on the device, "
               f"{k['call_ms']:.4f} ms per wrapper call (plain "
               f"{k['plain_ms']:.4f} ms, bound {k['bound_ms']:.4f} ms by "
               f"{k['bound_by']}) equal to plain")
+        if "bound_ms_int8_ops" in k:
+            print(f"  {k['shape']}, k_chunk {k['k_chunk']}: bound by bytes "
+                  f"{k['bound_ms_bytes']:.5f} ms, by int8 limb-pair "
+                  f"operations {k['bound_ms_int8_ops']:.5f} ms (64-bit "
+                  f"operations on CUDA cores: "
+                  f"{k['bound_ms_u64_cuda_core']:.5f} ms)")
+            ph = k["phases"]
+            print(f"  phases ({ph['blocks']} blocks): "
+                  f"{ph['fixed_ms']:.5f} ms fixed a block + "
+                  f"{ph['per_step_ms']:.5f} ms a step x "
+                  f"{ph['main_path_steps']} steps on the main path; "
+                  f"steps {ph['steps_a_block']} took "
+                  f"{[round(t, 5) for t in ph['ms']]} ms")
+            y = k["yardstick_int_mm_limb_planes"]
+            print(f"  yardstick torch._int_mm of the stacked limb planes "
+                  f"{y['shape']} (bound {y['bound_ms_int8_ops']:.5f} ms): "
+                  f"B row-major {y['b_row_major']}, B column-major "
+                  f"{y['b_col_major']}")
+        if "streams_per_launch" in k:
+            print(f"  {k['streams_per_launch']} streams a launch: "
+                  f"{k['ms_per_stream']:.5f} ms on the device and "
+                  f"{k['call_ms_per_stream']:.5f} ms of the call per "
+                  f"stream; as lone draws {k['lone_draws_ms_per_stream']:.5f}"
+                  f" ms and {k['lone_draws_call_ms_per_stream']:.5f} ms")
 
     net = MLPNet(NN["features"], NN["layers"])
     params = mlp_net_init(np.random.RandomState(SEED), net)
@@ -472,7 +676,7 @@ def main() -> int:
     (srv, words), wall = drive(
         "runtime", kernels, ("prf_mask", "ring_matmul", "mpc_matmul_grid",
                              "mult_terms", "and_terms"),
-        lambda: serve("cuda", "hopper", params, net, queries))
+        lambda: serve("cuda", "hopper", params, net, queries), N_BATCHES)
     check(not srv.stats.aborted, "runtime: a party aborted on the card")
     for i, w in enumerate(srv.stats.batch_walls_s):
         print(f"runtime batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} "
@@ -500,7 +704,7 @@ def main() -> int:
     # --- joint path A: faithful joint simulation, served ------------------
     (jsrv, jwords), wall = drive(
         "joint_faithful", kernels, ("prf_mask", "ring_matmul", "and_level"),
-        lambda: serve_joint("cuda", params, net, queries))
+        lambda: serve_joint("cuda", params, net, queries), N_BATCHES)
     check(not jsrv.stats.aborted, "joint A: the joint world aborted")
     for i, w in enumerate(jsrv.batch_walls_s):
         print(f"joint A batch {i}: {w * 1e3:.1f} ms, {BATCH / w:.1f} "
@@ -534,7 +738,7 @@ def main() -> int:
     (ctx, cwords), wall = drive(
         "joint_collapsed", kernels,
         ("prf_mask", "mpc_matmul_fused", "and_level"),
-        lambda: predict_collapsed("cuda", params, net, X))
+        lambda: predict_collapsed("cuda", params, net, X), 1)
     print(f"joint B batch: {wall * 1e3:.1f} ms, {BATCH / wall:.1f} "
           f"queries/s (the first collapsed batch)")
     check(not ctx.abort_flag(), "joint B: the joint world aborted")

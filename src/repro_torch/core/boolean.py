@@ -41,11 +41,9 @@ def share_bool(ctx: TridentContext, v, owner: int = 0,
     """Pi_Sh^B: boolean [[.]]-sharing of packed-bit words."""
     nbits = ctx.ring.ell if nbits is None else nbits
     v, mask = ctx.words(v), signed((1 << nbits) - 1, ctx.ring.ell)
-    lams = []
-    for j in (1, 2, 3):
-        subset = PARTIES if owner == j else AL.lam_holders(j)
-        lams.append(ctx.sample(subset, v.shape) & mask)
-    lam = torch.stack(lams)
+    lam = torch.stack(ctx.sample_group(
+        [(PARTIES if owner == j else AL.lam_holders(j), v.shape)
+         for j in (1, 2, 3)])) & mask
     m = (v ^ lam[0] ^ lam[1] ^ lam[2]) & mask
     ctx.tally.add("Pi_Sh^B", "online", rounds=1,
                   bits=3 * nbits * _n(v.shape))
@@ -60,11 +58,9 @@ def vsh_bool(ctx: TridentContext, v, owners=(2, 3),
     """
     nbits = ctx.ring.ell if nbits is None else nbits
     v, mask = ctx.words(v), signed((1 << nbits) - 1, ctx.ring.ell)
-    lams = []
-    for j in (1, 2, 3):
-        subset = PARTIES if j in owners else AL.lam_holders(j)
-        lams.append(ctx.sample(subset, v.shape) & mask)
-    lam = torch.stack(lams)
+    lam = torch.stack(ctx.sample_group(
+        [(PARTIES if j in owners else AL.lam_holders(j), v.shape)
+         for j in (1, 2, 3)])) & mask
     m = (v ^ lam[0] ^ lam[1] ^ lam[2]) & mask
     factor = 2 if 0 in owners else 1
     ctx.tally.add("Pi_vSh^B", phase, rounds=1,
@@ -83,7 +79,11 @@ def reconstruct_bool(ctx: TridentContext, x: BShare,
 # Boolean zero shares + secure AND (the XOR/AND twin of Pi_Mult).
 # ---------------------------------------------------------------------------
 def bool_zero_shares(ctx: TridentContext, shape) -> torch.Tensor:
-    f1, f2, f3 = (ctx.sample(s, shape) for s in AL.ZERO_SUBSETS)
+    return _bool_zero_stack(
+        *ctx.sample_group([(s, shape) for s in AL.ZERO_SUBSETS]))
+
+
+def _bool_zero_stack(f1, f2, f3) -> torch.Tensor:
     return torch.stack([f2 ^ f1, f3 ^ f2, f1 ^ f3])
 
 
@@ -119,18 +119,22 @@ def and_bshare(ctx: TridentContext, x: BShare, y: BShare,
 
     if ctx.mode == "fused":
         # the kernel route: lam_z, then (faithful) the zero shares, in the
-        # JAX package's sampling order; m_z from one fused level
-        lam_z = torch.stack([ctx.sample(AL.lam_holders(j), out_shape)
-                             for j in (1, 2, 3)])
-        zs = None if ctx.collapse else bool_zero_shares(ctx, out_shape)
+        # JAX package's sampling order, as one group of draws; m_z from one
+        # fused level
+        specs = [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]
+        if not ctx.collapse:
+            specs += [(s, out_shape) for s in AL.ZERO_SUBSETS]
+        drawn = ctx.sample_group(specs)
+        lam_z = torch.stack(drawn[:3])
+        zs = None if ctx.collapse else _bool_zero_stack(*drawn[3:])
         ctx.tally.add("Pi_AND", "offline", rounds=1, bits=3 * n_gates)
         data = _and_level(x, y, lam_z, zs, out_shape)
         ctx.tally.add("Pi_AND", "online", rounds=1, bits=3 * n_gates)
         return BShare(data, nbits)
 
     if ctx.mode == "offline":
-        lam_z = torch.stack([ctx.sample(AL.lam_holders(j), out_shape)
-                             for j in (1, 2, 3)])
+        lam_z = torch.stack(ctx.sample_group(
+            [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]))
         if ctx.collapse:
             g = (lx[0] ^ lx[1] ^ lx[2]) & (ly[0] ^ ly[1] ^ ly[2])
             z = torch.zeros_like(g)

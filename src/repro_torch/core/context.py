@@ -5,8 +5,9 @@ A ``TridentContext`` is created per program run (per served batch).  It
 provides:
 
   * PRF sampling with statically allocated counters, drawn on the context's
-    device through the ``prf_mask`` kernel (``kernels.ops.lambda_masks``):
-    the same squares streams as the JAX package's, word for word;
+    device through the ``prf_mask`` kernel (``kernels.ops.lambda_masks_group``,
+    one launch per group of draws): the same squares streams as the JAX
+    package's, word for word;
   * the communication ``CostTally``;
   * malicious-security check collection (recompute-and-compare emulation of
     the paper's hash exchanges, folded into one abort flag);
@@ -32,10 +33,10 @@ from typing import Any
 import torch
 
 from ..kernels import ops
-from .algebra import CheckLedger, numel
+from .algebra import CheckLedger
 from .costs import CostTally
-from .prf import SetupKeys, make_setup_keys, squares_key
-from .ring import RING64, Ring, lshr
+from .prf import SetupKeys, make_setup_keys
+from .ring import RING64, Ring
 
 
 def resolve_device(device=None) -> torch.device:
@@ -86,13 +87,21 @@ class TridentContext:
 
     def sample(self, subset, shape) -> torch.Tensor:
         """Non-interactive joint sampling by `subset` (F_setup stream)."""
-        key = squares_key(self.keys.subset_key(subset), self.fresh_counter())
-        out = ops.lambda_masks(key, numel(shape), device=self.device)
-        return out.reshape(tuple(shape)).to(self.ring.dtype)
+        return self.sample_group([(subset, shape)])[0]
 
     def sample_bounded(self, subset, shape, bits: int) -> torch.Tensor:
         """Uniform over [0, 2^bits) embedded in the ring."""
-        return lshr(self.sample(subset, shape), self.ring.ell - bits)
+        return self.sample_group([(subset, shape, bits)])[0]
+
+    def sample_group(self, specs) -> list:
+        """Several draws, ``(subset, shape)`` or ``(subset, shape, bits)``
+        each, with their counters taken in list order (the words of the
+        same ``sample``/``sample_bounded`` calls in a row), in one
+        ``prf_mask`` launch."""
+        return ops.lambda_masks_group(
+            [(self.keys.subset_key(sp[0]).data, self.fresh_counter(), sp[1],
+              self.ring.ell - sp[2] if len(sp) > 2 else 0) for sp in specs],
+            self.ring.dtype, self.device)
 
     # --- ring words on the context's device -------------------------------
     def words(self, v) -> torch.Tensor:

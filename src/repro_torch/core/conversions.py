@@ -34,11 +34,9 @@ def vsh_arith(ctx: TridentContext, v, owners=(1, 2),
               phase: str = "online") -> AShare:
     ring = ctx.ring
     v = ctx.words(v)
-    lams = []
-    for j in (1, 2, 3):
-        subset = PARTIES if j in owners else AL.lam_holders(j)
-        lams.append(ctx.sample(subset, v.shape))
-    lam = torch.stack(lams)
+    lam = torch.stack(ctx.sample_group(
+        [(PARTIES if j in owners else AL.lam_holders(j), v.shape)
+         for j in (1, 2, 3)]))
     m = v + lam[0] + lam[1] + lam[2]
     factor = 2 if 0 in owners else 1
     ctx.tally.add("Pi_vSh", phase, rounds=1,
@@ -102,8 +100,8 @@ def _mult_lam0(ctx: TridentContext, u: AShare, v_pub: AShare) -> AShare:
     ring = ctx.ring
     out_shape = tuple(torch.broadcast_shapes(u.shape, v_pub.shape))
     if ctx.mode in ("fused", "offline"):
-        lam_z = torch.stack([ctx.sample(AL.lam_holders(j), out_shape)
-                             for j in (1, 2, 3)])
+        lam_z = torch.stack(ctx.sample_group(
+            [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]))
         ctx.offer({"lam_z": lam_z})
     else:
         lam_z = ctx.get_material()["lam_z"]
@@ -238,9 +236,10 @@ def _bit_extract_mul_body(ctx: TridentContext, v: AShare) -> BShare:
     shape = v.shape
     # offline: P1,P2 sample r (guard-bounded, odd -- nonzero), x = msb(r)
     if ctx.mode in ("fused", "offline"):
-        mag = ctx.sample_bounded((1, 2), shape,
-                                 ring.ell - 1 - ctx.bitext_guard)
-        sign = lshr(ctx.sample((1, 2), shape), ring.ell - 1)
+        mag, sign = ctx.sample_group(
+            [((1, 2), shape, ring.ell - 1 - ctx.bitext_guard),
+             ((1, 2), shape)])
+        sign = lshr(sign, ring.ell - 1)
         r = torch.where(sign.bool(), -(mag | 1), mag | 1)
         x_bit = ring.msb(r)
         r_sh = vsh_arith(ctx, r, owners=(1, 2), phase="offline")

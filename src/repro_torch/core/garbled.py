@@ -54,11 +54,9 @@ def recip_circuit_ands(ell: int) -> int:
 def _fresh_ashare(ctx: TridentContext, value: torch.Tensor) -> AShare:
     """Re-share a value produced by a garbled evaluation as [[.]]: the
     Pi_vSh(P3, P0, .) step of Figs. 10/11."""
-    lams = []
-    for j in (1, 2, 3):
-        subset = PARTIES if j in (0, 3) else lam_holders(j)
-        lams.append(ctx.sample(subset, value.shape))
-    lam = torch.stack(lams)
+    lam = torch.stack(ctx.sample_group(
+        [(PARTIES if j in (0, 3) else lam_holders(j), value.shape)
+         for j in (1, 2, 3)]))
     m = value.to(ctx.ring.dtype) + lam[0] + lam[1] + lam[2]
     return AShare(stack_components(m, lam))
 

@@ -45,7 +45,7 @@ def _sum3(t: torch.Tensor) -> torch.Tensor:
 def zero_shares(ctx: TridentContext, shape) -> torch.Tensor:
     """Returns stacked (3, *shape): A, B, Gamma with A+B+Gamma = 0, from
     the streams of ``algebra.ZERO_SUBSETS`` in that order."""
-    f1, f2, f3 = (ctx.sample(s, shape) for s in AL.ZERO_SUBSETS)
+    f1, f2, f3 = ctx.sample_group([(s, shape) for s in AL.ZERO_SUBSETS])
     return torch.stack([f2 - f1, f3 - f2, f1 - f3])
 
 
@@ -55,13 +55,11 @@ def zero_shares(ctx: TridentContext, shape) -> torch.Tensor:
 def share(ctx: TridentContext, v, owner: int = 0) -> AShare:
     ring = ctx.ring
     v = ctx.words(v)
-    lams = []
-    for j in (1, 2, 3):
-        # lambda_{v,j} is sampled by P \ {P_j}, except the owner's own index
-        # which all parties sample together with k_P (Fig. 1).
-        subset = PARTIES if owner == j else AL.lam_holders(j)
-        lams.append(ctx.sample(subset, v.shape))
-    lam = torch.stack(lams)
+    # lambda_{v,j} is sampled by P \ {P_j}, except the owner's own index
+    # which all parties sample together with k_P (Fig. 1).
+    lam = torch.stack(ctx.sample_group(
+        [(PARTIES if owner == j else AL.lam_holders(j), v.shape)
+         for j in (1, 2, 3)]))
     m = v + lam[0] + lam[1] + lam[2]
     ctx.tally.add("Pi_Sh", "online", rounds=1, bits=3 * ring.ell * _n(v.shape))
     return AShare(stack_components(m, lam))
@@ -74,7 +72,7 @@ def ash_by_p0(ctx: TridentContext, v) -> torch.Tensor:
     """Returns stacked (3, *shape) additive shares v1+v2+v3 = v."""
     ring = ctx.ring
     v = ctx.words(v)
-    v1, v2 = (ctx.sample(s, v.shape) for s in AL.ASH_SUBSETS)
+    v1, v2 = ctx.sample_group([(s, v.shape) for s in AL.ASH_SUBSETS])
     v3 = v - v1 - v2                       # P0 sends to P1, P2
     ctx.tally.add("Pi_aSh", "offline", rounds=1,
                   bits=2 * ring.ell * _n(v.shape))
@@ -142,7 +140,7 @@ def _gamma_offline(ctx: TridentContext, lx: torch.Tensor, ly: torch.Tensor,
     lam_x = {j: lx[j - 1] for j in (1, 2, 3)}
     lam_y = {j: ly[j - 1] for j in (1, 2, 3)}
     pieces = {j: AL.gamma_piece(op, j, lam_x, lam_y) for j in (1, 2, 3)}
-    fs = [ctx.sample(s, pieces[1].shape) for s in AL.ZERO_SUBSETS]
+    fs = ctx.sample_group([(s, pieces[1].shape) for s in AL.ZERO_SUBSETS])
     return torch.stack([pieces[j] + fs[a] - fs[b]
                         for j, (a, b) in sorted(AL.GAMMA_MASK_F.items())])
 
@@ -168,8 +166,8 @@ def _mult_like(ctx: TridentContext, x: AShare, y: AShare, name: str,
 
     # ---- offline ----------------------------------------------------------
     if ctx.mode in ("fused", "offline"):
-        lam_z = torch.stack([ctx.sample(AL.lam_holders(j), out_shape)
-                             for j in (1, 2, 3)])
+        lam_z = torch.stack(ctx.sample_group(
+            [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]))
         if fused:
             gamma, (mm, cross) = _fused_gamma(x, y)
         else:
@@ -245,9 +243,9 @@ def _trunc_pair(ctx: TridentContext, shape):
     ``_trunc_pair_check`` after the enclosing parallel-offline scope so the
     aSh overlaps the gamma exchange (Lemma D.2: 2 offline rounds total)."""
     ring = ctx.ring
-    r_j = torch.stack([
-        ctx.sample_bounded(AL.lam_holders(j), shape, ring.ell - TRUNC_GUARD)
-        for j in (1, 2, 3)])
+    r_j = torch.stack(ctx.sample_group(
+        [(AL.lam_holders(j), shape, ring.ell - TRUNC_GUARD)
+         for j in (1, 2, 3)]))
     r_t = ring.truncate(_sum3(r_j))             # arithmetic shift (signed)
     rt_shares = ash_by_p0(ctx, r_t)             # 1 round, 2*ell (offline)
     return r_j, rt_shares

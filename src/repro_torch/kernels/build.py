@@ -28,7 +28,8 @@ _P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                             ctypes.c_uint32, ctypes.c_uint64)
 # C entry points and their argument types (the stream comes last).
 SIGNATURES = {
-    "prf_mask_u64": (_P, _U64, _U64, _I64, _P),
+    "prf_mask_group_u64": (_P, _P, _P),     # out, address of a PrfGroup
+    "prf_mask_group_u32": (_P, _P, _P),
     "ring_matmul_u64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ring_matmul_u32": (_P, _P, _P, _I, _I, _I, _I, _P),
     "mult_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),

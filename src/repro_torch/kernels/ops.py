@@ -13,11 +13,13 @@ import dataclasses
 
 import torch
 
+from ..core.prf import numel as prf_numel
 from .gamma_parts import (and_terms_cuda, and_terms_plain, mult_terms_cuda,
                           mult_terms_plain)
 from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
 from .ppa_msb import and_level_cuda, and_level_plain, ppa_msb
-from .prf_mask import prf_mask_cuda, prf_mask_plain
+from .prf_mask import (MAX_STREAMS, prf_mask_group_cuda,
+                       prf_mask_group_plain)
 from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
 
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -31,6 +33,7 @@ class Kernel:
     source: str            # CUDA source, path in the repo
     replaces: str          # the TPU (Pallas) kernel, file:line
     launches: int = 0
+    streams: int = 0       # prf_mask: PRF streams its launches drew
 
 
 PRF_MASK = Kernel("prf_mask", _CSRC + "prf_mask.cu",
@@ -57,21 +60,39 @@ KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MPC_MATMUL_FUSED,
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = 0
+        k.launches = k.streams = 0
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def lambda_masks(key64: int, n: int, counter0: int = 0,
-                 device="cpu") -> torch.Tensor:
-    """(n,) int64 words of the squares stream keyed by `key64` (an odd
-    Python int below 2^64), counters counter0 .. counter0 + n - 1."""
+def lambda_masks_group(streams, dtype: torch.dtype,
+                       device="cpu") -> list:
+    """The protocols' PRF draws, one launch per MAX_STREAMS streams.
+    `streams`: (key_data, counter, shape, shift) each -- the subset key's
+    two uint32 words, the protocol counter, the shape and the logical right
+    shift of each word; returns one tensor of ring words (`dtype`) per
+    stream, views of one buffer."""
+    flat = [(kd, ctr, prf_numel(shape), shift)
+            for kd, ctr, shape, shift in streams]
     if torch.device(device).type == "cpu":
-        return prf_mask_plain(key64, n, counter0)
-    out = prf_mask_cuda(key64, n, counter0, device)
-    PRF_MASK.launches += 1
+        buf = prf_mask_group_plain(flat, dtype, device)
+    else:
+        buf = torch.empty(sum(n for _, _, n, _ in flat), dtype=dtype,
+                          device=device)
+        off = 0
+        for i in range(0, len(flat), MAX_STREAMS):
+            part = flat[i:i + MAX_STREAMS]
+            n = sum(k for _, _, k, _ in part)
+            prf_mask_group_cuda(part, buf[off:off + n])
+            PRF_MASK.launches += 1
+            off += n
+        PRF_MASK.streams += len(flat)
+    out, off = [], 0
+    for (_, _, shape, _), (_, _, n, _) in zip(streams, flat):
+        out.append(buf[off:off + n].view(tuple(shape)))
+        off += n
     return out
 
 

@@ -77,8 +77,12 @@ def and_bshare(rt: FourPartyRuntime, x: DistBShare, y: DistBShare,
 
     def build():
         # offline, in the JAX package's counter order: lam_z, zero shares
-        lam_z = {j: rt.sample(lam_holders(j), out_shape) for j in (1, 2, 3)}
-        fs = [rt.sample(s, out_shape) for s in ZERO_SUBSETS]
+        # (one group of six draws)
+        drawn = rt.sample_group([(lam_holders(j), out_shape)
+                                 for j in (1, 2, 3)]
+                                + [(s, out_shape) for s in ZERO_SUBSETS])
+        lam_z = dict(zip((1, 2, 3), drawn[:3]))
+        fs = drawn[3:]
         masks = {j: fs[a] ^ fs[b] for j, (a, b) in AL.GAMMA_MASK_F.items()}
 
         def pieces(party: int, js: tuple) -> dict:

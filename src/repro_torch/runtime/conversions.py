@@ -98,7 +98,8 @@ def _mult_lam0(rt: FourPartyRuntime, u: DistAShare, m_pub, out_shape, *,
     ring = rt.ring
 
     def build():
-        lam_z = {j: rt.sample(lam_holders(j), out_shape) for j in (1, 2, 3)}
+        lam_z = dict(zip((1, 2, 3), rt.sample_group(
+            [(lam_holders(j), out_shape) for j in (1, 2, 3)])))
         return [{"lam_z": _held_lam(lam_z, i)} for i in PARTIES]
 
     parts = rt.prep.acquire(tag + ".lz", "mult_lam0", build)
@@ -244,9 +245,10 @@ def _bit_extract_mul(rt: FourPartyRuntime, v: DistAShare,
     with tp.parallel(("offline",)):
         # offline: P1, P2 sample r (guard-bounded, odd -- nonzero),
         # x = msb(r)
-        mag = rt.sample_bounded((1, 2), shape,
-                                ring.ell - 1 - rt.bitext_guard)
-        sign = lshr(rt.sample((1, 2), shape), ring.ell - 1)
+        mag, sign = rt.sample_group(
+            [((1, 2), shape, ring.ell - 1 - rt.bitext_guard),
+             ((1, 2), shape)])
+        sign = lshr(sign, ring.ell - 1)
         r = torch.where(sign.bool(), -(mag | 1), mag | 1)
         x_bit = ring.msb(r)
         with tp.round("offline"):

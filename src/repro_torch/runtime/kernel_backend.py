@@ -14,7 +14,8 @@ backend ``FourPartyRuntime`` holds:
     protocol round: a grouped fused multiply-add for Pi_Mult, one ring
     matmul per gamma piece for Pi_MatMul (its three terms fused on the K
     axis), a 3x3 all-pairs ring matmul for Pi_MatMul online, the XOR/AND
-    twin for boolean AND levels, and the squares PRF stream in-kernel.  On
+    twin for boolean AND levels, and each group of PRF draws as one
+    launch that derives the streams' keys and words in-kernel.  On
     CPU tensors each wrapper takes its kernel's plain version.
 
 The two backends are bit-identical: ring arithmetic mod 2^ell and XOR/AND
@@ -26,8 +27,6 @@ from __future__ import annotations
 import torch
 
 from ..core import algebra as AL
-from ..core import prf
-from ..core.ring import lshr
 from ..kernels import ops
 from ..obs import get_registry
 
@@ -38,11 +37,15 @@ class TorchKernels:
     name = "torch"
 
     # -- PRF streams -------------------------------------------------------
-    def prf_bits(self, key, counter, shape, ring, device):
-        return prf.prf_bits(key, counter, shape, ring, device)
-
-    def prf_bounded(self, key, counter, shape, ring, bits, device):
-        return prf.prf_bounded(key, counter, shape, ring, bits, device)
+    def prf_bits_group(self, draws, ring, device):
+        """One tensor per draw ``(key, counter, shape, bits)``: uniform ring
+        words (bits None), or uniform over [0, 2^bits).  Through the
+        ``prf_mask`` wrapper, which takes the plain per-stream draw on the
+        CPU and, on the card, derives the keys and words of a group in one
+        launch."""
+        return ops.lambda_masks_group(
+            [(key.data, ctr, shape, 0 if bits is None else ring.ell - bits)
+             for key, ctr, shape, bits in draws], ring.dtype, device)
 
     # -- arithmetic world (Pi_Mult / Pi_MatMul) ------------------------------
     def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
@@ -88,16 +91,6 @@ class HopperKernels(TorchKernels):
     (``kernels.ops``), bit-identical to ``TorchKernels``."""
 
     name = "hopper"
-
-    # -- PRF streams: the squares PRF in-kernel ----------------------------
-    def prf_bits(self, key, counter, shape, ring, device):
-        out = ops.lambda_masks(prf.squares_key(key, counter),
-                               AL.numel(shape), device=device)
-        return out.reshape(tuple(shape)).to(ring.dtype)
-
-    def prf_bounded(self, key, counter, shape, ring, bits, device):
-        return lshr(self.prf_bits(key, counter, shape, ring, device),
-                    ring.ell - bits)
 
     # -- arithmetic world --------------------------------------------------
     def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
@@ -217,14 +210,12 @@ class MeteredKernels:
                 "kernel-backend launches", kind=kind, backend=self.name)
         c.inc()
 
-    def prf_bits(self, key, counter, shape, ring, device):
-        self._count("prf_bits")
-        return self._inner.prf_bits(key, counter, shape, ring, device)
-
-    def prf_bounded(self, key, counter, shape, ring, bits, device):
-        self._count("prf_bounded")
-        return self._inner.prf_bounded(key, counter, shape, ring, bits,
-                                       device)
+    def prf_bits_group(self, draws, ring, device):
+        # one count per stream, of the JAX package's kind, however many
+        # launches the group takes
+        for draw in draws:
+            self._count("prf_bits" if draw[3] is None else "prf_bounded")
+        return self._inner.prf_bits_group(draws, ring, device)
 
     def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
         self._count(f"gamma.{kind}")

@@ -87,7 +87,8 @@ def share(rt: FourPartyRuntime, v, owner: int = 0) -> DistAShare:
     tag = rt.next_tag("sh")
 
     def build():
-        lam = {j: rt.sample(lam_holders(j), v.shape) for j in (1, 2, 3)}
+        lam = dict(zip((1, 2, 3), rt.sample_group(
+            [(lam_holders(j), v.shape) for j in (1, 2, 3)])))
         return [{"lam": _held_lam(lam, i)} for i in PARTIES]
 
     parts = rt.prep.acquire(tag, "share", build)
@@ -140,7 +141,7 @@ def _ash_pieces(rt: FourPartyRuntime, v0, *, tag: str,
     piece i is held by P0 and the pair ASH_HOLDERS[i]."""
     ring = rt.ring
     tp = rt.transport
-    v1, v2 = (rt.sample(s, v0.shape) for s in ASH_SUBSETS)
+    v1, v2 = rt.sample_group([(s, v0.shape) for s in ASH_SUBSETS])
     v3 = v0 - v1 - v2
     with tp.round(phase):
         tp.send(0, 1, v3, tag=tag + ".v3", nbits=ring.ell, phase=phase)
@@ -176,7 +177,7 @@ def _gamma_exchange(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
     P0 jmp-sends it to GAMMA_RECV[j].  Returns per-party {j: gamma_j}.
     Each party's same-round pieces are one kernel-backend call."""
     ring = rt.ring
-    fs = [rt.sample(s, out_shape) for s in ZERO_SUBSETS]
+    fs = rt.sample_group([(s, out_shape) for s in ZERO_SUBSETS])
     masks = {j: fs[a] - fs[b] for j, (a, b) in AL.GAMMA_MASK_F.items()}
 
     def pieces(party: int, js: tuple) -> dict:
@@ -230,8 +231,8 @@ def _mult_like(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
     if not truncate:
         def build():
             # counter order: lam_z, then gamma
-            lam_z = {j: rt.sample(lam_holders(j), out_shape)
-                     for j in (1, 2, 3)}
+            lam_z = dict(zip((1, 2, 3), rt.sample_group(
+                [(lam_holders(j), out_shape) for j in (1, 2, 3)])))
             with tp.round("offline"):
                 gamma = _gamma_exchange(rt, x, y, op, out_shape, tag=tag,
                                         kind=kind)
@@ -244,9 +245,9 @@ def _mult_like(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
             with tp.round("offline"):
                 gamma = _gamma_exchange(rt, x, y, op, out_shape, tag=tag,
                                         kind=kind)
-                r = {j: rt.sample_bounded(lam_holders(j), out_shape,
-                                          ring.ell - TRUNC_GUARD)
-                     for j in (1, 2, 3)}
+                r = dict(zip((1, 2, 3), rt.sample_group(
+                    [(lam_holders(j), out_shape, ring.ell - TRUNC_GUARD)
+                     for j in (1, 2, 3)])))
                 r_total = r[1] + r[2] + r[3]              # P0-only knowledge
                 pieces = _ash_pieces(rt, ring.truncate(r_total),
                                      tag=tag + ".rt")
@@ -341,9 +342,9 @@ def truncate_share(rt: FourPartyRuntime, x: DistAShare) -> DistAShare:
     out_shape = x.shape
 
     def build():
-        r = {j: rt.sample_bounded(lam_holders(j), out_shape,
-                                  ring.ell - TRUNC_GUARD)
-             for j in (1, 2, 3)}
+        r = dict(zip((1, 2, 3), rt.sample_group(
+            [(lam_holders(j), out_shape, ring.ell - TRUNC_GUARD)
+             for j in (1, 2, 3)])))
         pieces = _ash_pieces(rt, ring.truncate(r[1] + r[2] + r[3]),
                              tag=tag + ".rt")
         _trunc_pair_check(rt, r, pieces, tag=tag)
@@ -376,12 +377,10 @@ def _vsh_lam_parts(rt: FourPartyRuntime, owners: tuple, shape,
                    mask=None) -> tuple:
     """Sample the three vSh lambda streams and slice per party: P_i keeps
     lambda_j iff it is in the sampling subset."""
-    lam = {}
-    for j in (1, 2, 3):
-        subset = PARTIES if j in owners else lam_holders(j)
-        lam[j] = rt.sample(subset, shape)
-        if mask is not None:
-            lam[j] = lam[j] & mask
+    drawn = rt.sample_group([(PARTIES if j in owners else lam_holders(j),
+                              shape) for j in (1, 2, 3)])
+    lam = {j: d if mask is None else d & mask
+           for j, d in zip((1, 2, 3), drawn)}
     parts = [{"lam": {j: lam[j] for j in (1, 2, 3)
                       if j != i or j in owners}} for i in PARTIES]
     return lam, parts

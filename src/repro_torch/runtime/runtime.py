@@ -67,15 +67,21 @@ class FourPartyRuntime:
     def sample(self, subset, shape) -> torch.Tensor:
         """Non-interactive joint sampling by `subset`; the value is derived
         from a key held by a member party (identical at every member)."""
-        key = self.parties[min(subset)].keys.subset_key(subset)
-        return self.kernels.prf_bits(key, self.fresh_counter(), shape,
-                                     self.ring, self.device)
+        return self.sample_group([(subset, shape)])[0]
 
     def sample_bounded(self, subset, shape, bits: int) -> torch.Tensor:
         """Joint sampling of values uniform over [0, 2^bits)."""
-        key = self.parties[min(subset)].keys.subset_key(subset)
-        return self.kernels.prf_bounded(key, self.fresh_counter(), shape,
-                                        self.ring, bits, self.device)
+        return self.sample_group([(subset, shape, bits)])[0]
+
+    def sample_group(self, specs) -> list:
+        """Several draws at once, ``(subset, shape)`` or ``(subset, shape,
+        bits)`` each: the counters are taken in list order, so the words
+        equal those of the same ``sample``/``sample_bounded`` calls in a
+        row; the kernel backend draws the group in one launch."""
+        draws = [(self.parties[min(sp[0])].keys.subset_key(sp[0]),
+                  self.fresh_counter(), sp[1],
+                  sp[2] if len(sp) > 2 else None) for sp in specs]
+        return self.kernels.prf_bits_group(draws, self.ring, self.device)
 
     # -- bookkeeping -------------------------------------------------------
     def next_tag(self, op: str) -> str:

@@ -41,6 +41,14 @@ def test_kernels_equal_plain_on_card(cuda_device):
             got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
             assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), \
                 (dtype, M, K, N)
+        # all-ones words maximise every limb sum; K spans two chunks of the
+        # exactness bound, with an odd K (one-word copies) beside it
+        top = RM.max_k_chunk(info.bits)
+        for K in (top + 32, top + 33):
+            a = torch.full((65, K), -1, dtype=dtype)
+            b = torch.full((K, 66), -1, dtype=dtype)
+            got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
+            assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), K
         for J, T, n, signs in [(3, 3, 16384, (1, 1, 1)),
                                (3, 2, 1000, (1, -1)), (1, 3, 5, (-1, 1, -1))]:
             a, b, c = words(J, T, n), words(J, T, n), words(J, n)
@@ -75,8 +83,24 @@ def test_kernels_equal_plain_on_card(cuda_device):
                                             PPA.and_level_plain))
         ell = torch.iinfo(dtype).bits
         assert torch.equal(got, ((x + y) >> (ell - 1)) & 1)
-    key = 0x9E3779B97F4A7C15
-    for n, counter0 in [(1, 0), (100352, 0), (1000, 12345)]:
-        assert torch.equal(PM.prf_mask_cuda(key, n, counter0, cuda_device),
-                           PM.prf_mask_plain(key, n, counter0,
-                                             device=cuda_device)), n
+    key = (0x9E3779B9, 0x7F4A7C15)
+    for n, counter in [(1, 0), (100352, 0), (1000, 12345)]:
+        one = [(key, counter, n, 0)]            # a lone draw: a group of one
+        out = torch.empty(n, dtype=torch.int64, device=cuda_device)
+        assert torch.equal(PM.prf_mask_group_cuda(one, out).cpu(),
+                           PM.prf_mask_group_plain(one, torch.int64)), n
+    # grouped draws: every stream's key derived on the card, shifts, an
+    # empty stream, both word widths
+    for dtype in (torch.int64, torch.int32):
+        ell = torch.iinfo(dtype).bits
+        streams = [((0x243F6A88, 0x85A308D3 + j), 2**32 + 7 * j, n, shift)
+                   for j, (n, shift) in enumerate(
+                       [(100352, 0), (5, ell - 1), (0, 0), (1000, 20),
+                        (3, 1), (257, 0), (1, 4), (64, ell - 13)])]
+        for count in (1, 3, 8):
+            part = streams[:count]
+            out = torch.empty(sum(s[2] for s in part), dtype=dtype,
+                              device=cuda_device)
+            assert torch.equal(PM.prf_mask_group_cuda(part, out).cpu(),
+                               PM.prf_mask_group_plain(part, dtype)), \
+                (dtype, count)

@@ -12,15 +12,20 @@ torch = pytest.importorskip("torch")
 # beside the JAX tests that share this worker
 torch.set_num_threads(1)
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-import repro.core.ring  # noqa: E402,F401  (turns on jax x64 for uint64 words)
+from repro.core import prf as JPRF  # noqa: E402
+from repro.core.ring import RING32 as J32, RING64 as J64  # noqa: E402
 from repro.kernels import ops as JOPS  # noqa: E402
+from repro_torch.core.prf import ThreefryKey  # noqa: E402
 from repro_torch.core.ring import words_from_numpy, words_to_numpy  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import prf_mask as PM  # noqa: E402
 from repro_torch.kernels import ring_matmul as RM  # noqa: E402
 
 UNSIGNED = {64: np.uint64, 32: np.uint32}
+T_DTYPE = {64: torch.int64, 32: torch.int32}
 
 
 def _words(rng, ell, *shape):
@@ -35,13 +40,32 @@ def _same(got, want) -> bool:
 
 
 def test_ring_matmul_matches_limb_kernel():
+    """The wrapper's plain version and the tensor-core kernel's limb
+    arithmetic (8-bit limbs, s32 sums over K chunks) against the JAX
+    package's limb_matmul, with small forced K chunks; and all-ones words,
+    which maximise every limb sum, at the exactness bound's chunk edge."""
     for ell in (64, 32):
         for M, K, N in [(5, 7, 3), (70, 10, 9), (3, 300, 2)]:
             rng = np.random.RandomState(M + K + N + ell)
             a, b = _words(rng, ell, M, K), _words(rng, ell, K, N)
             want = JOPS.ring_matmul(jnp.asarray(a), jnp.asarray(b))
-            got = ops.ring_matmul(words_from_numpy(a), words_from_numpy(b))
-            assert _same(got, want), (ell, M, K, N)
+            ta, tb = words_from_numpy(a), words_from_numpy(b)
+            assert _same(ops.ring_matmul(ta, tb), want), (ell, M, K, N)
+            for chunk in (1, 3, 32, RM.max_k_chunk(ell)):
+                got = RM.ring_matmul_limbs_plain(ta, tb, chunk)
+                assert _same(got, want), (ell, M, K, N, chunk)
+        top = RM.max_k_chunk(ell)
+        assert top == {64: 4128, 32: 8256}[ell]
+        ones_a = torch.full((2, top + 5), -1, dtype=T_DTYPE[ell])
+        ones_b = torch.full((top + 5, 3), -1, dtype=T_DTYPE[ell])
+        assert torch.equal(RM.ring_matmul_limbs_plain(ones_a, ones_b, top),
+                           torch.matmul(ones_a, ones_b)), ell
+        # the bound is tight: all-ones words over one word more per chunk
+        # would leave s32 on the top diagonal, so that chunk is refused
+        L = ell // 8
+        assert L * 255**2 * top <= 2**31 - 1 < L * 255**2 * (top + 1)
+        with pytest.raises(ValueError, match="k_chunk"):
+            RM.ring_matmul_limbs_plain(ones_a, ones_b, top + 1)
 
 
 def test_mpc_matmul_grid_matches():
@@ -81,8 +105,24 @@ def test_lambda_masks_matches_prf_kernel():
     for n, counter0 in [(7, 0), (513, 0), (1000, 4096)]:
         want = JOPS.lambda_masks(jnp.asarray([key64], jnp.uint64), n,
                                  counter0)
-        assert _same(ops.lambda_masks(key64, n, counter0), want), \
+        assert _same(PM.prf_mask_plain(key64, n, counter0), want), \
             (n, counter0)
+    # the grouped draw (more streams than one launch takes, shifts and an
+    # empty stream included) against the JAX package's per-stream draws
+    jkey = jax.random.fold_in(jax.random.key(7), 0b1101)
+    tkey = ThreefryKey.from_seed(7).fold_in(0b1101)
+    for ell, jring in ((64, J64), (32, J32)):
+        draws = [(c, shape, bits) for c, (shape, bits) in enumerate(
+            [((3, 5), None), ((7,), ell - 4), ((0,), None), ((2, 2), 1),
+             ((513,), None), ((4,), 20), ((1,), ell - 1), ((6,), None),
+             ((9,), 13)])]
+        got = ops.lambda_masks_group(
+            [(tkey.data, c, shape, 0 if bits is None else ell - bits)
+             for c, shape, bits in draws], T_DTYPE[ell])
+        for g, (c, shape, bits) in zip(got, draws):
+            want = JPRF.prf_bits(jkey, c, shape, jring) if bits is None \
+                else JPRF.prf_bounded(jkey, c, shape, jring, bits)
+            assert _same(g, want), (ell, c, shape, bits)
 
 
 def test_wrappers_route_by_device():
@@ -95,7 +135,8 @@ def test_wrappers_route_by_device():
         lambda t: ops.mpc_matmul_grid([t, t], [t]),
         lambda t: ops.mult_terms(t[None], t[None], t[:1], (1,) * 4),
         lambda t: ops.and_terms(t[None], t[None], t[:1]),
-        lambda t: ops.lambda_masks(5, 8, device=t.device),
+        lambda t: ops.lambda_masks_group([((1, 2), 0, (8,), 0)],
+                                         torch.int64, device=t.device),
     ]
     for call in calls:
         call(torch.ones((4, 4), dtype=torch.int64))
@@ -113,5 +154,6 @@ def test_k_chunk_covers_k_in_kernel_steps():
         chunks = -(-K // chunk)
         tiles = -(-M // RM.TILE) * -(-N // RM.TILE)
         assert chunk % RM.STEP_K == 0 and chunk >= RM.STEP_K
+        assert chunk <= RM.max_k_chunk(64)
         assert (chunks - 1) * chunk < K <= chunks * chunk
         assert chunks == 1 or tiles * chunks <= 2 * 264

@@ -17,6 +17,7 @@ from repro.core.ring import RING32 as J32, RING64 as J64  # noqa: E402
 from repro_torch.core import prf as TP  # noqa: E402
 from repro_torch.core.ring import (RING32 as T32, RING64 as T64,  # noqa: E402
                                    words_to_numpy)
+from repro_torch.kernels.prf_mask import prf_mask_group_plain  # noqa: E402
 
 RINGS = {64: (J64, T64), 32: (J32, T32)}
 
@@ -82,3 +83,17 @@ def test_prf_bits_and_bounded_match(ell):
                                                     tring, bits))
                 assert np.array_equal(got, want), (shape, counter, bits)
                 assert int(got.max()) < 2**bits
+    # the grouped draw's plain version: every (shape, counter) stream, plain
+    # and at each bound, one after the other in one buffer
+    streams, wants = [], []
+    for shape in [(5,), (3, 7), (2, 3, 4)]:
+        for counter in (0, 9, 300):
+            for bits in (None, 1, 20, ell - 4):
+                shift = 0 if bits is None else ell - bits
+                streams.append((tkey.data, counter, TP.numel(shape), shift))
+                wants.append(np.asarray(
+                    JP.prf_bits(jkey, counter, shape, jring) if bits is None
+                    else JP.prf_bounded(jkey, counter, shape, jring, bits)
+                ).reshape(-1))
+    got = words_to_numpy(prf_mask_group_plain(streams, tring.dtype))
+    assert np.array_equal(got, np.concatenate(wants))

@@ -20,13 +20,18 @@ from repro.runtime import FourPartyRuntime as JRuntime  # noqa: E402
 from repro.runtime import activations as JA  # noqa: E402
 from repro.runtime import boolean as JB  # noqa: E402
 from repro.runtime import conversions as JC  # noqa: E402
+from repro.obs.registry import MetricsRegistry as JRegistry  # noqa: E402
 from repro.runtime import protocols as JP  # noqa: E402
+from repro.runtime.kernel_backend import MeteredKernels as JMetered  # noqa: E402
 from repro_torch.core.ring import RING64 as T64, words_to_numpy  # noqa: E402
 from repro_torch.runtime import FourPartyRuntime as TRuntime  # noqa: E402
 from repro_torch.runtime import activations as TA  # noqa: E402
 from repro_torch.runtime import boolean as TB  # noqa: E402
 from repro_torch.runtime import conversions as TC  # noqa: E402
+from repro_torch.obs import MetricsRegistry as TRegistry  # noqa: E402
 from repro_torch.runtime import protocols as TP  # noqa: E402
+from repro_torch.runtime.kernel_backend import (  # noqa: E402
+    MeteredKernels as TMetered)
 
 SEED = 5
 _rng = np.random.RandomState(2024)
@@ -39,6 +44,7 @@ def jax_pkg():
     return types.SimpleNamespace(
         P=JP, B=JB, C=JC, A=JA,
         runtime=lambda: JRuntime(J64, seed=SEED, kernel_backend="jnp"),
+        metered=lambda inner: JMetered(inner, registry=JRegistry()),
         enc=lambda rt, x: rt.ring.encode(x),
         np=lambda v: np.asarray(v))
 
@@ -48,6 +54,7 @@ def torch_pkg(backend):
         P=TP, B=TB, C=TC, A=TA,
         runtime=lambda: TRuntime(T64, seed=SEED, kernel_backend=backend,
                                  device="cpu"),
+        metered=lambda inner: TMetered(inner, registry=TRegistry()),
         enc=lambda rt, x: rt.encode(x),
         np=words_to_numpy)
 
@@ -153,6 +160,8 @@ DECODED = {"mult_tr": X1 * X2, "matmul_tr": X1 @ W,
 
 def run(L, program, tamper=None):
     rt = L.runtime()
+    # a registry of this run's own, to read the backend calls by kind
+    rt.kernels = L.metered(rt.kernels._inner)
     if tamper is not None:
         rt.transport.tamper(**tamper)
     opened, sh = program(L, rt)
@@ -163,7 +172,8 @@ def run(L, program, tamper=None):
                  for v in sh.views]
     return {"opened": {p: L.np(v) for p, v in opened.items()},
             "views": views, "per_link": rt.transport.per_link(),
-            "totals": rt.transport.totals(), "abort": bool(rt.abort_flag())}
+            "totals": rt.transport.totals(), "abort": bool(rt.abort_flag()),
+            "calls": {k: c.value for k, c in rt.kernels._counters.items()}}
 
 
 def _same(a, b):
@@ -186,6 +196,10 @@ def _assert_matches(got, want, where):
     assert got["per_link"] == want["per_link"], where
     assert got["totals"] == want["totals"], where
     assert got["abort"] is want["abort"] is False, where
+    # the registry counts each PRF draw once (prf_bits / prf_bounded), and
+    # every other backend call by kind, as the JAX runtime's MeteredKernels
+    # does -- however many launches the grouped draws take
+    assert got["calls"] == want["calls"], where
 
 
 @pytest.mark.parametrize("group", sorted(GROUPS))
