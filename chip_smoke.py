@@ -20,14 +20,24 @@ from the root of a checkout.  In order, it
      B in both layouts) is timed as a yardstick of the int8 stage.  The
      PRF row times the wrapper the paths call on the main path's largest
      group (the three lambda streams of the (128, 784) input share) as one
-     grouped launch and as three lone draws;
+     grouped launch and as three lone draws.  The grouped gamma-piece
+     kernel (``mult_terms``/``and_terms``, one launch per protocol round) is
+     held against its plain version on ragged, unaligned, broadcast,
+     expanded and 32-bit groups and over more groups than one launch
+     takes; its rows are the round launches of one Pi_Mult on (128, 128)
+     words and one AND on (128, 1), captured from a runtime on the card,
+     each beside the per-party sequence it replaces (staging stacks, one
+     stacked launch per party, the combine), its bound from the unique
+     bytes the launch moves;
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
      backend, and checks that every kernel of that path was launched while
      serving, that no party aborted, that the opened words, ``per_link()``
      and ``totals()`` equal a CPU run of the port with the "torch" backend
-     on the same seed, and that the probabilities are close to a float64
-     numpy forward pass; then profiles one more batch;
+     on the same seed, that the probabilities are close to a float64
+     numpy forward pass, and that ``mult_terms``/``and_terms`` launched as
+     often a batch as the grouped wrappers are called in a CPU batch with
+     the "hopper" backend; then profiles one more batch;
   5. joint path A: serves the same 2 batches through the joint simulation's
      ``PredictionServer`` (faithful mode, Newton-Raphson division) and
      checks the kernels of that path launched, no abort, the opened words
@@ -347,31 +357,12 @@ def kernel_phase(rng, ptxas: dict) -> list:
               f"ring_matmul disagrees on all-ones words at K = {K} "
               f"({dt})")
 
-    # mult_terms: P0's three gamma pieces of BitExt's mult on (128, 128);
-    # the online shape (J=3, T=2) and mixed signs are checked too
-    for J, T, signs in ((3, 2, (1, -1)), (3, 3, (1, -1, 1))):
-        a, b, c = words(J, T, 128 * 128), words(J, T, 128 * 128), \
-            words(J, 128 * 128)
-        check(torch.equal(GP.mult_terms_cuda(a, b, c, signs).cpu(),
-                          GP.mult_terms_plain(a, b, c, signs).cpu()),
-              f"mult_terms disagrees at J={J} T={T} signs={signs}")
-    J, T, nn = 3, 3, 128 * 128
-    a, b, c = words(J, T, nn), words(J, T, nn), words(J, nn)
-    sg = (1, 1, 1)
-    row(ops.MULT_TERMS, GP.mult_terms_cuda(a, b, c, sg),
-        GP.mult_terms_plain(a, b, c, sg),
-        (lambda: GP.mult_terms_cuda(a, b, c, sg), "mult_terms_kernel"),
-        device_ms(lambda: GP.mult_terms_plain(a, b, c, sg)),
-        8 * (2 * J * T * nn + 2 * J * nn), 2 * J * T * nn)
-
-    # and_terms: P0's AND gamma pieces in smx's PPA, words of (128, 1)
-    J, T, nn = 3, 3, BATCH
-    a, b, c = words(J, T, nn), words(J, T, nn), words(J, nn)
-    row(ops.AND_TERMS, GP.and_terms_cuda(a, b, c),
-        GP.and_terms_plain(a, b, c),
-        (lambda: GP.and_terms_cuda(a, b, c), "and_terms_kernel"),
-        device_ms(lambda: GP.and_terms_plain(a, b, c)),
-        8 * (2 * J * T * nn + 2 * J * nn), 2 * J * T * nn)
+    # mult_terms / and_terms: the grouped gamma-piece kernel, held against
+    # its plain version on ragged, unaligned, broadcast, expanded and
+    # 32-bit groups and over more groups than one launch takes; then its
+    # rows at the main path's round launches (``round_rows``)
+    check_grouped_cases(rng, dev)
+    rows.update(round_rows(dev))
 
     # mpc_matmul_fused: layer 1's collapsed secure matmul, 128x784x128
     M, K, N = BATCH, 784, 128
@@ -447,12 +438,12 @@ def kernel_phase(rng, ptxas: dict) -> list:
                                         dtype=np.int64).astype(np.int32))
            for s in ((2, 3, 1000), (2, 3, 1000), (2, 1000))]
     g32_dev = [t.to(dev) for t in g32]
-    check(torch.equal(GP.mult_terms_cuda(*g32_dev, (1, -1, 1)).cpu(),
+    check(torch.equal(ops.mult_terms(*g32_dev, (1, -1, 1)).cpu(),
                       GP.mult_terms_plain(*g32, (1, -1, 1))),
-          "mult_terms disagrees on 32-bit words")
-    check(torch.equal(GP.and_terms_cuda(*g32_dev).cpu(),
+          "mult_terms disagrees on 32-bit words (stacked form)")
+    check(torch.equal(ops.and_terms(*g32_dev).cpu(),
                       GP.and_terms_plain(*g32)),
-          "and_terms disagrees on 32-bit words")
+          "and_terms disagrees on 32-bit words (stacked form)")
     m32 = (words32(70, 300), words32(3, 70, 300), words32(300, 65),
            words32(3, 300, 65))
     check(all(torch.equal(g.cpu(), w) for g, w in zip(
@@ -460,6 +451,292 @@ def kernel_phase(rng, ptxas: dict) -> list:
         MF.mpc_matmul_fused_plain(*(t.cpu() for t in m32)))),
         "mpc_matmul_fused disagrees on 32-bit words")
     return [rows[k.name] for k in ops.KERNELS]
+
+
+def device_ops(fn, reps: int = 20, warmup: int = 2) -> tuple:
+    """(device ms, device operations) per call of `fn`, every device
+    operation of the call counted, from the profiler's CUDA activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+    return (sum(e.device_time_total for e in evs) / reps / 1e3,
+            sum(e.count for e in evs) / reps)
+
+
+def check_grouped_cases(rng, dev) -> None:
+    """The grouped gamma-piece kernel against its plain version on groups
+    that cycle through 1-3 term pairs, 0-2 constants, signs, ragged word
+    counts, views one word into a buffer (unaligned), one-word (broadcast)
+    operands and expanded views, on 64- and 32-bit words, over 1, 9 and
+    37 groups (three launches)."""
+    import torch
+    from repro_torch.kernels import gamma_parts as GP
+    from repro_torch.kernels import ops
+    for dt in (torch.int64, torch.int32):
+        info = torch.iinfo(dt)
+
+        def words(*shape):
+            return torch.from_numpy(rng.randint(
+                info.min, info.max, size=shape, dtype=np.int64)).to(dt)
+
+        for count in (1, 9, 2 * GP.MAX_GROUPS + 5):
+            cpu, card = [], []
+            for k in range(count):
+                T, nc = 1 + k % 3, k % 3
+                n = (1, 5, 128, 1000, 16385)[k % 5]
+                shape = (n,) if k % 4 else (n // 5 + 1, 5)
+                opnds = []
+                for slot in range(2 * T + nc):
+                    if (slot + k) % 5 == 0:
+                        w = words(*(1,) * len(shape))
+                        opnds.append((w, w.to(dev)))
+                    elif len(shape) == 2 and (slot + k) % 5 == 1:
+                        w = words(shape[0], 1)
+                        opnds.append((w.expand(shape),
+                                      w.to(dev).expand(shape)))
+                    elif k % 2:
+                        w = words(int(np.prod(shape)) + 1)
+                        opnds.append((w[1:].view(shape),
+                                      w.to(dev)[1:].view(shape)))
+                    else:
+                        w = words(*shape)
+                        opnds.append((w, w.to(dev)))
+                signs = tuple(-1 if (k + t) % 2 else 1 for t in range(T))
+                for side, out in ((0, cpu), (1, card)):
+                    v = [o[side] for o in opnds]
+                    out.append(([(v[2 * t], v[2 * t + 1])
+                                 for t in range(T)], tuple(v[2 * T:]),
+                                signs))
+            for xor in (False, True):
+                kern = ops.AND_TERMS if xor else ops.MULT_TERMS
+                before = kern.launches
+                if xor:
+                    got = ops.and_terms_group([g[:2] for g in card])
+                    want = GP.and_terms_group_plain(cpu)
+                else:
+                    got = ops.mult_terms_group(card)
+                    want = GP.mult_terms_group_plain(cpu)
+                check(kern.launches - before == -(-count // GP.MAX_GROUPS),
+                      f"{kern.name}: {kern.launches - before} launches for "
+                      f"{count} groups")
+                torch.cuda.synchronize()
+                for k, (g, w) in enumerate(zip(got, want)):
+                    check(torch.equal(g.cpu(), w),
+                          f"{kern.name} disagrees with its plain version: "
+                          f"group {k} of {count}, {dt}")
+
+
+def _flat(shape, *arrs):
+    import torch
+    return torch.stack([torch.broadcast_to(a, shape).reshape(-1)
+                        for a in arrs])
+
+
+def per_party_gamma(lam_x, lam_y, masks, js, xor: bool) -> dict:
+    """One party's gamma pieces as the runtime computed them before the
+    round call: its operands staged into (J, 3, n) stacks, one stacked
+    launch (the same kernel), the pieces cut out."""
+    import torch
+    from repro_torch.core.algebra import GAMMA_TERMS
+    from repro_torch.kernels import ops
+    terms = {j: GAMMA_TERMS[j] for j in js}
+    p0, q0 = terms[js[0]][0]
+    full = torch.broadcast_shapes(lam_x[p0].shape, lam_y[q0].shape)
+    a = torch.stack([_flat(full, *(lam_x[p] for p, _ in terms[j]))
+                     for j in js])
+    b = torch.stack([_flat(full, *(lam_y[q] for _, q in terms[j]))
+                     for j in js])
+    c = torch.stack([torch.broadcast_to(masks[j], full).reshape(-1)
+                     for j in js])
+    s = ops.and_terms(a, b, c) if xor else ops.mult_terms(a, b, c,
+                                                          (1, 1, 1))
+    return {j: s[k].reshape(full) for k, j in enumerate(js)}
+
+
+def per_party_online(m_x, m_y, lam_x, lam_y, gammas, lam_zs, js,
+                     xor: bool) -> tuple:
+    """One party's online parts and m_x op m_y as the runtime computed them
+    before the round call: staging, one stacked launch, then the combine
+    with gamma_j and lambda_z_j."""
+    import torch
+    from repro_torch.kernels import ops
+    full = torch.broadcast_shapes(m_x.shape, m_y.shape)
+    zero = torch.zeros((), dtype=m_x.dtype, device=m_x.device)
+    a = torch.stack([_flat(full, lam_x[j], m_x) for j in js]
+                    + [_flat(full, m_x, zero)])
+    b = torch.stack([_flat(full, m_y, lam_y[j]) for j in js]
+                    + [_flat(full, m_y, zero)])
+    if xor:
+        c = torch.stack([torch.broadcast_to(gammas[j] ^ lam_zs[j],
+                                            full).reshape(-1) for j in js]
+                        + [torch.zeros(full, dtype=m_x.dtype,
+                                       device=m_x.device).reshape(-1)])
+        s = ops.and_terms(a, b, c)
+        parts = {j: s[k].reshape(full) for k, j in enumerate(js)}
+    else:
+        c = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype,
+                        device=a.device)
+        s = ops.mult_terms(a, b, c, (1, 1))
+        parts = {j: gammas[j] + lam_zs[j] - s[k].reshape(full)
+                 for k, j in enumerate(js)}
+    return s[len(js)].reshape(full), parts
+
+
+def capture_rounds(dev) -> dict:
+    """The backend round calls of one Pi_Mult on (128, 128) words (BitExt's
+    shape at the hidden layers) and one AND on (128, 1) words (smx's adder),
+    run on the card through a runtime whose backend records them:
+    {(round, world): (op, requests)}."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.runtime import FourPartyRuntime
+    from repro_torch.runtime import boolean as RB
+    from repro_torch.runtime import protocols as RP
+    from repro_torch.runtime.kernel_backend import HopperKernels
+
+    class Recorder(HopperKernels):
+        def __init__(self):
+            super().__init__()
+            self.rounds = {}
+
+        def gamma_pieces_round(self, kind, op, requests):
+            self.rounds[("offline", kind)] = (op, requests)
+            return super().gamma_pieces_round(kind, op, requests)
+
+        def online_parts_round(self, kind, op, requests):
+            self.rounds[("online", kind)] = (op, requests)
+            return super().online_parts_round(kind, op, requests)
+
+        def bool_gamma_pieces_round(self, requests):
+            self.rounds[("offline", "bool")] = (None, requests)
+            return super().bool_gamma_pieces_round(requests)
+
+        def bool_online_parts_round(self, requests):
+            self.rounds[("online", "bool")] = (None, requests)
+            return super().bool_online_parts_round(requests)
+
+    rec = Recorder()
+    rt = FourPartyRuntime(RING64, seed=SEED, kernel_backend=rec,
+                          device=dev)
+    gen = torch.Generator().manual_seed(SEED)
+    x, y = (RP.share(rt, torch.randint(-2**40, 2**40, (BATCH, 128),
+                                       generator=gen)) for _ in range(2))
+    RP.mult(rt, x, y)
+    a, b = (RB.vsh_bool(rt, lambda p, v=v: v, (1, 2), (BATCH, 1),
+                        tag=rt.next_tag("in"))
+            for v in (torch.randint(-2**62, 2**62, (BATCH, 1),
+                                    generator=gen).to(dev)
+                      for _ in range(2)))
+    RB.and_bshare(rt, a, b)
+    check(not rt.abort_flag(), "the captured mult and AND aborted")
+    return rec.rounds
+
+
+def round_rows(dev) -> dict:
+    """The mult_terms and and_terms rows: each round launch of the main
+    path's Pi_Mult (6 groups x 3 terms offline, 9 groups online at
+    (128, 128)) and AND (the same at (128, 1)), from requests captured on
+    the card.  For each round: the round call's results against the
+    per-party sequence's (staging stacks, one stacked launch per party,
+    the combine) and the plain version's; the launch's device time, the
+    round call's time and device operations beside the per-party
+    sequence's; the bound from the unique bytes the launch moves."""
+    import torch
+    from repro_torch.kernels import gamma_parts as GP
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kernel_backend import (HopperKernels,
+                                                    gamma_groups,
+                                                    online_groups)
+    rounds = capture_rounds(dev)
+    hk = HopperKernels()
+    out = {}
+    for kern, world, xor in ((ops.MULT_TERMS, "mul", False),
+                             (ops.AND_TERMS, "bool", True)):
+        info = {}
+        for stage in ("offline", "online"):
+            op, reqs = rounds[(stage, world)]
+            if stage == "offline":
+                groups = gamma_groups(reqs, xor)
+                new = (lambda reqs=reqs: hk.bool_gamma_pieces_round(reqs)) \
+                    if xor else \
+                    (lambda reqs=reqs, op=op: hk.gamma_pieces_round(
+                        "mul", op, reqs))
+
+                def old(reqs=reqs, xor=xor):
+                    return [per_party_gamma(*r, xor=xor) for r in reqs]
+
+                def flat(res):
+                    return [t for d in res for t in d.values()]
+            else:
+                groups = online_groups(reqs, xor)
+                new = (lambda reqs=reqs: hk.bool_online_parts_round(reqs)) \
+                    if xor else \
+                    (lambda reqs=reqs, op=op: hk.online_parts_round(
+                        "mul", op, reqs))
+
+                def old(reqs=reqs, xor=xor):
+                    return [per_party_online(*r, xor=xor) for r in reqs]
+
+                def flat(res):
+                    return [t for mm, parts in res
+                            for t in (*parts.values(), mm)]
+            plain = GP.and_terms_group_plain if xor else \
+                GP.mult_terms_group_plain
+
+            def launch_only(g=groups, xor=xor):
+                return (ops.and_terms_group if xor else
+                        ops.mult_terms_group)(g)
+            got, was, ref = flat(new()), flat(old()), plain(groups)
+            torch.cuda.synchronize()
+            check(len(got) == len(was) == len(ref) == len(groups) and all(
+                torch.equal(g, w) and torch.equal(g, r)
+                for g, w, r in zip(got, was, ref)),
+                f"{kern.name}: the {stage} round call disagrees with the "
+                f"per-party sequence or the plain version")
+            # unique bytes: each distinct operand read once, each output
+            # written once
+            seen = {}
+            for pairs, consts, *_ in groups:
+                for t in (*(v for pr in pairs for v in pr), *consts):
+                    seen[t.data_ptr()] = max(seen.get(t.data_ptr(), 0),
+                                             t.numel() * t.element_size())
+            shapes = [GP.group_shape(g) for g in groups]
+            n_out = sum(int(np.prod(sh)) for sh in shapes)
+            nbytes = sum(seen.values()) + 8 * n_out
+            nops = sum(int(np.prod(sh)) * (2 * len(g[0]) + len(g[1]))
+                       for sh, g in zip(shapes, groups))
+            b_ms, b_by = bound(nbytes, nops)
+            old_ms, old_n = device_ops(old)
+            new_ms, new_n = device_ops(new)
+            info[stage] = {
+                "groups": len(groups),
+                "terms": [len(g[0]) for g in groups],
+                "shape": list(shapes[0]),
+                "ms": device_ms(launch_only, "terms_group_kernel"),
+                "call_ms": cuda_ms(new),
+                "launch_call_ms": cuda_ms(launch_only),
+                "device_ms_all_ops": new_ms, "device_ops": new_n,
+                "plain_ms": device_ms(lambda g=groups, f=plain: f(g)),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "unique_bytes": nbytes,
+                "per_party": {"device_ms": old_ms, "device_ops": old_n,
+                              "call_ms": cuda_ms(old)}}
+        off = info["offline"]
+        out[kern.name] = {
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "launches": 0, "max_abs_err": 0,
+            "ms": off["ms"], "call_ms": off["call_ms"],
+            "plain_ms": off["plain_ms"], "bound_ms": off["bound_ms"],
+            "bound_by": off["bound_by"], "library_ms": None,
+            "rounds": info}
+    return out
 
 
 def forward_float64(params: dict, X: np.ndarray) -> np.ndarray:
@@ -536,14 +813,23 @@ def profile_batch(label: str, run, steady_wall_s: float) -> None:
         wall = time.perf_counter() - t0
     evs = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in evs) / 1e3
-    launches = sum(e.count for e in evs)
+    # device operations (kernels, copies, fills) against every profiler
+    # event, which also counts the host's runtime API calls (launches,
+    # copies, synchronizations)
+    device_ops = sum(e.count for e in evs if e.device_time_total > 0)
+    events = sum(e.count for e in evs)
     print(f"profiled {label} batch: device busy {busy_ms:.3f} ms in "
-          f"{launches} device ops; wall {wall * 1e3:.1f} ms profiled, "
+          f"{device_ops} device ops ({events} profiler events with the "
+          f"runtime API calls); wall {wall * 1e3:.1f} ms profiled, "
           f"{steady_wall_s * 1e3:.1f} ms unprofiled -> busy share "
           f"{busy_ms / (steady_wall_s * 1e3):.4f} of the unprofiled wall")
     for e in evs[:16]:
         print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
               f"{e.key[:90]}")
+    for e in evs[16:]:
+        if "terms_group_kernel" in e.key:
+            print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
+                  f"{e.key[:90]}")
 
 
 def tensor_core_instructions(build) -> tuple | None:
@@ -659,6 +945,17 @@ def main() -> int:
                   f"{y['shape']} (bound {y['bound_ms_int8_ops']:.5f} ms): "
                   f"B row-major {y['b_row_major']}, B column-major "
                   f"{y['b_col_major']}")
+        for stage, r in k.get("rounds", {}).items():
+            pp = r["per_party"]
+            print(f"  {stage} round, {r['groups']} groups of {r['shape']} "
+                  f"words, terms {r['terms']}: launch {r['ms']:.5f} ms on "
+                  f"the device (bound {r['bound_ms']:.5f} ms by "
+                  f"{r['bound_by']}, {r['unique_bytes']} unique bytes; "
+                  f"plain {r['plain_ms']:.5f} ms); round call "
+                  f"{r['call_ms']:.5f} ms, {r['device_ops']:g} device ops "
+                  f"in {r['device_ms_all_ops']:.5f} ms; per-party sequence "
+                  f"{pp['call_ms']:.5f} ms, {pp['device_ops']:g} device ops "
+                  f"in {pp['device_ms']:.5f} ms")
         if "streams_per_launch" in k:
             print(f"  {k['streams_per_launch']} streams a launch: "
                   f"{k['ms_per_stream']:.5f} ms on the device and "
@@ -696,6 +993,23 @@ def main() -> int:
           "CPU")
     print(f"runtime: words, per_link() and totals() equal to the CPU run; "
           f"per batch {srv.batch_traffic[0][1]}")
+    # the grouped kernel's launches per batch against the wrapper calls of
+    # one batch on the CPU ("hopper" backend, plain versions), where each
+    # call is the launch the card makes
+    from repro_torch.kernels import ops
+    on_card = {k["name"]: k["launches_by_path"]["runtime"] / N_BATCHES
+               for k in kernels}
+    ops.reset_launches()
+    _, hop_words = serve("cpu", "hopper", params, net, queries[:BATCH])
+    check(torch.equal(hop_words, ref_words[:BATCH]),
+          "runtime: the 'hopper' backend's CPU words differ from 'torch''s")
+    for k in (ops.MULT_TERMS, ops.AND_TERMS):
+        check(on_card[k.name] == k.calls,
+              f"runtime: {k.name} {on_card[k.name]:g} launches a batch on "
+              f"the card, {k.calls} round calls a batch on the CPU")
+    print(f"runtime: launches per batch {on_card}; mult_terms "
+          f"{ops.MULT_TERMS.calls} and and_terms {ops.AND_TERMS.calls} "
+          f"round calls a batch on the CPU")
     check_probs("runtime", words, want)
     profile_batch("runtime", lambda: serve("cuda", "hopper", params, net,
                                            queries[:BATCH]),

@@ -24,18 +24,18 @@ SOURCES = ("prf_mask", "ring_matmul", "gamma_parts", "and_level",
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I, _I64, _U32, _U64 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-                            ctypes.c_uint32, ctypes.c_uint64)
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # C entry points and their argument types (the stream comes last).
 SIGNATURES = {
     "prf_mask_group_u64": (_P, _P, _P),     # out, address of a PrfGroup
     "prf_mask_group_u32": (_P, _P, _P),
     "ring_matmul_u64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ring_matmul_u32": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "mult_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),
-    "mult_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _U32, _P),
-    "and_terms_u64": (_P, _P, _P, _P, _I, _I, _I64, _P),
-    "and_terms_u32": (_P, _P, _P, _P, _I, _I, _I64, _P),
+    # address of a TermLaunch (the grouped gamma-piece kernel)
+    "mult_terms_group_u64": (_P, _P),
+    "mult_terms_group_u32": (_P, _P),
+    "and_terms_group_u64": (_P, _P),
+    "and_terms_group_u32": (_P, _P),
     "and_level_u64": (_P, _P, _P, _P, _P, _I64, _P),
     "and_level_u32": (_P, _P, _P, _P, _P, _I64, _P),
     "mpc_matmul_fused_u64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
@@ -113,9 +113,10 @@ def launch(source: str, symbol: str, device, *args) -> None:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
 
 
-def check_operands(*tensors) -> None:
-    """The kernels take contiguous ring words of one type on one CUDA
-    device; anything else is refused before a pointer is passed."""
+def check_operands(*tensors, contiguous: bool = True) -> None:
+    """The kernels take (contiguous, unless `contiguous` is False) ring
+    words of one type on one CUDA device; anything else is refused before
+    a pointer is passed."""
     first = tensors[0]
     if first.device.type != "cuda":
         raise ValueError(f"kernel operands must be CUDA tensors, got "
@@ -125,5 +126,5 @@ def check_operands(*tensors) -> None:
             raise ValueError("kernel operands differ in device or dtype: "
                              f"{t.device}/{t.dtype} vs "
                              f"{first.device}/{first.dtype}")
-        if not t.is_contiguous():
+        if contiguous and not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")

@@ -14,8 +14,10 @@ import dataclasses
 import torch
 
 from ..core.prf import numel as prf_numel
-from .gamma_parts import (and_terms_cuda, and_terms_plain, mult_terms_cuda,
-                          mult_terms_plain)
+from .gamma_parts import (MAX_GROUPS, and_terms_group_plain,
+                          and_terms_plain, group_outputs, group_shape,
+                          mult_terms_group_plain, mult_terms_plain,
+                          terms_group_cuda)
 from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
 from .ppa_msb import and_level_cuda, and_level_plain, ppa_msb
 from .prf_mask import (MAX_STREAMS, prf_mask_group_cuda,
@@ -34,6 +36,9 @@ class Kernel:
     replaces: str          # the TPU (Pallas) kernel, file:line
     launches: int = 0
     streams: int = 0       # prf_mask: PRF streams its launches drew
+    # mult_terms / and_terms: wrapper calls on either device, so a CPU run
+    # counts what the card launches (one launch a call of <= MAX_GROUPS)
+    calls: int = 0
 
 
 PRF_MASK = Kernel("prf_mask", _CSRC + "prf_mask.cu",
@@ -60,7 +65,7 @@ KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MPC_MATMUL_FUSED,
 
 def reset_launches() -> None:
     for k in KERNELS:
-        k.launches = k.streams = 0
+        k.launches = k.streams = k.calls = 0
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -121,22 +126,75 @@ def mpc_matmul_grid(xs, ys) -> list:
             for i in range(len(xs))]
 
 
+def _terms_groups(kernel: Kernel, xor: bool, groups, outs=None) -> list:
+    """The grouped gamma-piece kernel over `groups`, MAX_GROUPS a launch:
+    each launch counted on `kernel`.  `outs`: the groups' outputs, or None
+    to allocate them as views of one buffer."""
+    kernel.calls += 1
+    if not groups:
+        return []
+    if _on_cpu(groups[0][0][0][0]):
+        plain = and_terms_group_plain if xor else mult_terms_group_plain
+        return plain(groups)
+    if outs is None:
+        first = groups[0][0][0][0]
+        outs = group_outputs([group_shape(g) for g in groups], first.dtype,
+                             first.device)
+    for i in range(0, len(groups), MAX_GROUPS):
+        if terms_group_cuda(xor, groups[i:i + MAX_GROUPS],
+                            outs[i:i + MAX_GROUPS]):
+            kernel.launches += 1
+    return outs
+
+
+def mult_terms_group(groups) -> list:
+    """One tensor per ``(pairs, consts, signs)`` group: sum of the
+    constants plus sum_t signs[t] * a_t * b_t mod 2^ell, over 1-3 operand
+    pairs ``(a_t, b_t)``, 0-2 constants and +-1 signs, every operand
+    broadcasting to the group's shape.  One launch per MAX_GROUPS groups;
+    the outputs are views of one buffer."""
+    return _terms_groups(MULT_TERMS, False, groups)
+
+
+def and_terms_group(groups) -> list:
+    """One tensor per ``(pairs, consts)`` group: XOR of the constants and
+    of a_t & b_t over the pairs, on bit-packed words; as
+    ``mult_terms_group``."""
+    return _terms_groups(AND_TERMS, True,
+                         [(pairs, consts, None) for pairs, consts in groups])
+
+
+def _stacked_groups(a, b, c, signs) -> list:
+    if a.dim() != 3 or b.shape != a.shape or c.shape != (a.shape[0],
+                                                         a.shape[2]):
+        raise ValueError(f"a, b (J, T, n) and c (J, n) expected, got "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, "
+                         f"{tuple(c.shape)}")
+    return [(list(zip(aj.unbind(0), bj.unbind(0))), (cj,), signs)
+            for aj, bj, cj in zip(a.unbind(0), b.unbind(0), c.unbind(0))]
+
+
 def mult_terms(a, b, c, signs) -> torch.Tensor:
     """out[j] = sum_t signs[t] * a[j,t] * b[j,t] + c[j] mod 2^ell;
-    a, b: (J, T, n), c: (J, n), signs: length-T tuple of +-1."""
+    a, b: (J, T, n), c: (J, n), signs: length-T tuple of +-1 -- the
+    grouped kernel with one group per row."""
     if _on_cpu(a):
+        MULT_TERMS.calls += 1
         return mult_terms_plain(a, b, c, signs)
-    out = mult_terms_cuda(a, b, c, signs)
-    MULT_TERMS.launches += 1
+    out = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+    _terms_groups(MULT_TERMS, False, _stacked_groups(a, b, c, signs),
+                  list(out))
     return out
 
 
 def and_terms(a, b, c) -> torch.Tensor:
-    """out[j] = XOR_t (a[j,t] & b[j,t]) ^ c[j] on bit-packed words."""
+    """out[j] = XOR_t (a[j,t] & b[j,t]) ^ c[j] on bit-packed words; as
+    ``mult_terms``."""
     if _on_cpu(a):
+        AND_TERMS.calls += 1
         return and_terms_plain(a, b, c)
-    out = and_terms_cuda(a, b, c)
-    AND_TERMS.launches += 1
+    out = torch.empty(c.shape, dtype=c.dtype, device=c.device)
+    _terms_groups(AND_TERMS, True, _stacked_groups(a, b, c, None), list(out))
     return out
 
 

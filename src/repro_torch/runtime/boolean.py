@@ -16,7 +16,8 @@ from ..core.algebra import (GAMMA_LOCAL, GAMMA_RECV, PARTIES, ZERO_SUBSETS,
 from ..core.ring import signed
 from ..obs import traced_protocol
 from .party import DistBShare, PartyBView
-from .protocols import _jmp, _open_parts, _vsh_exchange, _vsh_lam_parts
+from .protocols import (_jmp, _open_parts, _round_pieces, _vsh_exchange,
+                        _vsh_lam_parts)
 from .runtime import FourPartyRuntime
 
 
@@ -85,14 +86,8 @@ def and_bshare(rt: FourPartyRuntime, x: DistBShare, y: DistBShare,
         fs = drawn[3:]
         masks = {j: fs[a] ^ fs[b] for j, (a, b) in AL.GAMMA_MASK_F.items()}
 
-        def pieces(party: int, js: tuple) -> dict:
-            return rt.kernels.bool_gamma_pieces(
-                x.views[party].lam, y.views[party].lam, masks, js)
-
-        gamma = [{} for _ in PARTIES]
-        gamma[0] = pieces(0, (1, 2, 3))
-        for j in (1, 2, 3):
-            gamma[GAMMA_LOCAL[j]].update(pieces(GAMMA_LOCAL[j], (j,)))
+        gamma = _round_pieces(rt.kernels.bool_gamma_pieces_round, x, y,
+                              masks)
         with tp.round("offline"):
             for j in (1, 2, 3):
                 local, recv = GAMMA_LOCAL[j], GAMMA_RECV[j]
@@ -105,15 +100,15 @@ def and_bshare(rt: FourPartyRuntime, x: DistBShare, y: DistBShare,
 
     parts = rt.prep.acquire(tag, "and", build)
 
-    # ---- online: each party's m_x & m_y + two parts in one backend call --
-    def party_local(party: int) -> tuple:
+    # ---- online: every party's m_x & m_y + two parts in one round call --
+    def request(party: int) -> tuple:
         vx, vy = x.views[party], y.views[party]
         js = tuple(j for j in (1, 2, 3) if party in AL.PART_HOLDERS[j])
-        return rt.kernels.bool_online_parts(
-            vx.m, vy.m, vx.lam, vy.lam, parts[party]["gamma"],
-            {j: parts[party]["lam_z"][j] for j in js}, js)
+        return (vx.m, vy.m, vx.lam, vy.lam, parts[party]["gamma"],
+                {j: parts[party]["lam_z"][j] for j in js}, js)
 
-    local = {i: party_local(i) for i in (1, 2, 3)}
+    local = dict(zip((1, 2, 3), rt.kernels.bool_online_parts_round(
+        [request(i) for i in (1, 2, 3)])))
 
     have = _open_parts(rt, lambda party, j: local[party][1][j], tag=tag,
                        nbits=active)

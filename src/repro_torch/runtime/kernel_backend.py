@@ -9,14 +9,21 @@ backend ``FourPartyRuntime`` holds:
     the shared algebra, the twin of the JAX package's ``JnpKernels``.  It
     runs on the CPU only: PyTorch has no integer matmul on CUDA;
   * ``HopperKernels`` ("hopper", the default): the same math routed
-    through the hand-written kernels (``kernels.ops``), with the JAX
-    package's ``PallasKernels`` batching -- one launch per party per
-    protocol round: a grouped fused multiply-add for Pi_Mult, one ring
-    matmul per gamma piece for Pi_MatMul (its three terms fused on the K
-    axis), a 3x3 all-pairs ring matmul for Pi_MatMul online, the XOR/AND
-    twin for boolean AND levels, and each group of PRF draws as one
-    launch that derives the streams' keys and words in-kernel.  On
-    CPU tensors each wrapper takes its kernel's plain version.
+    through the hand-written kernels (``kernels.ops``).  Pi_Mult and the
+    boolean AND take ONE launch per protocol round for all parties: the
+    ``*_round`` methods turn every party's gamma pieces (offline) or
+    online parts and m_x op m_y (online) into groups of the grouped
+    fused multiply-add (XOR/AND) kernel, which reads each party's words in
+    place and folds the constants (masks, gamma_j + lambda_z_j) in.
+    Pi_MatMul keeps one ring matmul per gamma piece (its three terms fused
+    on the K axis) and a 3x3 all-pairs ring matmul per party online; each
+    group of PRF draws is one launch that derives the streams' keys and
+    words in-kernel.  On CPU tensors each wrapper takes its kernel's plain
+    version.
+
+A round call takes one request per party -- the argument tuple of the
+per-party method -- and returns one result per request.  The per-party
+methods stay for a process that holds one party.
 
 The two backends are bit-identical: ring arithmetic mod 2^ell and XOR/AND
 are exactly associative and commutative, so transcripts, wire bytes and
@@ -62,6 +69,20 @@ class TorchKernels:
                                         gammas[j], lam_zs[j]) for j in js}
         return op(m_x, m_y), parts
 
+    # -- one protocol round, all parties: a request is the argument tuple
+    # of the per-party method ------------------------------------------------
+    def gamma_pieces_round(self, kind, op, requests):
+        return [self.gamma_pieces(kind, op, *r) for r in requests]
+
+    def online_parts_round(self, kind, op, requests):
+        return [self.online_parts(kind, op, *r) for r in requests]
+
+    def bool_gamma_pieces_round(self, requests):
+        return [self.bool_gamma_pieces(*r) for r in requests]
+
+    def bool_online_parts_round(self, requests):
+        return [self.bool_online_parts(*r) for r in requests]
+
     # -- boolean world (secure AND / PPA levels) ---------------------------
     def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
         out = {}
@@ -79,13 +100,6 @@ class TorchKernels:
         return m_x & m_y, parts
 
 
-def _flat(shape, *arrs) -> torch.Tensor:
-    """Broadcast each operand to `shape` and flatten: one (len(arrs), n)
-    stack -- the kernels' group layout."""
-    return torch.stack([torch.broadcast_to(a, shape).reshape(-1)
-                        for a in arrs])
-
-
 class HopperKernels(TorchKernels):
     """Local compute through the hand-written Hopper kernels
     (``kernels.ops``), bit-identical to ``TorchKernels``."""
@@ -94,87 +108,110 @@ class HopperKernels(TorchKernels):
 
     # -- arithmetic world --------------------------------------------------
     def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
-        terms = {j: AL.GAMMA_TERMS[j] for j in js}
-        p0, q0 = terms[js[0]][0]                     # indices this party holds
-        if kind == "matmul":
-            if lam_x[p0].dim() != 2 or lam_y[q0].dim() != 2:
-                _batched_matmul(lam_x[p0])
-                return super().gamma_pieces(kind, op, lam_x, lam_y, masks,
-                                            js)
-            # sum_t A_t @ B_t == [A_1|A_2|A_3] @ [B_1;B_2;B_3]: one ring
-            # matmul per piece, the three terms fused on the K axis.
-            out = {}
-            for j in js:
-                a = torch.cat([lam_x[p] for p, _ in terms[j]], dim=1)
-                b = torch.cat([lam_y[q] for _, q in terms[j]], dim=0)
-                out[j] = ops.ring_matmul(a, b) + masks[j]
-            return out
-        _elementwise(kind)
-        full = torch.broadcast_shapes(lam_x[p0].shape, lam_y[q0].shape)
-        a = torch.stack([_flat(full, *(lam_x[p] for p, _ in terms[j]))
-                         for j in js])                # (J, 3, n)
-        b = torch.stack([_flat(full, *(lam_y[q] for _, q in terms[j]))
-                         for j in js])
-        c = torch.stack([masks[j].reshape(-1) for j in js])
-        s = ops.mult_terms(a, b, c, (1, 1, 1))
-        return {j: s[k].reshape(masks[j].shape) for k, j in enumerate(js)}
+        if kind != "matmul":
+            return self.gamma_pieces_round(kind, op,
+                                           [(lam_x, lam_y, masks, js)])[0]
+        p0, q0 = AL.GAMMA_TERMS[js[0]][0]           # indices this party holds
+        if lam_x[p0].dim() != 2 or lam_y[q0].dim() != 2:
+            _batched_matmul(lam_x[p0])
+            return super().gamma_pieces(kind, op, lam_x, lam_y, masks, js)
+        # sum_t A_t @ B_t == [A_1|A_2|A_3] @ [B_1;B_2;B_3]: one ring matmul
+        # per piece, the three terms fused on the K axis.
+        out = {}
+        for j in js:
+            terms = AL.GAMMA_TERMS[j]
+            a = torch.cat([lam_x[p] for p, _ in terms], dim=1)
+            b = torch.cat([lam_y[q] for _, q in terms], dim=0)
+            out[j] = ops.ring_matmul(a, b) + masks[j]
+        return out
 
     def online_parts(self, kind, op, m_x, m_y, lam_x, lam_y, gammas,
                      lam_zs, js):
-        if kind == "matmul":
-            if m_x.dim() != 2 or m_y.dim() != 2:
-                _batched_matmul(m_x)
-                return super().online_parts(kind, op, m_x, m_y, lam_x,
-                                            lam_y, gammas, lam_zs, js)
-            # one 3x3 all-pairs launch: row 0 / column 0 give m_x @ m_y and
-            # the four cross products the two parts need.
-            p = ops.mpc_matmul_grid([m_x] + [lam_x[j] for j in js],
-                                    [m_y] + [lam_y[j] for j in js])
-            parts = {j: gammas[j] + lam_zs[j] - p[k + 1][0] - p[0][k + 1]
-                     for k, j in enumerate(js)}
-            return p[0][0], parts
-        _elementwise(kind)
-        full = torch.broadcast_shapes(m_x.shape, m_y.shape)
-        zero = torch.zeros((), dtype=m_x.dtype, device=m_x.device)
-        a = torch.stack([_flat(full, lam_x[j], m_x) for j in js]
-                        + [_flat(full, m_x, zero)])   # (J+1, 2, n)
-        b = torch.stack([_flat(full, m_y, lam_y[j]) for j in js]
-                        + [_flat(full, m_y, zero)])
-        c = torch.zeros((a.shape[0], a.shape[2]), dtype=a.dtype,
-                        device=a.device)
-        s = ops.mult_terms(a, b, c, (1, 1))
-        parts = {j: gammas[j] + lam_zs[j] - s[k].reshape(full)
+        if kind != "matmul":
+            return self.online_parts_round(
+                kind, op, [(m_x, m_y, lam_x, lam_y, gammas, lam_zs, js)])[0]
+        if m_x.dim() != 2 or m_y.dim() != 2:
+            _batched_matmul(m_x)
+            return super().online_parts(kind, op, m_x, m_y, lam_x, lam_y,
+                                        gammas, lam_zs, js)
+        # one 3x3 all-pairs launch: row 0 / column 0 give m_x @ m_y and the
+        # four cross products the two parts need.
+        p = ops.mpc_matmul_grid([m_x] + [lam_x[j] for j in js],
+                                [m_y] + [lam_y[j] for j in js])
+        parts = {j: gammas[j] + lam_zs[j] - p[k + 1][0] - p[0][k + 1]
                  for k, j in enumerate(js)}
-        return s[len(js)].reshape(full), parts
+        return p[0][0], parts
+
+    def gamma_pieces_round(self, kind, op, requests):
+        if kind == "matmul":
+            return super().gamma_pieces_round(kind, op, requests)
+        _elementwise(kind)
+        return _split_pieces(ops.mult_terms_group(gamma_groups(requests)),
+                             requests)
+
+    def online_parts_round(self, kind, op, requests):
+        if kind == "matmul":
+            return super().online_parts_round(kind, op, requests)
+        _elementwise(kind)
+        return _split_parts(ops.mult_terms_group(online_groups(requests)),
+                            requests)
 
     # -- boolean world -----------------------------------------------------
     def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
-        terms = {j: AL.GAMMA_TERMS[j] for j in js}
-        p0, q0 = terms[js[0]][0]
-        full = torch.broadcast_shapes(lam_x[p0].shape, lam_y[q0].shape)
-        a = torch.stack([_flat(full, *(lam_x[p] for p, _ in terms[j]))
-                         for j in js])
-        b = torch.stack([_flat(full, *(lam_y[q] for _, q in terms[j]))
-                         for j in js])
-        c = torch.stack([torch.broadcast_to(masks[j], full).reshape(-1)
-                         for j in js])
-        s = ops.and_terms(a, b, c)
-        return {j: s[k].reshape(full) for k, j in enumerate(js)}
+        return self.bool_gamma_pieces_round([(lam_x, lam_y, masks, js)])[0]
 
     def bool_online_parts(self, m_x, m_y, lam_x, lam_y, gammas, lam_zs, js):
-        full = torch.broadcast_shapes(m_x.shape, m_y.shape)
-        zero = torch.zeros((), dtype=m_x.dtype, device=m_x.device)
-        a = torch.stack([_flat(full, lam_x[j], m_x) for j in js]
-                        + [_flat(full, m_x, zero)])
-        b = torch.stack([_flat(full, m_y, lam_y[j]) for j in js]
-                        + [_flat(full, m_y, zero)])
-        c = torch.stack([torch.broadcast_to(gammas[j] ^ lam_zs[j],
-                                            full).reshape(-1) for j in js]
-                        + [torch.zeros(full, dtype=m_x.dtype,
-                                       device=m_x.device).reshape(-1)])
-        s = ops.and_terms(a, b, c)
-        parts = {j: s[k].reshape(full) for k, j in enumerate(js)}
-        return s[len(js)].reshape(full), parts
+        return self.bool_online_parts_round(
+            [(m_x, m_y, lam_x, lam_y, gammas, lam_zs, js)])[0]
+
+    def bool_gamma_pieces_round(self, requests):
+        return _split_pieces(ops.and_terms_group(
+            gamma_groups(requests, xor=True)), requests)
+
+    def bool_online_parts_round(self, requests):
+        return _split_parts(ops.and_terms_group(
+            online_groups(requests, xor=True)), requests)
+
+
+def _group(xor: bool, pairs, consts, signs) -> tuple:
+    """A group of ``ops.mult_terms_group``, or of ``ops.and_terms_group``
+    (`xor`: the ring's signs dropped)."""
+    return (pairs, consts) if xor else (pairs, consts, signs)
+
+
+def gamma_groups(requests, xor: bool = False) -> list:
+    """The grouped kernel's groups of an offline round: for each request
+    ``(lam_x, lam_y, masks, js)`` and each piece j, the three products
+    lam_x[p] lam_y[q] of GAMMA_TERMS[j] with masks[j] as the constant."""
+    return [_group(xor, [(lam_x[p], lam_y[q]) for p, q in AL.GAMMA_TERMS[j]],
+                   (masks[j],), (1, 1, 1))
+            for lam_x, lam_y, masks, js in requests for j in js]
+
+
+def online_groups(requests, xor: bool = False) -> list:
+    """The groups of an online round: for each request ``(m_x, m_y, lam_x,
+    lam_y, gammas, lam_zs, js)``, part j = gamma_j + lam_z_j - lam_x[j] m_y
+    - m_x lam_y[j] (XOR for an AND) for each j in js, then m_x op m_y."""
+    groups = []
+    for m_x, m_y, lam_x, lam_y, gammas, lam_zs, js in requests:
+        groups += [_group(xor, [(lam_x[j], m_y), (m_x, lam_y[j])],
+                          (gammas[j], lam_zs[j]), (-1, -1)) for j in js]
+        groups.append(_group(xor, [(m_x, m_y)], (), (1,)))
+    return groups
+
+
+def _split_pieces(outs: list, requests) -> list:
+    it = iter(outs)
+    return [{j: next(it) for j in r[-1]} for r in requests]
+
+
+def _split_parts(outs: list, requests) -> list:
+    it = iter(outs)
+    res = []
+    for r in requests:
+        parts = {j: next(it) for j in r[-1]}
+        res.append((next(it), parts))
+    return res
 
 
 def _batched_matmul(t: torch.Tensor) -> None:
@@ -235,6 +272,28 @@ class MeteredKernels:
         self._count("online.bool")
         return self._inner.bool_online_parts(m_x, m_y, lam_x, lam_y,
                                              gammas, lam_zs, js)
+
+    # a round call counts one call of the per-party kind per request, as
+    # the JAX runtime's per-party calls are counted
+    def gamma_pieces_round(self, kind, op, requests):
+        for _ in requests:
+            self._count(f"gamma.{kind}")
+        return self._inner.gamma_pieces_round(kind, op, requests)
+
+    def online_parts_round(self, kind, op, requests):
+        for _ in requests:
+            self._count(f"online.{kind}")
+        return self._inner.online_parts_round(kind, op, requests)
+
+    def bool_gamma_pieces_round(self, requests):
+        for _ in requests:
+            self._count("gamma.bool")
+        return self._inner.bool_gamma_pieces_round(requests)
+
+    def bool_online_parts_round(self, requests):
+        for _ in requests:
+            self._count("online.bool")
+        return self._inner.bool_online_parts_round(requests)
 
 
 _BACKENDS = {"torch": TorchKernels, "hopper": HopperKernels}

@@ -175,24 +175,32 @@ def _gamma_exchange(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
                     op, out_shape, *, tag: str, kind: str = "mul") -> list:
     """Offline gamma distribution: P0 and GAMMA_LOCAL[j] compute piece j;
     P0 jmp-sends it to GAMMA_RECV[j].  Returns per-party {j: gamma_j}.
-    Each party's same-round pieces are one kernel-backend call."""
+    The round's pieces -- P0's three, one at each GAMMA_LOCAL party -- are
+    one kernel-backend round call."""
     ring = rt.ring
     fs = rt.sample_group([(s, out_shape) for s in ZERO_SUBSETS])
     masks = {j: fs[a] - fs[b] for j, (a, b) in AL.GAMMA_MASK_F.items()}
-
-    def pieces(party: int, js: tuple) -> dict:
-        return rt.kernels.gamma_pieces(kind, op, x.views[party].lam,
-                                       y.views[party].lam, masks, js)
-
-    gamma = [{} for _ in PARTIES]
-    gamma[0] = pieces(0, (1, 2, 3))
-    for j in (1, 2, 3):
-        gamma[GAMMA_LOCAL[j]].update(pieces(GAMMA_LOCAL[j], (j,)))
+    gamma = _round_pieces(
+        lambda reqs: rt.kernels.gamma_pieces_round(kind, op, reqs),
+        x, y, masks)
     for j in (1, 2, 3):
         local, recv = GAMMA_LOCAL[j], GAMMA_RECV[j]
         gamma[recv][j] = _jmp(rt, 0, local, recv, gamma[0][j],
                               gamma[local][j], tag=f"{tag}.g{j}",
                               nbits=ring.ell, phase="offline")
+    return gamma
+
+
+def _round_pieces(round_call, x, y, masks: dict) -> list:
+    """Per-party {j: gamma_j} from ONE backend round call: a request of
+    P0 (pieces 1-3) and one of each GAMMA_LOCAL[j] (piece j), each holding
+    only that party's own lambda views."""
+    owners = [(0, (1, 2, 3))] + [(GAMMA_LOCAL[j], (j,)) for j in (1, 2, 3)]
+    got = round_call([(x.views[p].lam, y.views[p].lam, masks, js)
+                      for p, js in owners])
+    gamma = [{} for _ in PARTIES]
+    for (p, _), pieces in zip(owners, got):
+        gamma[p].update(pieces)
     return gamma
 
 
@@ -262,18 +270,19 @@ def _mult_like(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
             return {j: -parts[i]["rt"][j] for j in parts[i]["rt"]}
         return dict(parts[i]["lam_z"])
 
-    # ---- online: each online party's m_x op m_y plus its two m_z' parts
-    # is ONE kernel-backend call ---------------------------------------------
-    def party_local(party: int) -> tuple:
+    # ---- online: every online party's m_x op m_y plus its two m_z' parts
+    # is ONE kernel-backend round call ----------------------------------------
+    def request(party: int) -> tuple:
         vx, vy = x.views[party], y.views[party]
         js = _party_parts_js(party)
         lam_zs = {j: (-parts[party]["r"][j] if truncate
                       else parts[party]["lam_z"][j]) for j in js}
-        return rt.kernels.online_parts(kind, op, vx.m, vy.m, vx.lam,
-                                       vy.lam, parts[party]["gamma"],
-                                       lam_zs, js)
+        return (vx.m, vy.m, vx.lam, vy.lam, parts[party]["gamma"], lam_zs,
+                js)
 
-    local = {i: party_local(i) for i in (1, 2, 3)}    # i -> (mm, {j: part})
+    # i -> (mm, {j: part})
+    local = dict(zip((1, 2, 3), rt.kernels.online_parts_round(
+        kind, op, [request(i) for i in (1, 2, 3)])))
 
     have = _open_parts(rt, lambda party, j: local[party][1][j], tag=tag,
                        nbits=ring.ell)

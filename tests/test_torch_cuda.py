@@ -13,9 +13,42 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import gamma_parts as GP  # noqa: E402
 from repro_torch.kernels import mpc_matmul_fused as MF  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ppa_msb as PPA  # noqa: E402
 from repro_torch.kernels import prf_mask as PM  # noqa: E402
 from repro_torch.kernels import ring_matmul as RM  # noqa: E402
+
+
+def _descriptor_groups(words, count: int, dev) -> tuple:
+    """`count` groups cycling through T = 1..3 term pairs, 0-2 constants,
+    signs, ragged word counts, operands one word into a longer tensor
+    (unaligned), one-word (broadcast) operands and expanded views; as
+    (CPU groups, the same groups on `dev`)."""
+    cpu, card = [], []
+    for k in range(count):
+        T, nc, n = 1 + k % 3, k % 3, (1, 5, 128, 1000, 16385)[k % 5]
+        shape = (n,) if k % 4 else (n // 5 + 1, 5)
+
+        def operand(slot, k=k, shape=shape):
+            if (slot + k) % 5 == 0:                    # one broadcast word
+                w = words(*(1,) * len(shape))
+                return w, w.to(dev)
+            if len(shape) == 2 and (slot + k) % 5 == 1:   # expanded view
+                w = words(shape[0], 1)
+                return w.expand(shape), w.to(dev).expand(shape)
+            if k % 2:                                  # unaligned view
+                w = words(torch.Size(shape).numel() + 1)
+                return w[1:].view(shape), w.to(dev)[1:].view(shape)
+            w = words(*shape)
+            return w, w.to(dev)
+
+        ops_ = [operand(i) for i in range(2 * T + nc)]
+        signs = tuple(-1 if (k + t) % 2 else 1 for t in range(T))
+        for side, out in ((0, cpu), (1, card)):
+            v = [o[side] for o in ops_]
+            out.append(([(v[2 * t], v[2 * t + 1]) for t in range(T)],
+                        tuple(v[2 * T:]), signs))
+    return cpu, card
 
 
 @pytest.fixture
@@ -49,15 +82,36 @@ def test_kernels_equal_plain_on_card(cuda_device):
             b = torch.full((K, 66), -1, dtype=dtype)
             got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
             assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), K
+        # the grouped gamma-piece kernel: the stacked (J, T, n) form (odd
+        # n: rows at unaligned offsets; J = 20: two launches) ...
         for J, T, n, signs in [(3, 3, 16384, (1, 1, 1)),
-                               (3, 2, 1000, (1, -1)), (1, 3, 5, (-1, 1, -1))]:
+                               (3, 2, 1000, (1, -1)), (1, 3, 5, (-1, 1, -1)),
+                               (20, 2, 129, (-1, 1))]:
             a, b, c = words(J, T, n), words(J, T, n), words(J, n)
             dev = [t.to(cuda_device) for t in (a, b, c)]
-            assert torch.equal(GP.mult_terms_cuda(*dev, signs).cpu(),
+            assert torch.equal(ops.mult_terms(*dev, signs).cpu(),
                                GP.mult_terms_plain(a, b, c, signs)), \
                 (dtype, J, T, n)
-            assert torch.equal(GP.and_terms_cuda(*dev).cpu(),
+            assert torch.equal(ops.and_terms(*dev).cpu(),
                                GP.and_terms_plain(a, b, c)), (dtype, J, T, n)
+        # ... and descriptor groups: ragged n, views at odd offsets, one-word
+        # operands, 0-2 constants, mixed signs, expanded views, and more
+        # groups than one launch takes
+        for count in (1, 9, 2 * GP.MAX_GROUPS + 5):
+            cpu_groups, dev_groups = _descriptor_groups(words, count,
+                                                        cuda_device)
+            launches = -(-count // GP.MAX_GROUPS)
+            ops.reset_launches()
+            got = ops.mult_terms_group(dev_groups)
+            want = GP.mult_terms_group_plain(cpu_groups)
+            assert ops.MULT_TERMS.launches == launches, count
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g.cpu(), w), (dtype, count, k)
+            got = ops.and_terms_group([g[:2] for g in dev_groups])
+            want = GP.and_terms_group_plain(cpu_groups)
+            assert ops.AND_TERMS.launches == launches, count
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert torch.equal(g.cpu(), w), (dtype, count, k)
         for M, K, N in [(5, 37, 3), (128, 784, 128), (128, 128, 10)]:
             ops_ = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
             got = MF.mpc_matmul_fused_cuda(*(t.to(cuda_device)

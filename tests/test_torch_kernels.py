@@ -20,6 +20,7 @@ from repro.core.ring import RING32 as J32, RING64 as J64  # noqa: E402
 from repro.kernels import ops as JOPS  # noqa: E402
 from repro_torch.core.prf import ThreefryKey  # noqa: E402
 from repro_torch.core.ring import words_from_numpy, words_to_numpy  # noqa: E402
+from repro_torch.kernels import gamma_parts as GP  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import prf_mask as PM  # noqa: E402
 from repro_torch.kernels import ring_matmul as RM  # noqa: E402
@@ -82,8 +83,81 @@ def test_mpc_matmul_grid_matches():
                 assert _same(got[i][j], want[i][j]), (ell, i, j)
 
 
+# descriptor groups of GROUP_N words: (T, signs, constants, slots holding
+# one broadcast word, operands as views at odd word offsets)
+GROUP_N = 37
+GROUP_CASES = [
+    (1, (1,), 0, (), False), (2, (1, -1), 1, ("b0",), True),
+    (3, (-1, 1, -1), 2, ("a1", "c1"), False),
+    (3, (1, 1, 1), 1, (), True), (2, (-1, -1), 2, ("a0", "b1"), True),
+]
+
+
+def _torch_operand(w, odd):
+    """Ring words as a tensor; `odd`: a view one word into a longer one."""
+    if not odd:
+        return words_from_numpy(w)
+    pad = np.concatenate([w.reshape(-1)[:1], w.reshape(-1)])
+    return words_from_numpy(pad)[1:].view(w.shape)
+
+
 def test_grouped_terms_match():
-    """mult_terms with signs +-1 and and_terms, (J, T, n) groups."""
+    """The grouped wrappers (ops.mult_terms_group / and_terms_group, plain
+    on the CPU) group by group against the JAX package's mult_terms /
+    and_terms (interpret mode) on the same words, the broadcast words and
+    constants folded into the JAX kernel's (1, T, n) and (1, n) operands;
+    the descriptor table the card's launch would take for them; and the
+    stacked (J, T, n) wrappers."""
+    for ell in (64, 32):
+        rng = np.random.RandomState(ell)
+        cases, n = GROUP_CASES, GROUP_N
+        mult, xor, wants = [], [], []
+        for T, signs, nc, one, odd in cases:
+            def word(slot):
+                return _words(rng, ell, *((1,) if slot in one else (n,)))
+            a = [word(f"a{t}") for t in range(T)]
+            b = [word(f"b{t}") for t in range(T)]
+            c = [word(f"c{k}") for k in range(nc)]
+            full = [np.broadcast_to(v, (n,)) for v in (*a, *b)]
+            ja = jnp.asarray(np.stack(full[:T])[None])
+            jb = jnp.asarray(np.stack(full[T:])[None])
+            csum = np.zeros(n, UNSIGNED[ell])
+            cxor = np.zeros(n, UNSIGNED[ell])
+            for v in c:
+                csum = csum + v
+                cxor = cxor ^ v
+            wants.append((JOPS.mult_terms(ja, jb, jnp.asarray(csum[None]),
+                                          signs)[0],
+                          JOPS.and_terms(ja, jb,
+                                         jnp.asarray(cxor[None]))[0]))
+            pairs = [(_torch_operand(x, odd and x.size > 1),
+                      _torch_operand(y, odd and y.size > 1))
+                     for x, y in zip(a, b)]
+            consts = tuple(_torch_operand(v, odd and v.size > 1) for v in c)
+            mult.append((pairs, consts, signs))
+            xor.append((pairs, consts))
+        got_m = ops.mult_terms_group(mult)
+        got_x = ops.and_terms_group(xor)
+        for k, (wm, wx) in enumerate(wants):
+            assert _same(got_m[k], wm), (ell, k)
+            assert _same(got_x[k], wx), (ell, k)
+        # the card's descriptor table for these groups, from CPU tensors
+        outs = GP.group_outputs([GP.group_shape(g) for g in mult],
+                                T_DTYPE[ell], "cpu")
+        assert all(o.data_ptr() % GP.ALIGN == 0 for o in outs)
+        desc = GP.describe_groups(mult, outs)
+        assert desc.count == len(cases)
+        for g, (T, signs, nc, one, odd) in zip(desc.g, cases):
+            assert (g.n, g.terms, g.consts) == (n, T, nc)
+            assert g.neg == sum(1 << t for t, s in enumerate(signs) if s < 0)
+            slots = [f"a{t}" for t in range(3)] + \
+                [f"b{t}" for t in range(3)] + ["c0", "c1"]
+            assert g.bcast == sum(1 << i for i, sl in enumerate(slots)
+                                  if sl in one)
+            assert g.vec == int(not odd), (ell, T, odd)
+        with pytest.raises(ValueError, match="at most 16 groups"):
+            GP.describe_groups(mult * 4, outs * 4)
+    # the stacked (J, T, n) form: one group per row
     for ell in (64, 32):
         for (J, T, n), signs in [((3, 3, 7), (1, 1, 1)),
                                  ((4, 2, 600), (1, -1)),
@@ -135,12 +209,17 @@ def test_wrappers_route_by_device():
         lambda t: ops.mpc_matmul_grid([t, t], [t]),
         lambda t: ops.mult_terms(t[None], t[None], t[:1], (1,) * 4),
         lambda t: ops.and_terms(t[None], t[None], t[:1]),
+        lambda t: ops.mult_terms_group([([(t, t), (t[:1], t)], (t,),
+                                         (1, -1))] * 17),
+        lambda t: ops.and_terms_group([([(t, t[0, 0])], ())]),
         lambda t: ops.lambda_masks_group([((1, 2), 0, (8,), 0)],
                                          torch.int64, device=t.device),
     ]
     for call in calls:
         call(torch.ones((4, 4), dtype=torch.int64))
     assert all(k.launches == 0 for k in ops.KERNELS)
+    # a grouped call counts as a call on either device
+    assert (ops.MULT_TERMS.calls, ops.AND_TERMS.calls) == (2, 2)
     meta = torch.empty((4, 4), dtype=torch.int64, device="meta")
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):

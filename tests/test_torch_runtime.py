@@ -24,6 +24,7 @@ from repro.obs.registry import MetricsRegistry as JRegistry  # noqa: E402
 from repro.runtime import protocols as JP  # noqa: E402
 from repro.runtime.kernel_backend import MeteredKernels as JMetered  # noqa: E402
 from repro_torch.core.ring import RING64 as T64, words_to_numpy  # noqa: E402
+from repro_torch.kernels import ops as TOPS  # noqa: E402
 from repro_torch.runtime import FourPartyRuntime as TRuntime  # noqa: E402
 from repro_torch.runtime import activations as TA  # noqa: E402
 from repro_torch.runtime import boolean as TB  # noqa: E402
@@ -46,7 +47,8 @@ def jax_pkg():
         runtime=lambda: JRuntime(J64, seed=SEED, kernel_backend="jnp"),
         metered=lambda inner: JMetered(inner, registry=JRegistry()),
         enc=lambda rt, x: rt.ring.encode(x),
-        np=lambda v: np.asarray(v))
+        np=lambda v: np.asarray(v),
+        round_calls=lambda: None)
 
 
 def torch_pkg(backend):
@@ -56,7 +58,10 @@ def torch_pkg(backend):
                                  device="cpu"),
         metered=lambda inner: TMetered(inner, registry=TRegistry()),
         enc=lambda rt, x: rt.encode(x),
-        np=words_to_numpy)
+        np=words_to_numpy,
+        # grouped-kernel wrapper calls (counted on the CPU too): one per
+        # protocol round on the "hopper" backend
+        round_calls=lambda: (TOPS.MULT_TERMS.calls, TOPS.AND_TERMS.calls))
 
 
 def _share(L, rt, x):
@@ -164,6 +169,7 @@ def run(L, program, tamper=None):
     rt.kernels = L.metered(rt.kernels._inner)
     if tamper is not None:
         rt.transport.tamper(**tamper)
+    TOPS.reset_launches()
     opened, sh = program(L, rt)
     views = None
     if sh is not None:
@@ -173,7 +179,8 @@ def run(L, program, tamper=None):
     return {"opened": {p: L.np(v) for p, v in opened.items()},
             "views": views, "per_link": rt.transport.per_link(),
             "totals": rt.transport.totals(), "abort": bool(rt.abort_flag()),
-            "calls": {k: c.value for k, c in rt.kernels._counters.items()}}
+            "calls": {k: c.value for k, c in rt.kernels._counters.items()},
+            "round_calls": L.round_calls()}
 
 
 def _same(a, b):
@@ -207,9 +214,19 @@ def test_protocols_match_jax_runtime(group):
     for program in GROUPS[group]:
         name = program.__name__[2:]
         want = run(jax_pkg(), program)
+        # each Pi_Mult and each AND: 4 gamma-piece and 3 online-part calls
+        # (as counted by kind), and on the "hopper" backend 2 grouped
+        # wrapper calls, one per protocol round, whatever the party count
+        mults, ands = (want["calls"].get(f"online.{k}", 0) // 3
+                       for k in ("mul", "bool"))
+        assert want["calls"].get("gamma.mul", 0) == 4 * mults, name
+        assert want["calls"].get("gamma.bool", 0) == 4 * ands, name
         for backend in ("torch", "hopper"):
             got = run(torch_pkg(backend), program)
             _assert_matches(got, want, f"{name} [{backend}]")
+            assert got["round_calls"] == ((2 * mults, 2 * ands)
+                                          if backend == "hopper"
+                                          else (0, 0)), (name, backend)
         if name in DECODED:
             opened = got["opened"][1].view(np.int64) / 2**13
             np.testing.assert_allclose(opened, DECODED[name], atol=2e-3,
