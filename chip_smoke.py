@@ -10,25 +10,32 @@ from the root of a checkout.  In order, it
      nvcc per source, all at once);
   3. holds each kernel against its plain PyTorch version at the shapes the
      main path gives it (``torch.equal``: ring words are exact) and times
-     kernel and plain version.  The ring matmul (int8 tensor cores) is also
+     kernel and plain version.  The two sources on the int8 tensor-core
+     limb core (``ring_matmul.cu``, ``mpc_matmul_fused.cu``) must not
+     serialize their wgmma (ptxas C7520) and, where cuobjdump exists, their
+     SASS must hold integer GMMA instructions.  The ring matmul is also
      checked on all-ones words with K past one chunk of its exactness
-     bound; its build must not serialize its wgmma (ptxas C7520) and, where
-     cuobjdump exists, its SASS must hold integer GMMA instructions; its
-     bound is given by bytes and by int8 limb-pair operations; its device
-     time is split into a fixed cost a block and a cost a main-loop step;
-     and a cuBLAS int8 GEMM of the stacked limb planes (``torch._int_mm``,
-     B in both layouts) is timed as a yardstick of the int8 stage.  The
-     PRF row times the wrapper the paths call on the main path's largest
-     group (the three lambda streams of the (128, 784) input share) as one
-     grouped launch and as three lone draws.  The grouped gamma-piece
-     kernel (``mult_terms``/``and_terms``, one launch per protocol round) is
-     held against its plain version on ragged, unaligned, broadcast,
-     expanded and 32-bit groups and over more groups than one launch
-     takes; its rows are the round launches of one Pi_Mult on (128, 128)
-     words and one AND on (128, 1), captured from a runtime on the card,
-     each beside the per-party sequence it replaces (staging stacks, one
-     stacked launch per party, the combine), its bound from the unique
-     bytes the launch moves;
+     bound; its bound is given by bytes and by int8 limb-pair operations;
+     its device time is split into a fixed cost a block and a cost a
+     main-loop step; and a cuBLAS int8 GEMM of the stacked limb planes
+     (``torch._int_mm``, B in both layouts) is timed as a yardstick of the
+     int8 stage.  ``mpc_matmul_fused`` is held and timed at the NN's three
+     layer shapes (beside its bound and the time the ring matmul's fit
+     gives its grid), on all-ones words in chunks at the exactness bound
+     and on 32-bit words.  The PRF row times the wrapper the paths call on
+     the main path's largest group (the three lambda streams of the
+     (128, 784) input share) as one grouped launch and as three lone
+     draws.  The grouped gamma-piece kernel (``mult_terms``/``and_terms``,
+     one launch per protocol round) is held against its plain version on
+     ragged, unaligned, broadcast, expanded and 32-bit groups and over
+     more groups than one launch takes; its rows are the round launches of
+     one Pi_Mult on (128, 128) words and one AND on (128, 1), captured from
+     a runtime on the card, each beside the per-party sequence it replaces
+     (staging stacks, one stacked launch per party, the combine), its
+     bound from the unique bytes the launch moves.  The ``and_level`` row
+     is the joint paths' whole-chain launches (the Sklansky adder and the
+     prefix-OR, faithful and collapsed, at n = 128 and 2^20 and on 32-bit
+     words) beside the single level;
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
      backend, and checks that every kernel of that path was launched while
@@ -41,12 +48,14 @@ from the root of a checkout.  In order, it
   5. joint path A: serves the same 2 batches through the joint simulation's
      ``PredictionServer`` (faithful mode, Newton-Raphson division) and
      checks the kernels of that path launched, no abort, the opened words
-     and ``ServeStats`` equal to a CPU run of the port, the words and
-     ``totals()`` equal to the runtime path's, and the probabilities;
-     then profiles one more joint batch;
+     and ``ServeStats`` equal to a CPU run of the port, ``and_level`` and
+     ``mpc_matmul_fused`` launched as often a batch as that CPU run called
+     their wrappers, the words and ``totals()`` equal to the runtime
+     path's, and the probabilities; then profiles one more joint batch;
   6. joint path B: one batch on a collapsed context (the
      ``mpc_matmul_fused`` route): the kernels launched, the words equal to
-     a CPU run, ``totals()`` equal to path A's, and the probabilities.
+     a CPU run and the launches to its wrapper calls, ``totals()`` equal to
+     path A's, and the probabilities; then profiles one more batch.
 
 Each path is driven with the launch counts set to 0 just before it and
 read just after; the kernel rows report the sum over the paths, and each
@@ -120,26 +129,36 @@ def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_kernels(fn, reps: int = 20, warmup: int = 1) -> dict:
+def device_kernels(fn, reps: int = 20, warmup: int = 1,
+                   windows: int = 3) -> dict:
     """{device function name: device ms per call of `fn`} from the
-    profiler's CUDA activity, after `warmup` calls."""
+    profiler's CUDA activity, after `warmup` calls; {} if the profiler saw
+    no device activity in `windows` windows.  CUPTI on the H100 has now
+    and then recorded nothing for a window when several smoke runs
+    followed one another on one card, so an empty window is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return {e.key: e.device_time_total / reps / 1e3
-            for e in prof.key_averages() if e.device_time_total > 0}
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {e.key: e.device_time_total / reps / 1e3
+                for e in prof.key_averages() if e.device_time_total > 0}
+        if seen:
+            return seen
+        time.sleep(0.5)
+    return {}
 
 
 def device_ms(fn, match: str | None = None, reps: int = 20,
               warmup: int = 1) -> float:
     """Device time per call of `fn`: the kernels whose name contains
-    `match` (every kernel when None)."""
+    `match` (every kernel when None).  Fails if the profiler saw no device
+    time for them."""
     ms = sum(t for k, t in device_kernels(fn, reps, warmup).items()
              if match is None or match in k)
     check(ms > 0, f"the profiler saw no device time for {match or fn}")
@@ -174,6 +193,123 @@ def ring_matmul_bound(M: int, K: int, N: int) -> dict:
             "bound_ms_int8_ops": 36 * 2 * M * N * K / INT8_TC_OPS_PER_S
             * 1e3,
             "bound_ms_u64_cuda_core": bound(nbytes, 2 * M * N * K)[0]}
+
+
+# the words of the and_level kernels' large check
+BIG_N = 1 << 20
+# the collapsed secure matmuls of the NN's three layers (batch 128)
+FUSED_SHAPES = ((BATCH, 784, 128), (BATCH, 128, 128), (BATCH, 128, 10))
+
+
+def fused_bound(M: int, K: int, N: int) -> dict:
+    """mpc_matmul_fused's bound: its bytes (the 8 operand planes read
+    once, mm, cross and gamma written once) against its limb-pair int8
+    operations (4 quadrants x 36 pairs x 2 M N K) at the tensor-core
+    rate."""
+    nbytes = 8 * (4 * M * K + 4 * K * N + 3 * M * N)
+    nops = 4 * 36 * 2 * M * N * K
+    b_ms, b_by = bound(nbytes, nops, INT8_TC_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_int8_ops": nops / INT8_TC_OPS_PER_S * 1e3}
+
+
+def fused_shape_row(MF, ins, ins_cpu, fit: dict, dev) -> dict:
+    """mpc_matmul_fused at one shape: held against its plain version; its
+    device time, call time and plain time; its bound; its grid; and the
+    time the ring matmul's fit (`fit`: fixed a block + a 32-word step,
+    measured in this run) gives a block of its steps."""
+    import torch
+    from repro_torch.kernels import ring_matmul as RM
+    (M, K), N = ins[0].shape, ins[2].shape[1]
+    got = MF.mpc_matmul_fused_cuda(*ins)
+    want = MF.mpc_matmul_fused_plain(*ins_cpu)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          f"mpc_matmul_fused disagrees at {M}x{K}x{N}")
+    chunk = MF.quadrant_chunk(M, N, K, RM._sm_count(dev))
+    steps = -(-min(chunk, K) // RM.STEP_K)
+    tiles = -(-M // RM.TILE) * -(-N // RM.TILE)
+    return {"shape": f"{M}x{K}x{N}",
+            "max_abs_err": max((g.cpu() - w).abs().max().item()
+                               for g, w in zip(got, want)),
+            "ms": device_ms(lambda: MF.mpc_matmul_fused_cuda(*ins),
+                            "mpc_matmul_fused_kernel", reps=50, warmup=5),
+            "call_ms": cuda_ms(lambda: MF.mpc_matmul_fused_cuda(*ins)),
+            "plain_ms": host_ms(lambda: MF.mpc_matmul_fused_plain(*ins_cpu)),
+            **fused_bound(M, K, N), "k_chunk": chunk,
+            "blocks": 4 * tiles * -(-K // chunk), "steps_a_block": steps,
+            "fit_ms": fit["fixed_ms"] + fit["per_step_ms"] * steps}
+
+
+def chain_bound(n: int, streams: int, adder: bool) -> tuple:
+    """The adder's or prefix-OR's bound at n words: bytes (the input
+    stacks and every AND's draws read once, the output stack written
+    once) against its integer operations (about 30 an AND level, plus the
+    masks, shifts, smears and NOTs between levels) at the CUDA-core
+    rate."""
+    levels = 6
+    if adder:
+        ands, stacks = 2 * levels + 1, 3
+        ops_ = 30 * ands + 32 * levels + 8 * levels * (levels - 1) + 21
+    else:
+        ands, stacks, ops_ = levels, 2, 37 * levels
+    return bound(8 * n * (4 * stacks + ands * streams), ops_ * n)
+
+
+def and_level_rows(words, words32, dev) -> dict:
+    """The and_level row: the whole-chain launches of the main path (the
+    Sklansky adder and the prefix-OR), faithful and collapsed, held
+    against their plain versions at n = 128 (smx's words of (128, 1)) and
+    2^20, and on 32-bit words; timed at n = 128, the faithful adder
+    (A2B's subtractor, cin = 1) being the row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ppa_msb as PPA
+    chains = {}
+    for make, ell, sizes in ((words, 64, (BATCH, BIG_N)),
+                             (words32, 32, (5000,))):
+        A_add, A_or = PPA.chain_ands(ell, True), PPA.chain_ands(ell, False)
+        for S, world in ((6, "faithful"), (3, "collapsed")):
+            for n in sizes:
+                x, y = make(4, n), make(4, n)
+                da, do = make(A_add, S, n), make(A_or, S, n)
+                for cin in (0, 1):
+                    check(torch.equal(PPA.ppa_add_cuda(x, y, da, cin),
+                                      PPA.ppa_add_plain(x, y, da, cin)),
+                          f"ppa_add disagrees with its plain version: "
+                          f"{ell}-bit, {world}, n = {n}, cin = {cin}")
+                check(torch.equal(PPA.prefix_or_cuda(x, do, -1),
+                                  PPA.prefix_or_plain(x, do, -1)),
+                      f"prefix_or disagrees with its plain version: "
+                      f"{ell}-bit, {world}, n = {n}")
+                if n != BATCH:
+                    continue
+                timed = {}
+                for name, kern, plain, call, adder in (
+                        ("ppa_add", lambda: PPA.ppa_add_cuda(x, y, da, 1),
+                         lambda: PPA.ppa_add_plain(x, y, da, 1),
+                         lambda: ops.ppa_add(x, y, da, 1), True),
+                        ("prefix_or", lambda: PPA.prefix_or_cuda(x, do, -1),
+                         lambda: PPA.prefix_or_plain(x, do, -1),
+                         lambda: ops.prefix_or(x, do, -1), False)):
+                    b_ms, b_by = chain_bound(n, S, adder)
+                    timed[name] = {
+                        "ms": device_ms(kern, f"{name}_kernel", reps=50,
+                                        warmup=5),
+                        "call_ms": cuda_ms(call),
+                        "plain_ms": device_ms(plain),
+                        "plain_device_ops": device_ops(plain)[1],
+                        "bound_ms": b_ms, "bound_by": b_by}
+                chains[world] = timed
+    add = chains["faithful"]["ppa_add"]
+    return {ops.AND_LEVEL.name: {
+        "name": ops.AND_LEVEL.name, "route": "cuda",
+        "source": ops.AND_LEVEL.source, "replaces": ops.AND_LEVEL.replaces,
+        "launches": 0, "max_abs_err": 0, "ms": add["ms"],
+        "call_ms": add["call_ms"], "plain_ms": add["plain_ms"],
+        "bound_ms": add["bound_ms"], "bound_by": add["bound_by"],
+        "library_ms": None, "chains_at_n_128": chains}}
 
 
 def ring_matmul_phases(M: int, N: int, K: int, chunk: int, dev) -> dict:
@@ -234,8 +370,10 @@ def int_mm_yardstick(M: int, K: int, N: int, dev) -> dict:
         try:
             ks = device_kernels(lambda b=b: torch._int_mm(a8, b), reps=50,
                                 warmup=10)
-            out[label] = {"ms": sum(ks.values()),
-                          "kernels": {k[:100]: v for k, v in ks.items()}}
+            out[label] = ({"ms": sum(ks.values()),
+                           "kernels": {k[:100]: v for k, v in ks.items()}}
+                          if ks else {"ms": None,
+                                      "error": "no device activity seen"})
         except RuntimeError as exc:
             out[label] = {"ms": None, "error": str(exc)[:200]}
     return out
@@ -364,46 +502,69 @@ def kernel_phase(rng, ptxas: dict) -> list:
     check_grouped_cases(rng, dev)
     rows.update(round_rows(dev))
 
-    # mpc_matmul_fused: layer 1's collapsed secure matmul, 128x784x128
-    M, K, N = BATCH, 784, 128
-    mm_in = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
-    mm_cpu = [t.cpu() for t in mm_in]
-    out = torch.stack(MF.mpc_matmul_fused_cuda(*mm_in))
-    ref = torch.stack(MF.mpc_matmul_fused_plain(*mm_cpu))
-    row(ops.MPC_MATMUL_FUSED, out, ref,
-        (lambda: MF.mpc_matmul_fused_cuda(*mm_in), "mpc_matmul_fused_kernel"),
-        host_ms(lambda: MF.mpc_matmul_fused_plain(*mm_cpu)),
-        8 * (4 * M * K + 4 * K * N + 3 * M * N),
-        8 * M * N * K + 4 * (M * K + K * N))
-    for M, K, N in ((BATCH, 128, 128), (BATCH, 128, 10)):
-        a = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
-        got = MF.mpc_matmul_fused_cuda(*a)
-        want = MF.mpc_matmul_fused_plain(*(t.cpu() for t in a))
-        check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
-              f"mpc_matmul_fused disagrees at {M}x{K}x{N}")
+    # mpc_matmul_fused: the collapsed secure matmuls of the three layers,
+    # on the limb core (quadrants x K chunks in one launch); the first,
+    # 128x784x128, is the row
+    fit = rows[ops.RING_MATMUL.name]["phases"]
+    shapes = []
+    for M, K, N in FUSED_SHAPES:
+        mm_in = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
+        shapes.append(fused_shape_row(MF, mm_in, [t.cpu() for t in mm_in],
+                                      fit, dev))
+    k = ops.MPC_MATMUL_FUSED
+    rows[k.name] = {
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": 0,
+        **{f: shapes[0][f] for f in ("max_abs_err", "ms", "call_ms",
+                                     "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None, "shapes": shapes,
+        "ptxas": ptxas.get("mpc_matmul_fused", [])}
+    # all-ones words maximise every limb sum: chunks at the exactness
+    # bound, K past one of them, quadrants and chunks meeting by atomicAdd
+    for dt in (torch.int64, torch.int32):
+        top = RM.max_k_chunk(torch.iinfo(dt).bits)
+        K = top + 64
+        ones = (torch.full((BATCH, K), -1, dtype=dt),
+                torch.full((3, BATCH, K), -1, dtype=dt),
+                torch.full((K, 10), -1, dtype=dt),
+                torch.full((3, K, 10), -1, dtype=dt))
+        got = MF.mpc_matmul_fused_cuda(*(t.to(dev) for t in ones),
+                                       chunk=top)
+        check(all(torch.equal(g.cpu(), w) for g, w in zip(
+            got, MF.mpc_matmul_fused_plain(*ones))),
+            f"mpc_matmul_fused disagrees on all-ones words at K = {K} in "
+            f"chunks of {top} ({dt})")
 
-    # and_level: an AND of smx's adder on words of (128, 1); every word of
-    # a 2^20-word level checked and timed beside it
-    def level_inputs(n, make=words):
-        return make(4, n), make(4, n), make(3, n), make(3, n)
-
-    lv = level_inputs(BATCH)
-    row(ops.AND_LEVEL, PPA.and_level_cuda(*lv), PPA.and_level_plain(*lv),
-        (lambda: PPA.and_level_cuda(*lv), "and_level_kernel"),
-        device_ms(lambda: PPA.and_level_plain(*lv)),
-        8 * 18 * BATCH, 30 * BATCH)
-    big = level_inputs(1 << 20)
+    # and_level: the main path's launches are whole chains on smx's words
+    # of (128, 1) -- the Sklansky adder (A2B's subtractor, cin = 1) and the
+    # prefix-OR -- faithful (6 draws an AND) and collapsed (3); each held
+    # against its plain version at n = 128 and 2^20 and on 32-bit words;
+    # the adder's faithful launch at n = 128 is the row.  Beside them the
+    # single level (the ppa_msb driver's and the lone ANDs' launch).
+    rows.update(and_level_rows(words, words32, dev))
+    lv = [words(4, BATCH), words(4, BATCH), words(3, BATCH),
+          words(3, BATCH)]
+    single = {"ms": device_ms(lambda: PPA.and_level_cuda(*lv),
+                              "and_level_kernel"),
+              "call_ms": cuda_ms(lambda: ops.and_level(*lv)),
+              "plain_ms": device_ms(lambda: PPA.and_level_plain(*lv))}
+    check(torch.equal(PPA.and_level_cuda(*lv), PPA.and_level_plain(*lv)),
+          "and_level disagrees with its plain version (one level)")
+    big = [words(4, BIG_N), words(4, BIG_N), words(3, BIG_N),
+           words(3, BIG_N)]
     check(torch.equal(PPA.and_level_cuda(*big), PPA.and_level_plain(*big)),
           "and_level disagrees at n = 2^20")
     check(torch.equal(PPA.and_level_cuda(*big[:3]),
                       PPA.and_level_plain(*big[:3])),
           "and_level disagrees with zero = None (collapsed) at n = 2^20")
-    b_ms, b_by = bound(8 * 18 * (1 << 20), 30 * (1 << 20))
-    rows[ops.AND_LEVEL.name]["at_n_2^20"] = {
+    b_ms, b_by = bound(8 * 18 * BIG_N, 30 * BIG_N)
+    single["at_n_2^20"] = {
         "ms": device_ms(lambda: PPA.and_level_cuda(*big), "and_level_kernel"),
         "plain_ms": device_ms(lambda: PPA.and_level_plain(*big)),
         "bound_ms": b_ms, "bound_by": b_by}
-    lv32 = level_inputs(5000, words32)
+    rows[ops.AND_LEVEL.name]["single_level"] = single
+    lv32 = [words32(4, 5000), words32(4, 5000), words32(3, 5000),
+            words32(3, 5000)]
     check(torch.equal(PPA.and_level_cuda(*lv32), PPA.and_level_plain(*lv32)),
           "and_level disagrees on 32-bit words")
 
@@ -466,6 +627,7 @@ def device_ops(fn, reps: int = 20, warmup: int = 2) -> tuple:
             fn()
         torch.cuda.synchronize()
     evs = [e for e in prof.key_averages() if e.device_time_total > 0]
+    check(evs, f"the profiler saw no device time for {fn}")
     return (sum(e.device_time_total for e in evs) / reps / 1e3,
             sum(e.count for e in evs) / reps)
 
@@ -813,6 +975,8 @@ def profile_batch(label: str, run, steady_wall_s: float) -> None:
         wall = time.perf_counter() - t0
     evs = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in evs) / 1e3
+    check(busy_ms > 0, f"the profiler saw no device time in the {label} "
+          f"batch")
     # device operations (kernels, copies, fills) against every profiler
     # event, which also counts the host's runtime API calls (launches,
     # copies, synchronizations)
@@ -832,15 +996,14 @@ def profile_batch(label: str, run, steady_wall_s: float) -> None:
                   f"{e.key[:90]}")
 
 
-def tensor_core_instructions(build) -> tuple | None:
-    """(GMMA, IGMMA) counts of warpgroup MMA instructions in ring_matmul's
-    SASS, the integer ones being IGMMA; None where the toolkit has no
-    cuobjdump."""
+def tensor_core_instructions(build, source: str) -> tuple | None:
+    """(GMMA, IGMMA) counts of warpgroup MMA instructions in the SASS of
+    one source's library, the integer ones being IGMMA; None where the
+    toolkit has no cuobjdump."""
     cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     if not os.path.exists(cuobjdump):
         return None
-    sass = subprocess.run([cuobjdump, "-sass",
-                           str(build._target("ring_matmul"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(build._target(source))],
                           capture_output=True, text=True, timeout=120).stdout
     lines = [ln for ln in sass.splitlines() if "GMMA" in ln]
     return len(lines), sum("IGMMA" in ln for ln in lines)
@@ -873,6 +1036,21 @@ def drive(path: str, kernels: list, needed: tuple, run, batches: int):
     return out, wall
 
 
+def check_calls(path: str, kernels: list, batches: int) -> None:
+    """The joint paths' whole-chain and_level and mpc_matmul_fused launches
+    a batch on the card against the wrapper calls a batch of the CPU run
+    just made (plain versions; each call is the launch the card makes)."""
+    from repro_torch.kernels import ops
+    for k in (ops.AND_LEVEL, ops.MPC_MATMUL_FUSED):
+        on_card = next(r for r in kernels if r["name"] == k.name)[
+            "launches_by_path"][path] / batches
+        check(on_card == k.calls / batches,
+              f"{path}: {k.name} {on_card:g} launches a batch on the card, "
+              f"{k.calls / batches:g} wrapper calls a batch on the CPU")
+        print(f"{path}: {k.name} {on_card:g} launches a batch, equal to the "
+              f"CPU run's wrapper calls")
+
+
 def check_probs(path: str, words, want: np.ndarray) -> None:
     from repro_torch.core.ring import RING64
     probs = RING64.decode(words.cpu()).numpy()
@@ -901,24 +1079,28 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    logs = build.build_all()
-    print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
+    build.build_all()
+    print(f"built {list(build.SOURCES)} in {time.perf_counter() - t0:.1f} s")
+    # each library's compiler log, kept beside it by the build
+    logs = {name: build.compile_log(name) for name in build.SOURCES}
     ptxas = {}
     for name, log in sorted(logs.items()):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
                 ptxas.setdefault(name, []).append(line.strip())
-    # ptxas note C7520: wgmma serialized, the tensor-core route lost
-    check("C7520" not in logs.get("ring_matmul", ""),
-          "ring_matmul: ptxas serialized its wgmma instructions (C7520)")
-    gmma = tensor_core_instructions(build)
-    if gmma is None:
-        print("ring_matmul: GMMA instructions not counted (no cuobjdump)")
-    else:
-        print(f"ring_matmul: {gmma[0]} GMMA (tensor-core) instructions in "
-              f"the library's SASS, {gmma[1]} of them IGMMA")
-        check(gmma[1] > 0, "ring_matmul: no integer GMMA in its SASS")
+    # the two sources on the int8 tensor-core limb core; ptxas note C7520:
+    # wgmma serialized, the tensor-core route lost
+    for src in ("ring_matmul", "mpc_matmul_fused"):
+        check("C7520" not in logs.get(src, ""),
+              f"{src}: ptxas serialized its wgmma instructions (C7520)")
+        gmma = tensor_core_instructions(build, src)
+        if gmma is None:
+            print(f"{src}: GMMA instructions not counted (no cuobjdump)")
+        else:
+            print(f"{src}: {gmma[0]} GMMA (tensor-core) instructions in the "
+                  f"library's SASS, {gmma[1]} of them IGMMA")
+            check(gmma[1] > 0, f"{src}: no integer GMMA in its SASS")
 
     rng = np.random.RandomState(SEED)
     kernels = kernel_phase(rng, ptxas)
@@ -956,6 +1138,28 @@ def main() -> int:
                   f"in {r['device_ms_all_ops']:.5f} ms; per-party sequence "
                   f"{pp['call_ms']:.5f} ms, {pp['device_ops']:g} device ops "
                   f"in {pp['device_ms']:.5f} ms")
+        for r in k.get("shapes", []):
+            print(f"  {r['shape']}: {r['ms']:.5f} ms on the device, call "
+                  f"{r['call_ms']:.5f} ms (plain {r['plain_ms']:.3f} ms); "
+                  f"bound {r['bound_ms']:.5f} ms by {r['bound_by']} (bytes "
+                  f"{r['bound_ms_bytes']:.5f}, int8 operations "
+                  f"{r['bound_ms_int8_ops']:.5f}); {r['blocks']} blocks of "
+                  f"{r['steps_a_block']} steps (k_chunk {r['k_chunk']}): "
+                  f"the ring matmul's fit gives {r['fit_ms']:.5f} ms")
+        for world, chains in k.get("chains_at_n_128", {}).items():
+            for name, r in chains.items():
+                print(f"  {name} ({world}, n = {BATCH}): {r['ms']:.5f} ms "
+                      f"on the device, wrapper call {r['call_ms']:.5f} ms, "
+                      f"plain {r['plain_ms']:.5f} ms in "
+                      f"{r['plain_device_ops']:g} device ops, bound "
+                      f"{r['bound_ms']:.7f} ms by {r['bound_by']}")
+        if "single_level" in k:
+            r = k["single_level"]
+            print(f"  one level (n = {BATCH}): {r['ms']:.5f} ms on the "
+                  f"device, call {r['call_ms']:.5f} ms, plain "
+                  f"{r['plain_ms']:.5f} ms; at n = 2^20 "
+                  f"{r['at_n_2^20']['ms']:.5f} ms (bound "
+                  f"{r['at_n_2^20']['bound_ms']:.5f} ms)")
         if "streams_per_launch" in k:
             print(f"  {k['streams_per_launch']} streams a launch: "
                   f"{k['ms_per_stream']:.5f} ms on the device and "
@@ -1026,8 +1230,10 @@ def main() -> int:
     print(f"joint A served {jsrv.stats.queries} queries in {wall:.3f} s: "
           f"{jsrv.stats.queries / wall:.1f} queries/s")
     t0 = time.perf_counter()
+    ops.reset_launches()
     jref_srv, jref_words = serve_joint("cpu", params, net, queries)
     print(f"joint A cpu reference in {time.perf_counter() - t0:.1f} s")
+    check_calls("joint_faithful", kernels, N_BATCHES)
     check(torch.equal(jwords.cpu(), jref_words),
           "joint A: opened words differ between the card and the CPU")
     stat_keys = ("batches", "queries", "online_rounds", "online_bits",
@@ -1056,7 +1262,9 @@ def main() -> int:
     print(f"joint B batch: {wall * 1e3:.1f} ms, {BATCH / wall:.1f} "
           f"queries/s (the first collapsed batch)")
     check(not ctx.abort_flag(), "joint B: the joint world aborted")
+    ops.reset_launches()
     cref_ctx, cref_words = predict_collapsed("cpu", params, net, X)
+    check_calls("joint_collapsed", kernels, 1)
     check(torch.equal(cwords, cref_words),
           "joint B: opened words differ between the card and the CPU")
     check(ctx.tally.totals() == cref_ctx.tally.totals()
@@ -1064,6 +1272,12 @@ def main() -> int:
           "joint B: totals() differ from the CPU run or from path A")
     print("joint B: words equal to the CPU run; totals() equal to path A")
     check_probs("joint B", cwords, want[:BATCH])
+    t0 = time.perf_counter()
+    predict_collapsed("cuda", params, net, X)
+    torch.cuda.synchronize()
+    profile_batch("joint B", lambda: predict_collapsed("cuda", params, net,
+                                                       X),
+                  time.perf_counter() - t0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels}))

@@ -13,10 +13,15 @@ linear over GF(2), hence share-local): log2(ell) levels with ell/2 active
 positions * 2 ANDs each, ell*(log ell + 1) ANDs in all with the initial
 g = x AND y.
 
-Kernel route: in ``fused`` mode each secure AND's local math -- the Fig. 4
-gamma split, the three m_z' parts and m_z -- is ONE ``and_level`` kernel
-call (``kernels.ops.and_level``) on the (4, n) flattened share stacks.  The
-``offline`` and ``online`` modes keep the plain tensor code.
+Kernel routes, in ``fused`` mode: a lone secure AND's local math -- the
+Fig. 4 gamma split, the three m_z' parts and m_z -- is ONE ``and_level``
+kernel call (``kernels.ops.and_level``) on the (4, n) flattened share
+stacks; a whole adder (``ppa_add``) or prefix-OR chain (``prefix_or``) is
+ONE call (``kernels.ops.ppa_add`` / ``prefix_or``) that runs every AND
+level, smear and mask of the chain per word, with all its ANDs' PRF draws
+taken in one group in the AND-by-AND order and its tally entries made by a
+host loop in the AND-by-AND order.  The ``offline`` and ``online`` modes
+keep the plain tensor code.
 """
 from __future__ import annotations
 
@@ -87,19 +92,43 @@ def _bool_zero_stack(f1, f2, f3) -> torch.Tensor:
     return torch.stack([f2 ^ f1, f3 ^ f2, f1 ^ f3])
 
 
+def _flat(t: torch.Tensor, out_shape) -> torch.Tensor:
+    """A (rows, *shape) stack broadcast to out_shape, as (rows, n)."""
+    rows = t.shape[0]
+    lead = (1,) * (len(out_shape) - (t.dim() - 1))
+    t = t.reshape((rows,) + lead + tuple(t.shape[1:]))
+    return t.broadcast_to((rows,) + tuple(out_shape)).reshape(rows, -1)
+
+
 def _and_level(x: BShare, y: BShare, lam_z, zs, out_shape) -> torch.Tensor:
     """One ``and_level`` kernel call on the broadcast, (4, n)-flattened
     stacks; returns the (4, *out_shape) output stack (m_z, lam_z)."""
-    full = (4,) + tuple(out_shape)
+    out = ops.and_level(_flat(x.data, out_shape), _flat(y.data, out_shape),
+                        _flat(lam_z, out_shape),
+                        None if zs is None else _flat(zs, out_shape))
+    return out.reshape((4,) + tuple(out_shape))
 
-    def flat(t, rows):
-        lead = (1,) * (len(out_shape) - (t.dim() - 1))
-        t = t.reshape((rows,) + lead + tuple(t.shape[1:]))
-        return t.broadcast_to((rows,) + tuple(out_shape)).reshape(rows, -1)
 
-    out = ops.and_level(flat(x.data, 4), flat(y.data, 4), flat(lam_z, 3),
-                        None if zs is None else flat(zs, 3))
-    return out.reshape(full)
+def _and_specs(ctx: TridentContext, out_shape) -> list:
+    """One fused AND's draws in the JAX package's order: lam_z, then
+    (faithful) the Pi_Zero streams."""
+    specs = [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]
+    if not ctx.collapse:
+        specs += [(s, out_shape) for s in AL.ZERO_SUBSETS]
+    return specs
+
+
+def _tally_and(ctx: TridentContext, n_gates: int) -> None:
+    ctx.tally.add("Pi_AND", "offline", rounds=1, bits=3 * n_gates)
+    ctx.tally.add("Pi_AND", "online", rounds=1, bits=3 * n_gates)
+
+
+def _chain_draws(ctx: TridentContext, ands: int, out_shape) -> torch.Tensor:
+    """The draws of `ands` fused ANDs in a row, as one (ands, S, n) view of
+    the buffer they were drawn into (S = 6 faithful, 3 collapsed)."""
+    specs = _and_specs(ctx, out_shape)
+    buf = ctx.sample_group(specs * ands, flat=True)
+    return buf.view(ands, len(specs), _n(out_shape))
 
 
 def and_bshare(ctx: TridentContext, x: BShare, y: BShare,
@@ -121,16 +150,11 @@ def and_bshare(ctx: TridentContext, x: BShare, y: BShare,
         # the kernel route: lam_z, then (faithful) the zero shares, in the
         # JAX package's sampling order, as one group of draws; m_z from one
         # fused level
-        specs = [(AL.lam_holders(j), out_shape) for j in (1, 2, 3)]
-        if not ctx.collapse:
-            specs += [(s, out_shape) for s in AL.ZERO_SUBSETS]
-        drawn = ctx.sample_group(specs)
+        drawn = ctx.sample_group(_and_specs(ctx, out_shape))
         lam_z = torch.stack(drawn[:3])
         zs = None if ctx.collapse else _bool_zero_stack(*drawn[3:])
-        ctx.tally.add("Pi_AND", "offline", rounds=1, bits=3 * n_gates)
-        data = _and_level(x, y, lam_z, zs, out_shape)
-        ctx.tally.add("Pi_AND", "online", rounds=1, bits=3 * n_gates)
-        return BShare(data, nbits)
+        _tally_and(ctx, n_gates)
+        return BShare(_and_level(x, y, lam_z, zs, out_shape), nbits)
 
     if ctx.mode == "offline":
         lam_z = torch.stack(ctx.sample_group(
@@ -186,6 +210,8 @@ def ppa_add(ctx: TridentContext, x: BShare, y: BShare,
             cin: int = 0) -> BShare:
     """[[x + y + cin]]^B over Z_{2^ell}: log2(ell) AND-levels."""
     ell = ctx.ring.ell
+    if ctx.mode == "fused":
+        return _ppa_add_fused(ctx, x, y, cin)
     p0 = x ^ y
     g = and_bshare(ctx, x, y)                       # ell ANDs
     p = p0
@@ -213,6 +239,26 @@ def ppa_add(ctx: TridentContext, x: BShare, y: BShare,
     return BShare(s.data, ell)
 
 
+def _ppa_add_fused(ctx: TridentContext, x: BShare, y: BShare,
+                   cin: int) -> BShare:
+    """ppa_add as one ``ops.ppa_add`` call: the 2 log2(ell) + 1 ANDs'
+    draws in one group, the operands broadcast once, the tally's entries
+    and parallel frames as the AND-by-AND code makes them."""
+    ell = ctx.ring.ell
+    levels = int(math.log2(ell))
+    out_shape = tuple(torch.broadcast_shapes(x.shape, y.shape))
+    n = _n(out_shape)
+    draws = _chain_draws(ctx, 2 * levels + 1, out_shape)
+    _tally_and(ctx, max(x.nbits, y.nbits) * n)
+    for _ in range(levels):
+        with ctx.tally.parallel():
+            _tally_and(ctx, ell // 2 * n)
+            _tally_and(ctx, ell // 2 * n)
+    data = ops.ppa_add(_flat(x.data, out_shape), _flat(y.data, out_shape),
+                       draws, cin)
+    return BShare(data.reshape((4,) + out_shape), ell)
+
+
 def ppa_sub(ctx: TridentContext, x: BShare, y: BShare) -> BShare:
     """[[x - y]]^B = x + NOT(y) + 1."""
     return ppa_add(ctx, x, ~y, cin=1)
@@ -231,6 +277,8 @@ def prefix_or(ctx: TridentContext, x: BShare) -> BShare:
     Used by the in-protocol power-of-two normalization (activations.py).
     """
     ell = ctx.ring.ell
+    if ctx.mode == "fused":
+        return _prefix_or_fused(ctx, x)
     cur = x
     j = 1
     while j < ell:
@@ -238,3 +286,16 @@ def prefix_or(ctx: TridentContext, x: BShare) -> BShare:
         cur = ~and_bshare(ctx, ~cur, ~shifted)
         j <<= 1
     return cur
+
+
+def _prefix_or_fused(ctx: TridentContext, x: BShare) -> BShare:
+    """prefix_or as one ``ops.prefix_or`` call: the log2(ell) ANDs' draws
+    in one group, their tally entries as the AND-by-AND code makes them."""
+    ell, n = ctx.ring.ell, _n(x.shape)
+    ands = int(math.log2(ell))
+    draws = _chain_draws(ctx, ands, x.shape)
+    for _ in range(ands):
+        _tally_and(ctx, x.nbits * n)
+    data = ops.prefix_or(x.data.reshape(4, -1), draws,
+                         signed((1 << x.nbits) - 1, ell))
+    return BShare(data.reshape(x.data.shape), x.nbits)

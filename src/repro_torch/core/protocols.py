@@ -147,10 +147,11 @@ def _gamma_offline(ctx: TridentContext, lx: torch.Tensor, ly: torch.Tensor,
 
 def _fused_gamma(x: AShare, y: AShare) -> tuple:
     """The collapsed gamma stack [g, 0, 0] and the online products
-    (m_x @ m_y, cross) from one ``mpc_matmul_fused`` call."""
-    mm, cross, g = ops.mpc_matmul_fused(x.m, x.data[1:], y.m, y.data[1:])
-    z = torch.zeros_like(g)
-    return torch.stack([g, z, z]), (mm, cross)
+    (m_x @ m_y, cross) from one ``mpc_matmul_fused`` call (views of its
+    one zeroed output)."""
+    mm, cross, gamma = ops.mpc_matmul_fused(x.m, x.data[1:], y.m,
+                                            y.data[1:])
+    return gamma, (mm, cross)
 
 
 def _mult_like(ctx: TridentContext, x: AShare, y: AShare, name: str,

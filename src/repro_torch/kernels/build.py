@@ -4,9 +4,12 @@ Each CUDA source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface and loaded with ``ctypes``.
 All sources build at once, one ``nvcc`` process each, into
 ``build/repro_torch_kernels/`` at the root of the checkout; a library is
-named by its source's content hash, so an edited source rebuilds and an
-unchanged one loads as it is.  Nothing here runs at import: the CPU tests
-import every module of the package.
+named by the content hash of its source and of the headers beside it
+(``limb_core.cuh``), so an edited source or header rebuilds and an
+unchanged one loads as it is.  The compiler's log (ptxas register and
+shared-memory use, its notes) is kept beside each library under the same
+name.  Nothing here runs at import: the CPU tests import every module of
+the package.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_U64 = ctypes.c_uint64
 # C entry points and their argument types (the stream comes last).
 SIGNATURES = {
     "prf_mask_group_u64": (_P, _P, _P),     # out, address of a PrfGroup
@@ -38,6 +42,12 @@ SIGNATURES = {
     "and_terms_group_u32": (_P, _P),
     "and_level_u64": (_P, _P, _P, _P, _P, _I64, _P),
     "and_level_u32": (_P, _P, _P, _P, _P, _I64, _P),
+    # x, y, draws, streams an AND, cin, out, n
+    "ppa_add_u64": (_P, _P, _P, _I, _I, _P, _I64, _P),
+    "ppa_add_u32": (_P, _P, _P, _I, _I, _P, _I64, _P),
+    # x, draws, streams an AND, NOT's mask, out, n
+    "prefix_or_u64": (_P, _P, _I, _U64, _P, _I64, _P),
+    "prefix_or_u32": (_P, _P, _I, _U64, _P, _I64, _P),
     "mpc_matmul_fused_u64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mpc_matmul_fused_u32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -54,17 +64,22 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    text = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
-def build_all() -> dict:
-    """Compile every source that has no library yet, all in parallel.
-    Returns {source: compiler log} (ptxas register / shared-memory use) for
-    the sources compiled by this call; raises if any compile fails."""
+def _log(name: str) -> Path:
+    return _target(name).with_suffix(".log")
+
+
+def build_all() -> None:
+    """Compile every source that has no library (or no log) yet, all in
+    parallel; raise if any compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    todo = [n for n in SOURCES if not _target(n).exists()]
+    todo = [n for n in SOURCES
+            if not (_target(n).exists() and _log(n).exists())]
     nvcc = _nvcc()
     procs = {}
     for name in todo:
@@ -73,17 +88,23 @@ def build_all() -> dict:
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
-    logs, failed = {}, []
+    failed = []
     for name, (tmp, proc) in procs.items():
-        logs[name] = proc.communicate()[0]
+        log = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(name)
-        else:
-            os.replace(tmp, _target(name))
+            failed.append(f"{name}.cu:\n{log}")
+            continue
+        _log(name).write_text(log)
+        os.replace(tmp, _target(name))
     if failed:
-        raise RuntimeError("nvcc failed for " + ", ".join(
-            f"{n}.cu:\n{logs[n]}" for n in failed))
-    return logs
+        raise RuntimeError("nvcc failed for " + ", ".join(failed))
+
+
+def compile_log(name: str) -> str:
+    """The compiler's log of one source's library, built first if need
+    be."""
+    build_all()
+    return _log(name).read_text()
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -1,11 +1,14 @@
-// One boolean AND level of the joint simulation, fused, for Hopper (sm_90a).
+// Boolean AND levels of the joint simulation, fused, for Hopper (sm_90a):
+// one level, the whole Sklansky adder, or the whole prefix-OR chain.
 //
-// Replaces: src/repro/kernels/ppa_msb.py:and_level (_and_level_kernel), and
-// through it the per-level work of src/repro/kernels/ppa_msb.py:ppa_msb,
-// whose Python loop (kernels/ppa_msb.py) launches this kernel per level.
+// Replaces: src/repro/kernels/ppa_msb.py:43 and_level (_and_level_kernel,
+// :21), and through it the per-level work of the Sklansky loops
+// (src/repro/kernels/ppa_msb.py:65 ppa_msb, src/repro/core/boolean.py's
+// ppa_add and prefix_or), each of whose ANDs is one such level.
 //
-// On bit-sliced words, for share stacks x, y = (m, l1, l2, l3), fresh output
-// lambdas lamz = (z1, z2, z3) and Pi_Zero shares zero = (s0, s1, s2):
+// One level (Fig. 4 with XOR/AND), on bit-sliced words, for share stacks
+// x, y = (m, l1, l2, l3), fresh output lambdas (z1, z2, z3) and Pi_Zero
+// shares (s0, s1, s2):
 //
 //   g1 = l1x&l1y ^ l1x&l2y ^ l2x&l1y ^ s2        (Fig. 4's gamma split)
 //   g2 = l2x&l2y ^ l2x&l3y ^ l3x&l2y ^ s0
@@ -13,22 +16,124 @@
 //   p_i = lix&my ^ mx&liy ^ g_i ^ z_i             (the three m_z' parts)
 //   out = (p1 ^ p2 ^ p3 ^ mx&my, z1, z2, z3)
 //
-// x, y, out are (4, n), lamz and zero (3, n), all contiguous.  A null
-// `zero` stands for zero shares (the component-collapsed joint world, where
-// g1 ^ g2 ^ g3 = lx_sum & ly_sum).  Words are uint64_t or uint32_t.
+// Entries (words uint64_t or uint32_t; stacks (4, n), contiguous):
+//   and_level   x, y, lamz (3, n), zero (3, n) or null for zero shares (the
+//               component-collapsed joint world, where g1 ^ g2 ^ g3 =
+//               lx_sum & ly_sum): one level.
+//   ppa_add     [[x + y + cin]] by the Sklansky adder: the first AND
+//               g = x & y, then log2(ell) levels of the boundary smears,
+//               the upper-half masks and two ANDs, then the sum.
+//   prefix_or   [[OR_{j >= i} x_j]] from the msb down: log2(ell) ANDs of
+//               NOT cur and NOT (cur >> j), each result inverted.
+// The two chains read their ANDs' draws where the protocol's one group of
+// PRF draws put them: (A, S, n) words, AND a's streams S = 6 (z1, z2, z3,
+// f1, f2, f3) faithful, S = 3 (z1, z2, z3) collapsed; the kernel forms
+// Fig. 4's zero shares (f2 ^ f1, f3 ^ f2, f1 ^ f3) itself.
 //
-// Design: one thread per word reads the 14 input planes once and writes the
-// 4 output planes once (no padding: the grid masks its own tail) -- the
-// fusion the TPU kernel was built for, keeping the ~25 intermediate word ops
-// in registers.
+// Design: one thread per word.  Every shift, smear and mask of the adder
+// works within a word and every AND is bitwise, so a chain is independent
+// per word and its levels need no synchronisation: a thread holds both
+// stacks in registers through all its ANDs and reads each input plane and
+// draw once and writes the output stack once.  A chain loads all its
+// draws before its first AND, so the loads' latencies overlap rather than
+// add up along the chain's dependent levels.
 //
-// Bound on the H100: bytes (18 words per element, 144 B at ell = 64, for
-// about 30 integer operations).  Left on the table: 16-byte vector loads, and
-// the launch itself -- at the main path's n = 128 the kernel is launch bound.
+// Bound on the H100: bytes.  A level moves 18 words an element (144 B at
+// ell = 64) for about 30 integer operations; the adder 2 x 4 input words,
+// 13 x 6 draws and 4 output words (720 B) for about 850.  At the main
+// path's n = 128 every launch is one near-empty block: launch bound.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
+
+// A share stack of one word: (m, l1, l2, l3).
+template <typename W>
+struct Stack {
+  W m, l1, l2, l3;
+};
+
+template <typename W>
+__device__ __forceinline__ Stack<W> load(const W* __restrict__ s, int64_t n,
+                                         int64_t i) {
+  return {s[i], s[n + i], s[2 * n + i], s[3 * n + i]};
+}
+
+template <typename W>
+__device__ __forceinline__ void store(W* __restrict__ s, int64_t n,
+                                      int64_t i, const Stack<W>& v) {
+  s[i] = v.m;
+  s[n + i] = v.l1;
+  s[2 * n + i] = v.l2;
+  s[3 * n + i] = v.l3;
+}
+
+template <typename W>
+__device__ __forceinline__ Stack<W> operator^(const Stack<W>& a,
+                                              const Stack<W>& b) {
+  return {a.m ^ b.m, a.l1 ^ b.l1, a.l2 ^ b.l2, a.l3 ^ b.l3};
+}
+
+template <typename W>
+__device__ __forceinline__ Stack<W> operator&(const Stack<W>& a, W mask) {
+  return {a.m & mask, a.l1 & mask, a.l2 & mask, a.l3 & mask};
+}
+
+template <typename W>
+__device__ __forceinline__ Stack<W> operator<<(const Stack<W>& a, int k) {
+  return {a.m << k, a.l1 << k, a.l2 << k, a.l3 << k};
+}
+
+template <typename W>
+__device__ __forceinline__ Stack<W> operator>>(const Stack<W>& a, int k) {
+  return {a.m >> k, a.l1 >> k, a.l2 >> k, a.l3 >> k};
+}
+
+// The level: (m_z, z1, z2, z3) of x AND y.
+template <typename W>
+__device__ __forceinline__ Stack<W> and_level(const Stack<W>& x,
+                                              const Stack<W>& y, W z1, W z2,
+                                              W z3, W s0, W s1, W s2) {
+  const W g1 = (x.l1 & y.l1) ^ (x.l1 & y.l2) ^ (x.l2 & y.l1) ^ s2;
+  const W g2 = (x.l2 & y.l2) ^ (x.l2 & y.l3) ^ (x.l3 & y.l2) ^ s0;
+  const W g3 = (x.l3 & y.l3) ^ (x.l3 & y.l1) ^ (x.l1 & y.l3) ^ s1;
+  const W p1 = (x.l1 & y.m) ^ (x.m & y.l1) ^ g1 ^ z1;
+  const W p2 = (x.l2 & y.m) ^ (x.m & y.l2) ^ g2 ^ z2;
+  const W p3 = (x.l3 & y.m) ^ (x.m & y.l3) ^ g3 ^ z3;
+  return {p1 ^ p2 ^ p3 ^ (x.m & y.m), z1, z2, z3};
+}
+
+// A chain's draws, all loaded into registers before its first AND, so
+// their loads overlap instead of waiting one after another on the chain's
+// dependent levels: `kAnds` ANDs of S (6 or 3) planes of n words.
+template <typename W, int kAnds, int S>
+struct Draws {
+  W d[kAnds][S];
+
+  __device__ __forceinline__ Draws(const W* __restrict__ draws, int64_t n,
+                                   int64_t i) {
+#pragma unroll
+    for (int a = 0; a < kAnds; ++a)
+#pragma unroll
+      for (int s = 0; s < S; ++s) d[a][s] = draws[(a * S + s) * n + i];
+  }
+
+  // AND number a of the chain with its draws (z1, z2, z3[, f1, f2, f3])
+  __device__ __forceinline__ Stack<W> and_(int a, const Stack<W>& x,
+                                           const Stack<W>& y) const {
+    W s0 = 0, s1 = 0, s2 = 0;
+    if (S == 6) {
+      s0 = d[a][4 % S] ^ d[a][3 % S];
+      s1 = d[a][5 % S] ^ d[a][4 % S];
+      s2 = d[a][3 % S] ^ d[a][5 % S];
+    }
+    return and_level(x, y, d[a][0], d[a][1], d[a][2], s0, s1, s2);
+  }
+};
+
+// log2(ell): the adder's levels and the prefix-OR's ANDs.
+template <typename W>
+constexpr int kLog2Ell = sizeof(W) == 8 ? 6 : 5;
 
 template <typename W>
 __global__ void and_level_kernel(const W* __restrict__ x,
@@ -39,40 +144,135 @@ __global__ void and_level_kernel(const W* __restrict__ x,
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n) return;
-  const W mx = x[i], lx1 = x[n + i], lx2 = x[2 * n + i], lx3 = x[3 * n + i];
-  const W my = y[i], ly1 = y[n + i], ly2 = y[2 * n + i], ly3 = y[3 * n + i];
-  const W z1 = lamz[i], z2 = lamz[n + i], z3 = lamz[2 * n + i];
   W s0 = 0, s1 = 0, s2 = 0;
   if (zero != nullptr) {
     s0 = zero[i];
     s1 = zero[n + i];
     s2 = zero[2 * n + i];
   }
-  const W g1 = (lx1 & ly1) ^ (lx1 & ly2) ^ (lx2 & ly1) ^ s2;
-  const W g2 = (lx2 & ly2) ^ (lx2 & ly3) ^ (lx3 & ly2) ^ s0;
-  const W g3 = (lx3 & ly3) ^ (lx3 & ly1) ^ (lx1 & ly3) ^ s1;
-  const W p1 = (lx1 & my) ^ (mx & ly1) ^ g1 ^ z1;
-  const W p2 = (lx2 & my) ^ (mx & ly2) ^ g2 ^ z2;
-  const W p3 = (lx3 & my) ^ (mx & ly3) ^ g3 ^ z3;
-  out[i] = p1 ^ p2 ^ p3 ^ (mx & my);
-  out[n + i] = z1;
-  out[2 * n + i] = z2;
-  out[3 * n + i] = z3;
+  store(out, n, i, and_level(load(x, n, i), load(y, n, i), lamz[i],
+                             lamz[n + i], lamz[2 * n + i], s0, s1, s2));
+}
+
+// Shift the isolated boundary bits of every component up across `width`
+// positions (shift-XOR doubling of disjoint bits: linear over GF(2)).
+template <typename W>
+__device__ __forceinline__ Stack<W> smear(Stack<W> v, int width) {
+  for (int j = 1; j < width; j <<= 1) v = v ^ (v << j);
+  return v;
+}
+
+template <typename W, int S>
+__global__ void ppa_add_kernel(const W* __restrict__ x,
+                               const W* __restrict__ y,
+                               const W* __restrict__ draws, W cin,
+                               W* __restrict__ out, int64_t n) {
+  constexpr int kLevels = kLog2Ell<W>;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const Draws<W, 2 * kLevels + 1, S> d(draws, n, i);
+  const Stack<W> X = load(x, n, i), Y = load(y, n, i);
+  const Stack<W> p0 = X ^ Y;
+  // g_0 ^= p_0 AND the public carry-in (cin is 0 or 1)
+  Stack<W> g = d.and_(0, X, Y) ^ (p0 & cin);
+  Stack<W> p = p0;
+#pragma unroll
+  for (int k = 0; k < kLevels; ++k) {
+    const int half = 1 << k;
+    // the lower half of every 2 * half block, its top bit (the boundary)
+    // and the upper half
+    const W lower = W(~W(0)) / W((W(1) << half) + W(1));
+    const W upper = W(~lower);
+    const W bnd = lower & W(upper >> 1);
+    const Stack<W> gb = smear((g & bnd) << 1, half);
+    const Stack<W> pb = smear((p & bnd) << 1, half);
+    const Stack<W> pu = p & upper;
+    g = g ^ d.and_(1 + 2 * k, pu, gb);
+    p = (p & lower) ^ d.and_(2 + 2 * k, pu, pb);
+  }
+  Stack<W> s = p0 ^ (g << 1);            // sum_i = p0_i ^ carry_i
+  s.m ^= cin;
+  store(out, n, i, s);
+}
+
+template <typename W, int S>
+__global__ void prefix_or_kernel(const W* __restrict__ x,
+                                 const W* __restrict__ draws, W mask,
+                                 W* __restrict__ out, int64_t n) {
+  constexpr int kAnds = kLog2Ell<W>;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const Draws<W, kAnds, S> d(draws, n, i);
+  Stack<W> cur = load(x, n, i);
+#pragma unroll
+  for (int a = 0; a < kAnds; ++a) {
+    // OR(cur, cur >> j) = NOT(AND(NOT cur, NOT (cur >> j))), NOT being
+    // the public XOR of `mask` into m
+    Stack<W> sh = cur >> (1 << a);
+    Stack<W> nc = cur;
+    nc.m ^= mask;
+    sh.m ^= mask;
+    cur = d.and_(a, nc, sh);
+    cur.m ^= mask;
+  }
+  store(out, n, i, cur);
 }
 
 constexpr int kThreads = 256;
+
+unsigned blocks_for(int64_t n) {
+  return static_cast<unsigned>((n + kThreads - 1) / kThreads);
+}
 
 template <typename W>
 int launch(const void* x, const void* y, const void* lamz, const void* zero,
            void* out, int64_t n, void* stream) {
   if (n <= 0) return 0;
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) /
-                                                kThreads);
-  and_level_kernel<W><<<blocks, kThreads, 0,
+  and_level_kernel<W><<<blocks_for(n), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const W*>(x), static_cast<const W*>(y),
       static_cast<const W*>(lamz), static_cast<const W*>(zero),
       static_cast<W*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int launch_add(const void* x, const void* y, const void* draws, int streams,
+               int cin, void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const W* xs = static_cast<const W*>(x);
+  const W* ys = static_cast<const W*>(y);
+  const W* ds = static_cast<const W*>(draws);
+  const W c = cin ? W(1) : W(0);
+  if (streams == 6)
+    ppa_add_kernel<W, 6><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ys, ds, c, static_cast<W*>(out), n);
+  else if (streams == 3)
+    ppa_add_kernel<W, 3><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ys, ds, c, static_cast<W*>(out), n);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int launch_or(const void* x, const void* draws, int streams, uint64_t mask,
+              void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  const W* xs = static_cast<const W*>(x);
+  const W* ds = static_cast<const W*>(draws);
+  if (streams == 6)
+    prefix_or_kernel<W, 6><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ds, static_cast<W>(mask), static_cast<W*>(out), n);
+  else if (streams == 3)
+    prefix_or_kernel<W, 3><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ds, static_cast<W>(mask), static_cast<W*>(out), n);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -88,4 +288,28 @@ extern "C" int and_level_u32(const void* x, const void* y, const void* lamz,
                              const void* zero, void* out, int64_t n,
                              void* stream) {
   return launch<uint32_t>(x, y, lamz, zero, out, n, stream);
+}
+
+extern "C" int ppa_add_u64(const void* x, const void* y, const void* draws,
+                           int streams, int cin, void* out, int64_t n,
+                           void* stream) {
+  return launch_add<uint64_t>(x, y, draws, streams, cin, out, n, stream);
+}
+
+extern "C" int ppa_add_u32(const void* x, const void* y, const void* draws,
+                           int streams, int cin, void* out, int64_t n,
+                           void* stream) {
+  return launch_add<uint32_t>(x, y, draws, streams, cin, out, n, stream);
+}
+
+extern "C" int prefix_or_u64(const void* x, const void* draws, int streams,
+                             uint64_t mask, void* out, int64_t n,
+                             void* stream) {
+  return launch_or<uint64_t>(x, draws, streams, mask, out, n, stream);
+}
+
+extern "C" int prefix_or_u32(const void* x, const void* draws, int streams,
+                             uint64_t mask, void* out, int64_t n,
+                             void* stream) {
+  return launch_or<uint32_t>(x, draws, streams, mask, out, n, stream);
 }

@@ -19,7 +19,9 @@ from .gamma_parts import (MAX_GROUPS, and_terms_group_plain,
                           mult_terms_group_plain, mult_terms_plain,
                           terms_group_cuda)
 from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
-from .ppa_msb import and_level_cuda, and_level_plain, ppa_msb
+from .ppa_msb import (and_level_cuda, and_level_plain, ppa_add_cuda,
+                      ppa_add_plain, ppa_msb, prefix_or_cuda,
+                      prefix_or_plain)
 from .prf_mask import (MAX_STREAMS, prf_mask_group_cuda,
                        prf_mask_group_plain)
 from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
@@ -36,8 +38,9 @@ class Kernel:
     replaces: str          # the TPU (Pallas) kernel, file:line
     launches: int = 0
     streams: int = 0       # prf_mask: PRF streams its launches drew
-    # mult_terms / and_terms: wrapper calls on either device, so a CPU run
-    # counts what the card launches (one launch a call of <= MAX_GROUPS)
+    # mult_terms / and_terms / mpc_matmul_fused / and_level: wrapper calls
+    # on either device, so a CPU run counts what the card launches (one
+    # launch a call; mult_terms / and_terms one a call of <= MAX_GROUPS)
     calls: int = 0
 
 
@@ -72,30 +75,33 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def lambda_masks_group(streams, dtype: torch.dtype,
-                       device="cpu") -> list:
+def lambda_masks_group(streams, dtype: torch.dtype, device="cpu",
+                       flat: bool = False):
     """The protocols' PRF draws, one launch per MAX_STREAMS streams.
     `streams`: (key_data, counter, shape, shift) each -- the subset key's
     two uint32 words, the protocol counter, the shape and the logical right
     shift of each word; returns one tensor of ring words (`dtype`) per
-    stream, views of one buffer."""
-    flat = [(kd, ctr, prf_numel(shape), shift)
-            for kd, ctr, shape, shift in streams]
+    stream, views of one buffer -- or, with `flat`, that buffer, the
+    streams' words one after another."""
+    sized = [(kd, ctr, prf_numel(shape), shift)
+             for kd, ctr, shape, shift in streams]
     if torch.device(device).type == "cpu":
-        buf = prf_mask_group_plain(flat, dtype, device)
+        buf = prf_mask_group_plain(sized, dtype, device)
     else:
-        buf = torch.empty(sum(n for _, _, n, _ in flat), dtype=dtype,
+        buf = torch.empty(sum(n for _, _, n, _ in sized), dtype=dtype,
                           device=device)
         off = 0
-        for i in range(0, len(flat), MAX_STREAMS):
-            part = flat[i:i + MAX_STREAMS]
+        for i in range(0, len(sized), MAX_STREAMS):
+            part = sized[i:i + MAX_STREAMS]
             n = sum(k for _, _, k, _ in part)
             prf_mask_group_cuda(part, buf[off:off + n])
             PRF_MASK.launches += 1
             off += n
-        PRF_MASK.streams += len(flat)
+        PRF_MASK.streams += len(sized)
+    if flat:
+        return buf
     out, off = [], 0
-    for (_, _, shape, _), (_, _, n, _) in zip(streams, flat):
+    for (_, _, shape, _), (_, _, n, _) in zip(streams, sized):
         out.append(buf[off:off + n].view(tuple(shape)))
         off += n
     return out
@@ -199,8 +205,10 @@ def and_terms(a, b, c) -> torch.Tensor:
 
 
 def mpc_matmul_fused(mx, lx, my, ly) -> tuple:
-    """(mx @ my, lx_sum @ my + mx @ ly_sum, lx_sum @ ly_sum) mod 2^ell;
-    mx (M, K), lx (3, M, K), my (K, N), ly (3, K, N)."""
+    """(mx @ my, lx_sum @ my + mx @ ly_sum, [lx_sum @ ly_sum, 0, 0]) mod
+    2^ell, views of one zeroed buffer; mx (M, K), lx (3, M, K), my (K, N),
+    ly (3, K, N)."""
+    MPC_MATMUL_FUSED.calls += 1
     if _on_cpu(mx):
         return mpc_matmul_fused_plain(mx, lx, my, ly)
     out = mpc_matmul_fused_cuda(mx, lx, my, ly)
@@ -211,6 +219,7 @@ def mpc_matmul_fused(mx, lx, my, ly) -> tuple:
 def and_level(x, y, lamz, zero=None) -> torch.Tensor:
     """One boolean AND level on (4, n) share stacks: returns the (4, n)
     output stack (m_z, lamz); `zero` (3, n) Pi_Zero shares or None."""
+    AND_LEVEL.calls += 1
     if _on_cpu(x):
         return and_level_plain(x, y, lamz, zero)
     out = and_level_cuda(x, y, lamz, zero)
@@ -218,11 +227,34 @@ def and_level(x, y, lamz, zero=None) -> torch.Tensor:
     return out
 
 
+def ppa_add(x, y, draws, cin: int = 0) -> torch.Tensor:
+    """[[x + y + cin]] of (4, n) boolean share stacks by the whole Sklansky
+    adder in one ``and_level.cu`` launch; `draws` (2 log2(ell) + 1, S, n)
+    its ANDs' PRF draws (S = 6 faithful, 3 collapsed)."""
+    AND_LEVEL.calls += 1
+    if _on_cpu(x):
+        return ppa_add_plain(x, y, draws, cin)
+    out = ppa_add_cuda(x, y, draws, cin)
+    AND_LEVEL.launches += 1
+    return out
+
+
+def prefix_or(x, draws, mask: int) -> torch.Tensor:
+    """[[prefix-OR]] of a (4, n) boolean share stack from the msb down in
+    one ``and_level.cu`` launch; `draws` (log2(ell), S, n), `mask` the
+    all-ones word of the valid bits."""
+    AND_LEVEL.calls += 1
+    if _on_cpu(x):
+        return prefix_or_plain(x, draws, mask)
+    out = prefix_or_cuda(x, draws, mask)
+    AND_LEVEL.launches += 1
+    return out
+
+
 def msb_of_sum_words(x, y, lamz_levels, zero_levels) -> torch.Tensor:
     """msb(x + y) of (n,) public words through the Sklansky loop; one
     ``and_level`` per level, lamz/zero levels (log2(ell) + 1, 3, n)."""
-    if _on_cpu(x):
-        return ppa_msb(x, y, lamz_levels, zero_levels, and_level_plain)
     out = ppa_msb(x, y, lamz_levels, zero_levels, and_level)
-    PPA_MSB.launches += 1
+    if not _on_cpu(x):
+        PPA_MSB.launches += 1
     return out

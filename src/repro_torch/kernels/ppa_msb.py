@@ -1,14 +1,22 @@
-"""One fused boolean AND level of the joint simulation, and the Sklansky
-msb(x + y) loop over it: the Hopper kernel and its plain PyTorch version
-(``repro/kernels/ppa_msb.py``).
+"""Fused boolean AND levels of the joint simulation -- one level, the whole
+Sklansky adder and the whole prefix-OR chain -- and the Sklansky msb(x + y)
+loop over single levels: the Hopper kernels and their plain PyTorch
+versions (``repro/kernels/ppa_msb.py``).
 
     and_level(x, y, lamz, zero) -> (4, n): (m_z, lamz[0], lamz[1], lamz[2])
+    ppa_add(x, y, draws, cin)   -> (4, n): [[x + y + cin]]
+    prefix_or(x, draws, mask)   -> (4, n): [[OR_{j >= i} x_j]]
 
 x, y are (4, n) bit-sliced share stacks (m, l1, l2, l3); lamz the (3, n)
 fresh output lambdas; zero the (3, n) Pi_Zero shares that randomize the
 gamma split, or None for zero shares (the component-collapsed joint
-world).  XOR and AND are bitwise, so the kernel (``csrc/and_level.cu``)
-equals the plain version word for word.
+world).  A chain's `draws` are its ANDs' PRF draws as one (A, S, n)
+buffer: AND a's lam_z streams, then, faithful (S = 6), its three Pi_Zero
+streams f1, f2, f3, of which the level takes (f2 ^ f1, f3 ^ f2, f1 ^ f3);
+S = 3 is the collapsed world's lam_z alone.  `mask` is the public all-ones
+word of the share's valid bits (NOT).  XOR, AND and the shifts are
+bitwise, so each kernel (``csrc/and_level.cu``, one thread a word) equals
+its plain version word for word.
 
 ``ppa_msb`` is the Python loop of the whole msb(x + y) over public words:
 log2(ell) + 1 AND levels with the Sklansky smear masks, each level one call
@@ -25,6 +33,15 @@ from ..core.ring import lshr, signed, width_of
 from .build import check_operands, launch
 
 _SYMBOL = {torch.int64: "and_level_u64", torch.int32: "and_level_u32"}
+_ADD = {torch.int64: "ppa_add_u64", torch.int32: "ppa_add_u32"}
+_OR = {torch.int64: "prefix_or_u64", torch.int32: "prefix_or_u32"}
+
+
+def chain_ands(ell: int, adder: bool) -> int:
+    """ANDs of a chain: the adder's first AND and two a level over
+    log2(ell) levels, or the prefix-OR's one per doubling."""
+    levels = int(math.log2(ell))
+    return 2 * levels + 1 if adder else levels
 
 
 def and_level_plain(x, y, lamz, zero=None) -> torch.Tensor:
@@ -65,14 +82,98 @@ def and_level_cuda(x, y, lamz, zero=None) -> torch.Tensor:
     return out
 
 
+def _drawn_and(x, y, d) -> torch.Tensor:
+    """One level with its (S, n) draws: lam_z, then (S = 6) the Pi_Zero
+    streams f1, f2, f3."""
+    zero = None if d.shape[0] == 3 else torch.stack(
+        [d[4] ^ d[3], d[5] ^ d[4], d[3] ^ d[5]])
+    return and_level_plain(x, y, d[:3], zero)
+
+
 def _smear(v: torch.Tensor, width: int) -> torch.Tensor:
-    """Shift the isolated boundary bits up by one and copy each `width`
-    positions leftward (OR-doubling)."""
-    out = v << 1
+    """Isolated boundary bits copied `width` positions leftward by
+    shift-XOR doubling (linear over GF(2), so it acts on shares)."""
     j = 1
     while j < width:
-        out = out | (out << j)
+        v = v ^ (v << j)
         j <<= 1
+    return v
+
+
+def ppa_add_plain(x, y, draws, cin: int = 0) -> torch.Tensor:
+    """[[x + y + cin]] of (4, n) stacks by the Sklansky adder on bit-packed
+    words, the levels of ``core.boolean.ppa_add`` with AND a taking
+    draws[a] ((A, S, n), A = 2 log2(ell) + 1)."""
+    ell = width_of(x.dtype)
+    p0 = x ^ y
+    g = _drawn_and(x, y, draws[0])
+    p = p0
+    if cin:
+        g = g ^ (p & 1)
+    for k in range(int(math.log2(ell))):
+        half = 1 << k
+        bnd, upper = (signed(m, ell) for m in bit_masks(ell, k))
+        gb = _smear((g & bnd) << 1, half)
+        pb = _smear((p & bnd) << 1, half)
+        pu = p & upper
+        g = g ^ _drawn_and(pu, gb, draws[1 + 2 * k])
+        p = (p & ~upper) ^ _drawn_and(pu, pb, draws[2 + 2 * k])
+    s = p0 ^ (g << 1)
+    if cin:
+        s[0] ^= 1
+    return s
+
+
+def prefix_or_plain(x, draws, mask: int) -> torch.Tensor:
+    """[[prefix-OR]] of a (4, n) stack from the msb down, the levels of
+    ``core.boolean.prefix_or``: OR(a, b) = NOT(AND(NOT a, NOT b)), NOT the
+    XOR of the public `mask` into m; AND a takes draws[a]."""
+    ell = width_of(x.dtype)
+    cur = x
+    for a in range(chain_ands(ell, adder=False)):
+        nc, sh = cur.clone(), lshr(cur, 1 << a)
+        nc[0] ^= mask
+        sh[0] ^= mask
+        cur = _drawn_and(nc, sh, draws[a])
+        cur[0] ^= mask
+    return cur
+
+
+def _chain_operands(name, stacks, draws, adder):
+    n = stacks[0].shape[-1]
+    ell = width_of(stacks[0].dtype)
+    A = chain_ands(ell, adder)
+    if (any(s.shape != (4, n) for s in stacks) or draws.dim() != 3
+            or draws.shape[0] != A or draws.shape[1] not in (3, 6)
+            or draws.shape[2] != n):
+        raise ValueError(
+            f"{name} takes stacks (4, n) and draws ({A}, 3 or 6, n), got "
+            f"{[tuple(s.shape) for s in stacks]}, {tuple(draws.shape)}")
+    ins = [t.contiguous() for t in (*stacks, draws)]
+    check_operands(*ins)
+    if ins[0].dtype not in _SYMBOL:
+        raise ValueError(f"{name} takes int64/int32 words, got "
+                         f"{ins[0].dtype}")
+    return ins, n
+
+
+def ppa_add_cuda(x, y, draws, cin: int = 0) -> torch.Tensor:
+    """The ``ppa_add`` kernel: the whole adder in one launch."""
+    (x, y, draws), n = _chain_operands("ppa_add", (x, y), draws, True)
+    out = torch.empty_like(x)
+    launch("and_level", _ADD[x.dtype], x.device, x.data_ptr(), y.data_ptr(),
+           draws.data_ptr(), draws.shape[1], int(bool(cin)), out.data_ptr(),
+           n)
+    return out
+
+
+def prefix_or_cuda(x, draws, mask: int) -> torch.Tensor:
+    """The ``prefix_or`` kernel: the whole chain in one launch."""
+    (x, draws), n = _chain_operands("prefix_or", (x,), draws, False)
+    out = torch.empty_like(x)
+    launch("and_level", _OR[x.dtype], x.device, x.data_ptr(),
+           draws.data_ptr(), draws.shape[1], mask & (2**64 - 1),
+           out.data_ptr(), n)
     return out
 
 
@@ -96,8 +197,8 @@ def ppa_msb(x, y, lamz_levels, zero_levels, and_level) -> torch.Tensor:
     for k in range(int(math.log2(ell))):
         half = 1 << k
         bnd, upper = (signed(m, ell) for m in bit_masks(ell, k))
-        gb = _smear(g & bnd, half)
-        pb = _smear(p & bnd, half)
+        gb = _smear((g & bnd) << 1, half)
+        pb = _smear((p & bnd) << 1, half)
         pu = p & upper
         g = g ^ AND(pu, gb, k + 1)
         p = (p & ~upper) ^ AND(pu, pb, k + 1)

@@ -112,12 +112,25 @@ def test_kernels_equal_plain_on_card(cuda_device):
             assert ops.AND_TERMS.launches == launches, count
             for k, (g, w) in enumerate(zip(got, want)):
                 assert torch.equal(g.cpu(), w), (dtype, count, k)
-        for M, K, N in [(5, 37, 3), (128, 784, 128), (128, 128, 10)]:
+        # the fused product on the limb core: the three NN shapes, ragged
+        # and odd shapes (one-word copies), and all-ones words, which
+        # maximise every limb sum, in chunks at the exactness bound
+        for M, K, N in [(5, 37, 3), (128, 784, 128), (128, 128, 128),
+                        (128, 128, 10), (70, 300, 65), (65, 33, 66)]:
             ops_ = (words(M, K), words(3, M, K), words(K, N), words(3, K, N))
             got = MF.mpc_matmul_fused_cuda(*(t.to(cuda_device)
                                              for t in ops_))
             for g, w in zip(got, MF.mpc_matmul_fused_plain(*ops_)):
                 assert torch.equal(g.cpu(), w), (dtype, M, K, N)
+        K = top + 32
+        ones = (torch.full((65, K), -1, dtype=dtype),
+                torch.full((3, 65, K), -1, dtype=dtype),
+                torch.full((K, 66), -1, dtype=dtype),
+                torch.full((3, K, 66), -1, dtype=dtype))
+        got = MF.mpc_matmul_fused_cuda(*(t.to(cuda_device) for t in ones),
+                                       chunk=top)
+        for g, w in zip(got, MF.mpc_matmul_fused_plain(*ones)):
+            assert torch.equal(g.cpu(), w), (dtype, "all-ones", K)
         for n in (1, 128, 1000, 1 << 20):
             x, y, lamz, zero = (words(4, n), words(4, n), words(3, n),
                                 words(3, n))
@@ -126,6 +139,22 @@ def test_kernels_equal_plain_on_card(cuda_device):
                                PPA.and_level_plain(x, y, lamz, zero)), n
             assert torch.equal(PPA.and_level_cuda(*dev[:3]).cpu(),
                                PPA.and_level_plain(x, y, lamz)), n
+            # the whole adder and prefix-OR chain, faithful (6 draws an
+            # AND) and collapsed (3)
+            ell = info.bits
+            for S in (6, 3):
+                add_d = words(PPA.chain_ands(ell, True), S, n)
+                or_d = words(PPA.chain_ands(ell, False), S, n)
+                for cin in (0, 1):
+                    got = PPA.ppa_add_cuda(*dev[:2], add_d.to(cuda_device),
+                                           cin)
+                    assert torch.equal(got.cpu(), PPA.ppa_add_plain(
+                        x, y, add_d, cin)), (dtype, n, S, cin)
+                for mask in (-1, (1 << (ell - 3)) - 1):
+                    got = PPA.prefix_or_cuda(dev[0], or_d.to(cuda_device),
+                                             mask)
+                    assert torch.equal(got.cpu(), PPA.prefix_or_plain(
+                        x, or_d, mask)), (dtype, n, S, mask)
         n = 4096
         x, y = words(n), words(n)
         lamz = words(8, 3, n)

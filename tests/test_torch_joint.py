@@ -23,6 +23,8 @@ from repro.core import protocols as JP  # noqa: E402
 from repro.core.context import make_context as jmake  # noqa: E402
 from repro.core.ring import RING64 as J64  # noqa: E402
 from repro.kernels import ops as JK  # noqa: E402
+from repro.kernels.mpc_matmul_fused import (  # noqa: E402
+    mpc_matmul_fused as jax_mpc_matmul_fused)
 from repro.kernels import ref as JR  # noqa: E402
 from repro.nn.engine import TridentEngine as JEngine  # noqa: E402
 from repro.serve.engine import PredictionServer as JServer  # noqa: E402
@@ -37,8 +39,9 @@ from repro_torch.core.ring import (RING64 as T64, words_from_numpy,  # noqa: E40
                                    words_to_numpy)
 from repro_torch.kernels import ops as TK  # noqa: E402
 from repro_torch.kernels.mpc_matmul_fused import (  # noqa: E402
-    mpc_matmul_fused_plain)
-from repro_torch.kernels.ppa_msb import and_level_plain  # noqa: E402
+    mpc_matmul_fused_limbs_plain, mpc_matmul_fused_plain)
+from repro_torch.kernels.ppa_msb import (  # noqa: E402
+    and_level_plain, chain_ands, ppa_add_plain, prefix_or_plain)
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
 from repro_torch.serve.engine import PredictionServer  # noqa: E402
 from repro_torch.train import paper_ml as TML  # noqa: E402
@@ -74,10 +77,15 @@ def test_joint_protocols_match_jax(collapse):
     a, b = rng.randn(4, 16) * 2, rng.randn(16, 8) * 0.5
     pos = np.abs(rng.randn(4, 1)) + 0.5   # the shape of smx's denominator
 
-    def both(jfn, tfn, *args, what):
+    def both(jfn, tfn, *args, what, adders=None):
+        """`adders`: the whole-chain and_level calls the port's fused
+        route must make (one per Sklansky adder or prefix-OR chain)."""
+        TK.reset_launches()
         j = jfn(jc, *[x[0] for x in args])
         t = tfn(tc, *[x[1] for x in args])
         _assert_same(j, t, what)
+        if adders is not None:
+            assert TK.AND_LEVEL.calls == adders, (what, TK.AND_LEVEL.calls)
         return j, t
 
     x = both(JP.share, TP.share, (J64.encode(a), tc.encode(a)), what="share")
@@ -85,11 +93,12 @@ def test_joint_protocols_match_jax(collapse):
     both(JP.mult, TP.mult, x, x, what="mult")
     z = both(JP.matmul_tr, TP.matmul_tr, x, w, what="matmul_tr")
     both(JP.truncate_share, TP.truncate_share, z, what="truncate_share")
-    zb = both(JC.a2b, TC.a2b, z, what="a2b")
+    zb = both(JC.a2b, TC.a2b, z, what="a2b", adders=1)
     for method in ("mul", "ppa"):
         bit = both(lambda c, v: JC.bit_extract(c, v, method=method),
                    lambda c, v: TC.bit_extract(c, v, method=method), z,
-                   what=f"bit_extract[{method}]")
+                   what=f"bit_extract[{method}]",
+                   adders=int(method == "ppa"))
     both(JC.bit2a, TC.bit2a, bit, what="bit2a")
     both(JC.b2a, TC.b2a, zb, what="b2a")
     both(JC.bit_inject, TC.bit_inject, bit, z, what="bit_inject")
@@ -98,7 +107,8 @@ def test_joint_protocols_match_jax(collapse):
     p = both(JP.share, TP.share, (J64.encode(pos), tc.encode(pos)),
              what="share")
     both(JA.reciprocal, TA.reciprocal, p, what="reciprocal")
-    both(JA.smx_softmax, TA.smx_softmax, z, what="smx_softmax")
+    # smx: A2B's subtractor and the prefix-OR of the normalization
+    both(JA.smx_softmax, TA.smx_softmax, z, what="smx_softmax", adders=2)
     # the rest of the joint protocol surface, off the NN's path
     both(lambda c: JP.zero_shares(c, (3,)),
          lambda c: TP.zero_shares(c, (3,)), what="zero_shares")
@@ -111,7 +121,8 @@ def test_joint_protocols_match_jax(collapse):
               what="share_bool")
     both(JB.reconstruct_bool, TB.reconstruct_bool, sb,
          what="reconstruct_bool")
-    both(JB.msb_of_sum, TB.msb_of_sum, sb, zb, what="msb_of_sum")
+    both(JB.msb_of_sum, TB.msb_of_sum, sb, zb, what="msb_of_sum",
+         adders=1)
     both(JC.less_than_zero, TC.less_than_zero, z, what="less_than_zero")
     both(JA.maximum, TA.maximum, z, (-z[0], -z[1]), what="maximum")
     both(JA.drelu_from_bit, TA.drelu_from_bit, bit, what="drelu_from_bit")
@@ -155,7 +166,9 @@ def _u(rng, shape, dtype=np.uint64):
 def test_joint_kernel_plain_versions_match_jax():
     """and_level, mpc_matmul_fused and the ppa_msb loop: the port's plain
     versions (what its wrappers run on CPU tensors) against the JAX
-    package's kernels, bit for bit."""
+    package's kernels, bit for bit; the fused product's limb twin against
+    JAX's mpc_matmul_fused; the whole-chain adder and prefix-OR against
+    integer sums and a word-by-word prefix-OR."""
     rng = np.random.RandomState(5)
     for n, dt in ((1024, np.uint64), (512, np.uint32)):
         x, y = _u(rng, (4, n), dt), _u(rng, (4, n), dt)
@@ -173,10 +186,70 @@ def test_joint_kernel_plain_versions_match_jax():
                 _u(rng, (3, K, N)))
         want = JK.mpc_matmul_online(*map(jnp.asarray, ops_))
         got = TK.mpc_matmul_fused(*map(words_from_numpy, ops_))
-        for name, jw, tw in zip(("mm", "cross", "gamma"), want, got):
+        # the gamma term comes as the collapsed stack [gamma, 0, 0]
+        assert got[2].shape == (3, M, N) and not got[2][1:].any()
+        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
+                                (got[0], got[1], got[2][0])):
             _assert_same(jw, tw, f"mpc_matmul_fused.{name} {M}x{K}x{N}")
         assert all(torch.equal(p, q) for p, q in zip(
             got, mpc_matmul_fused_plain(*map(words_from_numpy, ops_))))
+    # the kernel's limb arithmetic (wrapped lambda sums, 8-bit limbs, s32
+    # sums over K chunks shorter than K) against the JAX package's kernel
+    for (M, K, N), chunk in (((16, 40, 10), 16), ((8, 24, 8), 5)):
+        ops_ = (_u(rng, (M, K)), _u(rng, (3, M, K)), _u(rng, (K, N)),
+                _u(rng, (3, K, N)))
+        want = jax_mpc_matmul_fused(*map(jnp.asarray, ops_))
+        got = mpc_matmul_fused_limbs_plain(*map(words_from_numpy, ops_),
+                                           chunk)
+        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
+                                (got[0], got[1], got[2][0])):
+            _assert_same(jw, tw, f"limbs.{name} {M}x{K}x{N} chunk {chunk}")
+        assert not got[2][1:].any()
+    # the whole adder and prefix-OR chains: on zero lambdas and zero draws
+    # their m words are x + y + cin and the prefix-OR; on random lambdas
+    # and draws (faithful: 6 streams an AND; collapsed: 3, zero = None)
+    # the opened words are
+    for ell, dt in ((64, np.uint64), (32, np.uint32)):
+        n = 300
+        x, y = _u(rng, n, dt), _u(rng, n, dt)
+        pre = x.copy()
+        j = 1
+        while j < ell:
+            pre |= pre >> dt(j)
+            j <<= 1
+        tx, ty = words_from_numpy(x), words_from_numpy(y)
+        zeros = torch.zeros((3, n), dtype=tx.dtype)
+        X, Y = torch.cat([tx[None], zeros]), torch.cat([ty[None], zeros])
+
+        def opened(t):
+            return words_to_numpy(t[0] ^ t[1] ^ t[2] ^ t[3])
+
+        for S in (6, 3):
+            for cin in (0, 1):
+                want = x + y + dt(cin)
+                d = torch.zeros((chain_ands(ell, True), S, n),
+                                dtype=tx.dtype)
+                got = ppa_add_plain(X, Y, d, cin)
+                assert np.array_equal(words_to_numpy(got[0]), want)
+                assert not got[1:].any()
+                xs = words_from_numpy(_u(rng, (4, n), dt))
+                ys = words_from_numpy(_u(rng, (4, n), dt))
+                d = words_from_numpy(_u(rng, d.shape, dt))
+                assert np.array_equal(
+                    opened(ppa_add_plain(xs, ys, d, cin)),
+                    opened(xs) + opened(ys) + dt(cin)), (ell, S, cin)
+            d = torch.zeros((chain_ands(ell, False), S, n), dtype=tx.dtype)
+            got = prefix_or_plain(X, d, -1)
+            assert np.array_equal(words_to_numpy(got[0]), pre)
+            assert not got[1:].any()
+            xs = words_from_numpy(_u(rng, (4, n), dt))
+            d = words_from_numpy(_u(rng, d.shape, dt))
+            v = opened(xs)
+            j = 1
+            while j < ell:
+                v |= v >> dt(j)
+                j <<= 1
+            assert np.array_equal(opened(prefix_or_plain(xs, d, -1)), v)
     n = 512
     x, y = _u(rng, n), _u(rng, n)
     lamz = _u(rng, (7, 3, n))

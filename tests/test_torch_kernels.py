@@ -214,12 +214,18 @@ def test_wrappers_route_by_device():
         lambda t: ops.and_terms_group([([(t, t[0, 0])], ())]),
         lambda t: ops.lambda_masks_group([((1, 2), 0, (8,), 0)],
                                          torch.int64, device=t.device),
+        lambda t: ops.mpc_matmul_fused(t, t.expand(3, 4, 4), t,
+                                       t.expand(3, 4, 4)),
+        lambda t: ops.and_level(t, t, t[:3], t[:3]),
+        lambda t: ops.ppa_add(t, t, t.new_zeros((13, 6, 4)), 1),
+        lambda t: ops.prefix_or(t, t.new_zeros((6, 3, 4)), -1),
     ]
     for call in calls:
         call(torch.ones((4, 4), dtype=torch.int64))
     assert all(k.launches == 0 for k in ops.KERNELS)
-    # a grouped call counts as a call on either device
+    # a grouped, fused or and_level call counts as a call on either device
     assert (ops.MULT_TERMS.calls, ops.AND_TERMS.calls) == (2, 2)
+    assert (ops.MPC_MATMUL_FUSED.calls, ops.AND_LEVEL.calls) == (1, 3)
     meta = torch.empty((4, 4), dtype=torch.int64, device="meta")
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
