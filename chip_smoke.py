@@ -45,24 +45,41 @@ from the root of a checkout.  In order, it
      numpy forward pass, and that ``mult_terms``/``and_terms`` launched as
      often a batch as the grouped wrappers are called in a CPU batch with
      the "hopper" backend; then profiles one more batch;
-  5. joint path A: serves the same 2 batches through the joint simulation's
+  5. the runtime's offline-online split (phase "runtime-offline-online"):
+     deals batch 0's preprocessing on the card (``repro_torch.offline``;
+     its offline rounds and bits those of the inline batch, no online
+     bit, no abort), saves the store to a temporary directory outside the
+     checkout and loads it back, runs batch 0 online-only from the store
+     (words bit-identical to step 4's, the same online ``per_link()``, no
+     offline bit, no ``prf_mask`` launch, and per kernel deal + online
+     launches equal to the inline batch's) and from the loaded store (the
+     same words); holds Pi_DotP's two rounds on the "hopper" backend
+     (kernel route K1: one ``mult_terms`` launch a round, contracted
+     after) at (128, 784) . (128, 784) against the "torch" backend on the
+     CPU; serves 3 batches through ``PartyPredictionServer(prep=
+     "pipelined")`` (dealer thread on its own CUDA stream), each equal to
+     an inline runtime at its seed, with no offline bit; and times the
+     inline, deal, online-only and pipelined batch walls and profiles an
+     online-only and a deal batch;
+  6. joint path A: serves the same 2 batches through the joint simulation's
      ``PredictionServer`` (faithful mode, Newton-Raphson division) and
      checks the kernels of that path launched, no abort, the opened words
      and ``ServeStats`` equal to a CPU run of the port, ``and_level`` and
      ``mpc_matmul_fused`` launched as often a batch as that CPU run called
      their wrappers, the words and ``totals()`` equal to the runtime
      path's, and the probabilities; then profiles one more joint batch;
-  6. joint path B: one batch on a collapsed context (the
+  7. joint path B: one batch on a collapsed context (the
      ``mpc_matmul_fused`` route): the kernels launched, the words equal to
      a CPU run and the launches to its wrapper calls, ``totals()`` equal to
      path A's, and the probabilities; then profiles one more batch.
 
-Each path is driven with the launch counts set to 0 just before it and
-read just after; the kernel rows report the sum over the paths, and each
-path prints its ``prf_mask`` launches and PRF streams per batch.
-Any failure exits nonzero.  The line before the last is a JSON object
-``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
+Each path (the deal and the online-only run of step 5 being two) is
+driven with the launch counts set to 0 just before it and read just
+after; the kernel rows report the sum over the paths, and each path
+prints its ``prf_mask`` launches and PRF streams per batch.  Any failure
+exits nonzero.  Before the last lines come ``{"offline_online": {...}}``
+(step 5's times) and ``{"kernels": [...]}``, then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
 it exits nonzero and prints no result.
 """
 from __future__ import annotations
@@ -962,10 +979,10 @@ def predict_collapsed(device: str, params: dict, net, X) -> tuple:
     return ctx, words
 
 
-def profile_batch(label: str, run, steady_wall_s: float) -> None:
+def profile_batch(label: str, run, steady_wall_s: float) -> tuple:
     """One more batch (`run()`) under the profiler (CUDA activity): device
     busy time against the unprofiled steady batch wall, and device time by
-    kernel name."""
+    kernel name.  Returns (busy ms, device operations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -994,6 +1011,7 @@ def profile_batch(label: str, run, steady_wall_s: float) -> None:
         if "terms_group_kernel" in e.key:
             print(f"  {e.device_time_total / 1e3:9.3f} ms {e.count:6d}x "
                   f"{e.key[:90]}")
+    return busy_ms, device_ops
 
 
 def tensor_core_instructions(build, source: str) -> tuple | None:
@@ -1061,6 +1079,342 @@ def check_probs(path: str, words, want: np.ndarray) -> None:
           f"{PROB_ATOL}")
     print(f"{path}: probabilities within {err:.3e} of the float64 forward "
           f"pass (tolerance {PROB_ATOL})")
+
+
+def dotp_rounds(dev) -> dict:
+    """Pi_DotP's two rounds on the "hopper" backend (kernel route K1: one
+    grouped mult_terms launch a round, the last axis contracted after) at
+    a main-path-like shape, (128, 784) . (128, 784): the words on the card
+    against the "torch" backend's on the CPU, one launch a round, and the
+    launch's and the round call's times."""
+    import torch
+    from repro_torch.core.algebra import GAMMA_LOCAL, PART_HOLDERS
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.kernel_backend import (HopperKernels,
+                                                    TorchKernels,
+                                                    gamma_groups,
+                                                    online_groups)
+    gen = torch.Generator().manual_seed(SEED)
+
+    def words(*shape):
+        return torch.randint(-2**62, 2**62, shape, generator=gen)
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1, dtype=a.dtype)
+
+    lx, ly = ({j: words(BATCH, 784) for j in (1, 2, 3)} for _ in range(2))
+    masks, gammas, lam_zs = ({j: words(BATCH) for j in (1, 2, 3)}
+                             for _ in range(3))
+    mx, my = words(BATCH, 784), words(BATCH, 784)
+    gamma_reqs = [(lx, ly, masks, (1, 2, 3))] + [
+        (lx, ly, masks, (j,)) for j in GAMMA_LOCAL]
+    online_reqs = [(mx, my, lx, ly, gammas, lam_zs,
+                    tuple(j for j in (1, 2, 3) if p in PART_HOLDERS[j]))
+                   for p in (1, 2, 3)]
+
+    def on(reqs):
+        return [tuple(({j: t.to(dev) for j, t in x.items()}
+                       if isinstance(x, dict) else
+                       x.to(dev) if torch.is_tensor(x) else x) for x in r)
+                for r in reqs]
+
+    hk, tk = HopperKernels(), TorchKernels()
+    out = {}
+    for stage, reqs, groups in (
+            ("offline", gamma_reqs, gamma_groups(gamma_reqs, consts=False)),
+            ("online", online_reqs, online_groups(online_reqs,
+                                                  consts=False))):
+        call = (hk.gamma_pieces_round if stage == "offline"
+                else hk.online_parts_round)
+        plain = (tk.gamma_pieces_round if stage == "offline"
+                 else tk.online_parts_round)
+        dreqs = on(reqs)
+        ops.reset_launches()
+        got = call("dotp", dot, dreqs)
+        check(ops.MULT_TERMS.launches == 1,
+              f"dotp {stage} round: {ops.MULT_TERMS.launches} mult_terms "
+              f"launches, not 1")
+        want = plain("dotp", dot, reqs)
+
+        def flat(res):
+            return [t for r in res for t in
+                    ((*r[1].values(), r[0]) if isinstance(r, tuple)
+                     else r.values())]
+        torch.cuda.synchronize()
+        check(all(torch.equal(g.cpu(), w)
+                  for g, w in zip(flat(got), flat(want))),
+              f"dotp {stage} round: the card's words differ from the "
+              f"'torch' backend's on the CPU")
+        copies = {}
+
+        def card(t):
+            if id(t) not in copies:
+                copies[id(t)] = t.to(dev)
+            return copies[id(t)]
+        dgroups = [([(card(a), card(b)) for a, b in pairs], consts, signs)
+                   for pairs, consts, signs in groups]
+        # unique bytes: each distinct operand read once, each output
+        # written once
+        seen = {id(t): t.numel() * t.element_size()
+                for pairs, _, _ in groups for pr in pairs for t in pr}
+        n_out = sum(BATCH * 784 for _ in groups)
+        b_ms, b_by = bound(sum(seen.values()) + 8 * n_out,
+                           sum(BATCH * 784 * 2 * len(g[0]) for g in groups))
+        out[stage] = {
+            "groups": len(groups),
+            "ms": device_ms(lambda g=dgroups: ops.mult_terms_group(g),
+                            "terms_group_kernel"),
+            "call_ms": cuda_ms(lambda: call("dotp", dot, dreqs), reps=20),
+            "plain_cpu_ms": host_ms(lambda: plain("dotp", dot, reqs)),
+            "bound_ms": b_ms, "bound_by": b_by}
+        print(f"dotp {stage} round (K1), {len(groups)} groups of "
+              f"{BATCH}x784 words: equal to the CPU's 'torch' backend; "
+              f"launch {out[stage]['ms']:.5f} ms on the device (bound "
+              f"{b_ms:.5f} ms by {b_by}), round call "
+              f"{out[stage]['call_ms']:.5f} ms, CPU plain "
+              f"{out[stage]['plain_cpu_ms']:.3f} ms")
+    return out
+
+
+def check_prep_handoff(dev, n: int = 1 << 20,
+                       spin_cycles: int = 200_000_000) -> dict:
+    """The store handoff between two streams, under stress (a dealt store
+    is read on another stream than the one that wrote it, with no host
+    wait between).  `deal` itself reads its abort flag, which waits for the
+    dealer's stream, so on the served paths the ready event has always
+    fired before a consumer gets the store; here nothing waits on the host:
+
+    (a) the dealer stream writes a store's words behind a spin of
+        `spin_cycles` (torch.cuda._sleep); the consumer pops the store and
+        reads the words at once.  Without the wait on `store.ready` the
+        read sees the words' earlier value (-1).
+    (b) the dealer stream writes the words at once; the consumer pops
+        them and holds its read behind a spin; the host drops every
+        reference, and the dealer stream allocates blocks of the same size
+        and writes -2 into them.  Without `record_stream` the allocator
+        gives the dealer the blocks the consumer is about to read.
+
+    Fails unless both reads give the dealt words."""
+    import torch
+    from repro_torch.offline import OnlinePrep, PrepStore
+
+    want = torch.arange(4 * n, dtype=torch.int64).view(4, n) * 3 + 1
+    side = torch.cuda.Stream(dev)
+    out = {}
+    # a first pass with no spins loads every kernel these cases launch (a
+    # module loaded lazily mid-case would wait for the spinning stream)
+    for case in ("warm-up", "a", "b"):
+        # set-up, not the handoff: an idle card and an empty cache, so the
+        # dealer's freed blocks are the only ones of their size (b)
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        store = PrepStore()
+        with torch.cuda.stream(side):
+            recs = [torch.full((n,), -1, dtype=torch.int64, device=dev)
+                    for _ in range(4)]
+            torch.cuda._sleep(spin_cycles if case == "a" else 1)
+            for i, r in enumerate(recs):
+                torch.arange(i * n, (i + 1) * n, out=r)
+                r.mul_(3).add_(1)
+            store.put("handoff#0", "handoff", [{"w": r} for r in recs])
+            store.mark_ready(dev)
+        del recs, r
+        parts = OnlinePrep(store, dev).acquire("handoff#0", "handoff", None)
+        dealer_busy = not side.query()
+        torch.cuda._sleep(spin_cycles if case == "b" else 1)
+        got = torch.stack([p["w"] for p in parts])
+        del parts
+        if case == "b":
+            with torch.cuda.stream(side):
+                scribble = [torch.full((n,), -2, dtype=torch.int64,
+                                       device=dev) for _ in range(8)]
+            del scribble
+        check(torch.equal(got.cpu(), want),
+              f"handoff ({case}): the consumer read other words than the "
+              "dealt ones")
+        if case != "warm-up":
+            out[case] = {"dealer_busy_at_pop": dealer_busy}
+    check(out["a"]["dealer_busy_at_pop"],
+          "handoff (a): the dealer's stream was idle when the store was "
+          "popped: the check did not test the wait")
+    torch.cuda.synchronize(dev)
+    print(f"handoff under stress: a store popped while its dealer stream "
+          f"still spun ({out['a']}) read the dealt words (ready event); "
+          f"popped blocks freed on the host and scribbled by the dealer "
+          f"stream while the read waited ({out['b']}) read the dealt words "
+          f"(record_stream)")
+    return out
+
+
+def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
+    """The offline-online split of the runtime path at its width: deal one
+    batch, save and load the store, run it online-only, and serve three
+    batches through the pipelined server, each checked against the inline
+    runtime path of this run (`srv`, `words`: its server and its opened
+    words)."""
+    import tempfile
+
+    import torch
+    from repro_torch import offline
+    from repro_torch.core.ring import RING64
+    from repro_torch.runtime import FourPartyRuntime
+    from repro_torch.serve.party_server import PartyPredictionServer
+    from repro_torch.train.paper_ml import mlp_net_predict, params_from_numpy
+
+    enc = params_from_numpy(params, RING64, "cuda")
+    kw = {"device": "cuda", "runtime_kwargs": {"kernel_backend": "hopper"}}
+    zeros = np.zeros_like(X)
+    inline_links, inline_totals = srv.batch_traffic[0]
+    inline_launches = {k["name"]: k["launches_by_path"]["runtime"]
+                       / N_BATCHES for k in kernels}
+
+    def deal_batch():
+        return offline.deal(lambda rt: mlp_net_predict(rt, enc, net, zeros),
+                            seed=SEED, **kw)
+
+    def online_batch(store):
+        return offline.run_online(
+            lambda rt: mlp_net_predict(rt, enc, net, X), store, **kw)
+
+    # 1. deal
+    (store, drep), _ = drive(
+        "offline_deal", kernels, ("prf_mask", "ring_matmul", "mult_terms",
+                                  "and_terms"), deal_batch, 1)
+    check(not drep.abort, "deal: the dealer aborted")
+    check((drep.offline_rounds, drep.offline_bits)
+          == (inline_totals["offline"]["rounds"],
+              inline_totals["offline"]["bits"]),
+          f"deal: offline rounds/bits {drep.offline_rounds}/"
+          f"{drep.offline_bits} differ from the inline batch's "
+          f"{inline_totals['offline']}")
+    print(f"deal: {drep.entries} entries, {drep.offline_rounds} offline "
+          f"rounds, {drep.offline_bits} offline bits (the inline batch's), "
+          f"0 online bits; {drep.wall_s * 1e3:.1f} ms")
+    # 2. the disk round trip, outside the checkout
+    with tempfile.TemporaryDirectory(prefix="prepstore-") as tmp:
+        t0 = time.perf_counter()
+        store.save(tmp)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = offline.PrepStore.load(tmp)
+        load_s = time.perf_counter() - t0
+    nbytes = store.nbytes()
+    check(len(loaded) == len(store) and loaded.nbytes() == nbytes,
+          "the loaded store differs from the saved one")
+    print(f"store: {nbytes} bytes ({store.nbytes(1)} for P1); saved in "
+          f"{save_s:.3f} s, loaded in {load_s:.3f} s")
+    # 3. online-only
+    (online_words, orep), _ = drive(
+        "online_only", kernels, ("mpc_matmul_grid", "mult_terms",
+                                 "and_terms"), lambda: online_batch(store), 1)
+    launches = {k["name"]: k["launches_by_path"] for k in kernels}
+    check(torch.equal(online_words.cpu(), words[:BATCH].cpu()),
+          "online-only: opened words differ from the inline runtime path's")
+    check(not orep.abort and orep.offline_bits == 0,
+          f"online-only: abort {orep.abort}, offline bits "
+          f"{orep.offline_bits}")
+    check((orep.online_rounds, orep.online_bits)
+          == (inline_totals["online"]["rounds"],
+              inline_totals["online"]["bits"]),
+          "online-only: online rounds/bits differ from the inline batch's")
+    check(launches["prf_mask"]["online_only"] == 0,
+          "online-only: prf_mask launched")
+    for name, want in inline_launches.items():
+        got = launches[name]["offline_deal"] + launches[name]["online_only"]
+        check(got == want, f"{name}: deal + online launches {got} != the "
+              f"inline batch's {want:g}")
+    print(f"online-only: words equal to the inline runtime path's; "
+          f"{orep.online_rounds} rounds, {orep.online_bits} bits, 0 offline"
+          f" bits; deal + online launches = inline launches per kernel "
+          f"{ {n: (launches[n]['offline_deal'], launches[n]['online_only']) for n in inline_launches} }")
+    got, lrep = online_batch(loaded)
+    check(torch.equal(got.cpu(), words[:BATCH].cpu()) and not lrep.abort,
+          "online-only from the loaded store: words differ")
+    # per_link() of the online phase, on a transport of its own
+    from repro_torch.runtime import LocalTransport
+    tp = LocalTransport()
+    store2, _ = deal_batch()
+    offline.run_online(lambda rt: mlp_net_predict(rt, enc, net, X), store2,
+                       transport=tp, **kw)
+    check({k: v["online"] for k, v in tp.per_link().items()}
+          == {k: v["online"] for k, v in inline_links.items()}
+          and all(v["offline"] == 0 for v in tp.per_link().values()),
+          "online-only: per_link() differs from the inline batch's")
+    print("online-only: per_link() of the online phase equal to the inline "
+          "batch's; the loaded store opens the same words")
+    handoff = check_prep_handoff(torch.device("cuda"))
+    # 4. K1
+    rounds = dotp_rounds(torch.device("cuda"))
+    # 5. pipelined serving: two flushes of three batches each, batch k at
+    # seed SEED + k (the second flush's walls are the steady ones: its
+    # dealer stream's allocator blocks are warm)
+    queries = np.random.RandomState(SEED + 2).randn(6 * BATCH, net.features)
+    psrv = PartyPredictionServer(
+        lambda rt, Xb: mlp_net_predict(rt, enc, net, Xb), batch_size=BATCH,
+        seed=SEED, prep="pipelined", device="cuda")
+    pipe_walls = []
+    for flush in range(2):
+        for q in queries[flush * 3 * BATCH:(flush + 1) * 3 * BATCH]:
+            psrv.submit(q)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pwords = torch.stack(psrv.flush())
+        torch.cuda.synchronize()
+        pipe_walls.append((time.perf_counter() - t0) / 3)
+        for k in range(3 * flush, 3 * flush + 3):
+            rows = slice(k * BATCH, (k + 1) * BATCH)
+            twin = mlp_net_predict(FourPartyRuntime(RING64, seed=SEED + k,
+                                                    device="cuda"),
+                                   enc, net, queries[rows])
+            check(torch.equal(pwords[rows.start - 3 * flush * BATCH:
+                                     rows.stop - 3 * flush * BATCH].cpu(),
+                              twin.cpu()),
+                  f"pipelined batch {k}: predictions differ from the "
+                  f"inline runtime at seed {SEED + k}")
+    prep = psrv.report()
+    check(prep["batches"] == 6 and not prep["aborted"]
+          and prep["offline_bits_per_batch"] == 0,
+          f"pipelined: {prep['batches']} batches, aborted "
+          f"{prep['aborted']}, offline bits {prep['offline_bits_per_batch']}")
+    pipe_wall = pipe_walls[1]
+    online_in_pipe = [w * 1e3 for w in psrv.stats.batch_walls_s]
+    print(f"pipelined: 2 x 3 batches equal to their inline twins, 0 offline "
+          f"bits; {pipe_walls[0] * 1e3:.1f} ms then "
+          f"{pipe_walls[1] * 1e3:.1f} ms a batch; each batch's online-only "
+          f"wall in the pipeline {[round(w, 1) for w in online_in_pipe]} ms;"
+          f" deal {prep['offline_deal_s_per_batch'] * 1e3:.1f} ms a batch "
+          f"on the dealer thread")
+    # 6. times: steady deal and online-only walls, then profiled batches
+    deal_s, online_s = [], []
+    for _ in range(3):
+        st, rep = deal_batch()
+        deal_s.append(rep.wall_s)
+        _, rep = online_batch(st)
+        online_s.append(rep.wall_s)
+    inline_ms = min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s)
+    st = deal_batch()[0]
+    on_busy, on_ops = profile_batch("online-only", lambda: online_batch(st),
+                                    min(online_s))
+    deal_busy, deal_ops = profile_batch("deal", deal_batch, min(deal_s))
+    times = {"inline_batch_ms": inline_ms * 1e3,
+             "deal_ms": [t * 1e3 for t in deal_s],
+             "online_only_ms": [t * 1e3 for t in online_s],
+             "pipelined_ms_per_batch": pipe_wall * 1e3,
+             "pipelined_first_flush_ms_per_batch": pipe_walls[0] * 1e3,
+             "pipelined_online_only_ms": online_in_pipe,
+             "pipelined_deal_ms_per_batch":
+                 prep["offline_deal_s_per_batch"] * 1e3,
+             "online_only_busy_ms": on_busy, "online_only_device_ops": on_ops,
+             "deal_busy_ms": deal_busy, "deal_device_ops": deal_ops,
+             "store_bytes": nbytes, "save_s": save_s, "load_s": load_s,
+             "dotp_rounds": rounds, "handoff": handoff}
+    print(f"offline-online times: inline batch {times['inline_batch_ms']:.1f}"
+          f" ms; deal {[round(t, 1) for t in times['deal_ms']]} ms; "
+          f"online-only {[round(t, 1) for t in times['online_only_ms']]} ms;"
+          f" pipelined {times['pipelined_ms_per_batch']:.1f} ms a batch; "
+          f"online-only busy {on_busy:.3f} ms in {on_ops} device ops, deal "
+          f"{deal_busy:.3f} ms in {deal_ops}")
+    return times
 
 
 def main() -> int:
@@ -1219,6 +1573,13 @@ def main() -> int:
                                            queries[:BATCH]),
                   min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s))
 
+    # --- the runtime's offline-online split ------------------------------
+    print("phase runtime-offline-online")
+    split = offline_online_phase(params, net, queries[:BATCH], kernels, srv,
+                                 words)
+    next(k for k in kernels if k["name"] == "mult_terms")[
+        "dotp_rounds"] = split.pop("dotp_rounds")
+
     # --- joint path A: faithful joint simulation, served ------------------
     (jsrv, jwords), wall = drive(
         "joint_faithful", kernels, ("prf_mask", "ring_matmul", "and_level"),
@@ -1280,6 +1641,7 @@ def main() -> int:
                   time.perf_counter() - t0)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
+    print(json.dumps({"offline_online": split}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,7 @@ from . import conversions as CV
 from . import garbled as GW
 from . import protocols as PR
 from .context import TridentContext
+from .ring import bit_planes
 from .shares import AShare, BShare
 
 
@@ -104,8 +105,7 @@ def _leading_one_factors(ctx: TridentContext, x: AShare, table):
     onehot = pf ^ pf.shift_right(1)          # exactly the leading-one bit
     lo, hi = ctx.norm_window
     # stack the window's bit planes into one vectorized Bit2A
-    planes = torch.stack([(onehot.data >> k) & 1 for k in range(lo, hi)],
-                         dim=1)              # (4, W, *shape)
+    planes = bit_planes(onehot.data, lo, hi, dim=1)   # (4, W, *shape)
     arith = CV.bit2a(ctx, BShare(planes, 1))  # (W, *shape) arithmetic shares
     coeff = torch.stack([table(k) for k in range(lo, hi)])
     coeff = coeff.reshape((hi - lo,) + (1,) * len(x.shape))

@@ -50,6 +50,19 @@ def lshr(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (ell - k)) - 1)
 
 
+def bit_planes(word: torch.Tensor, lo: int, hi: int, dim: int = 0
+               ) -> torch.Tensor:
+    """Bits lo..hi-1 of each word as 0/1 words, stacked on a new axis
+    `dim`.  A bit at or past the word's width is 0, as the JAX package's
+    logical shift of unsigned words gives it (an int32 ``>>`` by 32 or more
+    would give the sign bit)."""
+    ell = width_of(word.dtype)
+    planes = [(word >> i) & 1 for i in range(lo, min(hi, ell))]
+    if hi > max(lo, ell):
+        planes += [torch.zeros_like(word)] * (hi - max(lo, ell))
+    return torch.stack(planes, dim=dim)
+
+
 def words_from_numpy(a, device=None) -> torch.Tensor:
     """uint64/uint32 ndarray -> int64/int32 tensor with the same bits."""
     a = np.ascontiguousarray(a)

@@ -17,6 +17,7 @@ import ctypes
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().with_name("csrc")
@@ -53,6 +54,9 @@ SIGNATURES = {
 }
 
 _LIBS: dict = {}
+# a pipelined server's dealer thread and its consumer may load the first
+# library at once
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -110,16 +114,20 @@ def compile_log(name: str) -> str:
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if need be."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if not _target(name).exists():
-            build_all()
-        lib = ctypes.CDLL(str(_target(name)))
-        for sym, argtypes in SIGNATURES.items():
-            fn = getattr(lib, sym, None)
-            if fn is not None:
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOAD_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not _target(name).exists():
+                build_all()
+            lib = ctypes.CDLL(str(_target(name)))
+            for sym, argtypes in SIGNATURES.items():
+                fn = getattr(lib, sym, None)
+                if fn is not None:
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+            _LIBS[name] = lib
     return lib
 
 

@@ -38,9 +38,10 @@ class Kernel:
     replaces: str          # the TPU (Pallas) kernel, file:line
     launches: int = 0
     streams: int = 0       # prf_mask: PRF streams its launches drew
-    # mult_terms / and_terms / mpc_matmul_fused / and_level: wrapper calls
-    # on either device, so a CPU run counts what the card launches (one
-    # launch a call; mult_terms / and_terms one a call of <= MAX_GROUPS)
+    # wrapper calls on either device, so a CPU run counts what the card
+    # launches (one launch a call; mult_terms / and_terms one a call of
+    # <= MAX_GROUPS groups, prf_mask one a call of <= MAX_STREAMS streams;
+    # ppa_msb none: its levels count on and_level)
     calls: int = 0
 
 
@@ -83,6 +84,7 @@ def lambda_masks_group(streams, dtype: torch.dtype, device="cpu",
     shift of each word; returns one tensor of ring words (`dtype`) per
     stream, views of one buffer -- or, with `flat`, that buffer, the
     streams' words one after another."""
+    PRF_MASK.calls += 1
     sized = [(kd, ctr, prf_numel(shape), shift)
              for kd, ctr, shape, shift in streams]
     if torch.device(device).type == "cpu":
@@ -109,6 +111,7 @@ def lambda_masks_group(streams, dtype: torch.dtype, device="cpu",
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M, K) @ B (K, N) mod 2^ell."""
+    RING_MATMUL.calls += 1
     if _on_cpu(a):
         return ring_matmul_plain(a, b)
     out = ring_matmul_cuda(a, b)
@@ -120,6 +123,7 @@ def mpc_matmul_grid(xs, ys) -> list:
     """All-pairs quadrants [i][j] = xs[i] @ ys[j] mod 2^ell from ONE ring
     matmul of the row-stacked xs and the column-stacked ys (equal shapes
     within each list)."""
+    MPC_MATMUL_GRID.calls += 1
     M, N = xs[0].shape[0], ys[0].shape[1]
     a = torch.cat(list(xs), dim=0)
     b = torch.cat(list(ys), dim=1)

@@ -1,19 +1,19 @@
 """ML activations over party-sliced shares
 (``repro/runtime/activations.py``): ReLU, the piecewise-linear sigmoid,
-the Newton-Raphson reciprocal with in-protocol normalization, and the smx
-softmax, composed from the ported conversions in the JAX package's
+the Newton-Raphson reciprocal and rsqrt with in-protocol normalization,
+and the smx softmax, composed from the ported conversions in the JAX package's
 sampling order and round-overlap structure.
 """
 from __future__ import annotations
 
 import torch
 
+from ..core.ring import bit_planes
 from ..obs import traced_protocol
 from . import boolean as RB
 from . import conversions as CV
 from . import protocols as RT
 from .party import DistAShare, DistBShare, PartyBView, map_components
-from .protocols import bit_planes
 from .runtime import FourPartyRuntime
 
 
@@ -93,6 +93,27 @@ def reciprocal(rt: FourPartyRuntime, x: DistAShare,
         t = RT.mult_tr(rt, xn, y)
         y = RT.mult_tr(rt, y, t.neg().add_public(two))
     return RT.mult_tr(rt, y, F)              # 1/x = y_n * F
+
+
+@traced_protocol("rsqrt")
+def rsqrt(rt: FourPartyRuntime, x: DistAShare, iters: int = 3) -> DistAShare:
+    """[[x^{-1/2}]] for x > 0: the normalization factor G = 2^{-(k-f+1)/2}
+    is a public per-position table, then NR: y <- y (3 - xn y^2) / 2."""
+    frac = rt.ring.frac
+    F = _leading_one_factors(
+        rt, x, lambda k: rt.encode(2.0 ** (frac - k - 1)))
+    G = _leading_one_factors(
+        rt, x, lambda k: rt.encode(2.0 ** (-(k - frac + 1) / 2.0)))
+    xn = RT.mult_tr(rt, x, F)                # in [0.5, 1)
+    y = RT.scale_public(rt, xn, 1.2).neg().add_public(rt.encode(2.213))
+    three = rt.encode(3.0)
+    for _ in range(iters):
+        y2 = RT.mult_tr(rt, y, y)
+        t = RT.mult_tr(rt, xn, y2)
+        y = RT.mult_tr(rt, y, t.neg().add_public(three))
+        y = RT.scale_public(rt, y, 0.5)
+    # rsqrt(x) = y * sqrt(F), folded into the G table: y * G
+    return RT.mult_tr(rt, y, G)
 
 
 @traced_protocol("softmax")

@@ -30,7 +30,9 @@ def vsh_bool(rt: FourPartyRuntime, val_of, owners: tuple, shape,
              phase: str = "online") -> DistBShare:
     """``val_of(party)`` returns the owner's local copy of v.  The masked
     value is jmp-sent to each non-owner online party.  A phase="offline"
-    vSh^B runs its exchange inside the prep build."""
+    vSh^B runs its exchange inside the prep build (its record carries m);
+    a phase="online" one exchanges online, and in deal mode stops at the
+    lambdas."""
     ring = rt.ring
     nbits = ring.ell if nbits is None else nbits
     mask = signed((1 << nbits) - 1, ring.ell)
@@ -53,6 +55,8 @@ def vsh_bool(rt: FourPartyRuntime, val_of, owners: tuple, shape,
     parts = rt.prep.acquire(tag, f"vshB.{phase}", build)
     if phase == "offline":
         m = {i: parts[i]["m"] for i in (1, 2, 3)}
+    elif rt.prep.skip_online:
+        m = {i: None for i in (1, 2, 3)}
     else:
         m = exchange(lambda p: parts[p]["lam"])
     views = [PartyBView(None if i == 0 else m[i],
@@ -99,6 +103,10 @@ def and_bshare(rt: FourPartyRuntime, x: DistBShare, y: DistBShare,
                 for i in PARTIES]
 
     parts = rt.prep.acquire(tag, "and", build)
+    if rt.prep.skip_online:
+        views = [PartyBView(None, dict(parts[i]["lam_z"]), nbits)
+                 for i in PARTIES]
+        return DistBShare(tuple(views), out_shape, ring.dtype, nbits)
 
     # ---- online: every party's m_x & m_y + two parts in one round call --
     def request(party: int) -> tuple:

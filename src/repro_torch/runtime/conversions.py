@@ -10,6 +10,10 @@ receiving party's ledger:
   * BitInj verifies <y1> the same way, and <y2> by P1 aggregating v2+v3
     towards P0, who alone holds lambda_b * lambda_v;
   * BitExt inherits Pi_Mult's and Pi_Rec's jmp hash checks.
+
+All conversion masks (<u>, <p>, y1/y2, BitExt's (r, msb(r)) pair) are prep
+material: built and verified at deal time, drawn from the PrepStore by the
+online-only run (see protocols.py's module docstring for the seam).
 """
 from __future__ import annotations
 
@@ -40,9 +44,10 @@ def _public_to_dist(rt: FourPartyRuntime, vals: dict, shape) -> DistAShare:
 def _parts_to_neg_lam(rt: FourPartyRuntime, parts: list, shape,
                       key: str = "p") -> DistAShare:
     """<u> -> [[u]]: m = 0, lambda_j = -u_j (aSh piece j's holders are
-    exactly lambda_j's online holders)."""
+    exactly lambda_j's online holders).  In deal mode m stays None."""
     ring = rt.ring
-    zero = torch.zeros(shape, dtype=ring.dtype, device=rt.device)
+    zero = None if rt.prep.skip_online else torch.zeros(
+        shape, dtype=ring.dtype, device=rt.device)
     views = [PartyAView(None, {j: -parts[0][key][j] for j in (1, 2, 3)})]
     for i in (1, 2, 3):
         views.append(PartyAView(zero, {j: -parts[i][key][j]
@@ -103,6 +108,10 @@ def _mult_lam0(rt: FourPartyRuntime, u: DistAShare, m_pub, out_shape, *,
         return [{"lam_z": _held_lam(lam_z, i)} for i in PARTIES]
 
     parts = rt.prep.acquire(tag + ".lz", "mult_lam0", build)
+    if rt.prep.skip_online:
+        views = [PartyAView(None, dict(parts[i]["lam_z"]))
+                 for i in PARTIES]
+        return DistAShare(tuple(views), tuple(out_shape), ring.dtype)
 
     def parts_of(party: int, j: int):
         return -(u.views[party].lam[j] * m_pub[party]) \
@@ -133,6 +142,9 @@ def bit2a(rt: FourPartyRuntime, b: DistBShare) -> DistAShare:
 
     parts = rt.prep.acquire(tag, "bit2a", build)
     u = _parts_to_neg_lam(rt, parts, b.shape)
+    if rt.prep.skip_online:
+        uv = _mult_lam0(rt, u, None, b.shape, tag=tag)
+        return u.sub(uv.add(uv))
     # online: [[v]] is the public non-interactive sharing; uv via the
     # gamma-free mult
     m_bit = {i: b.views[i].m & 1 for i in (1, 2, 3)}
@@ -243,23 +255,38 @@ def _bit_extract_mul(rt: FourPartyRuntime, v: DistAShare,
     tp = rt.transport
     shape = v.shape
     with tp.parallel(("offline",)):
-        # offline: P1, P2 sample r (guard-bounded, odd -- nonzero),
-        # x = msb(r)
-        mag, sign = rt.sample_group(
-            [((1, 2), shape, ring.ell - 1 - rt.bitext_guard),
-             ((1, 2), shape)])
-        sign = lshr(sign, ring.ell - 1)
-        r = torch.where(sign.bool(), -(mag | 1), mag | 1)
-        x_bit = ring.msb(r)
-        with tp.round("offline"):
-            r_sh = _vsh(rt, lambda p: r, (1, 2), shape, tag=tag + ".r",
+        if rt.prep.consuming:
+            # online-only: the (r, msb(r)) pair comes straight from the
+            # store (both are offline vSh records carrying their m)
+            r_sh = _vsh(rt, None, (1, 2), shape, tag=tag + ".r",
                         phase="offline")
-        x_sh = RB.vsh_bool(rt, lambda p: x_bit, (1, 2), shape, nbits=1,
-                           tag=tag + ".xb", phase="offline")
-        # online: [[rv]], opened towards P0 & P3; y = msb(rv)
+            x_sh = RB.vsh_bool(rt, None, (1, 2), shape, nbits=1,
+                               tag=tag + ".xb", phase="offline")
+        else:
+            # offline: P1, P2 sample r (guard-bounded, odd -- nonzero),
+            # x = msb(r)
+            mag, sign = rt.sample_group(
+                [((1, 2), shape, ring.ell - 1 - rt.bitext_guard),
+                 ((1, 2), shape)])
+            sign = lshr(sign, ring.ell - 1)
+            r = torch.where(sign.bool(), -(mag | 1), mag | 1)
+            x_bit = ring.msb(r)
+            with tp.round("offline"):
+                r_sh = _vsh(rt, lambda p: r, (1, 2), shape, tag=tag + ".r",
+                            phase="offline")
+            x_sh = RB.vsh_bool(rt, lambda p: x_bit, (1, 2), shape, nbits=1,
+                               tag=tag + ".xb", phase="offline")
+        # online: [[rv]], opened towards P0 & P3; y = msb(rv).  In the
+        # dealer pass reconstruct returns placeholders (the y vSh is
+        # data-dependent: only its lambdas are prep, val_of is unused)
         rv = rt_mult(rt, r_sh, v)
         rv_val = reconstruct(rt, rv, receivers=(0, 3))
         y_bit = {p: ring.msb(rv_val[p]) for p in (0, 3)}
         y_sh = RB.vsh_bool(rt, lambda p: y_bit[p], (3, 0), shape,
                            nbits=1, tag=tag + ".yb")
     return x_sh.xor(y_sh)
+
+
+def less_than_zero(rt: FourPartyRuntime, v: DistAShare, **kw) -> DistBShare:
+    """[[v < 0]]^B -- the secure comparison primitive."""
+    return bit_extract(rt, v, **kw)

@@ -15,6 +15,10 @@ backend ``FourPartyRuntime`` holds:
     online parts and m_x op m_y (online) into groups of the grouped
     fused multiply-add (XOR/AND) kernel, which reads each party's words in
     place and folds the constants (masks, gamma_j + lambda_z_j) in.
+    Pi_DotP takes the same one launch per round for the term products
+    (no constants: they have the contracted shape), then contracts the
+    last axis and adds the constants, as the JAX package's
+    ``PallasKernels`` does.
     Pi_MatMul keeps one ring matmul per gamma piece (its three terms fused
     on the K axis) and a 3x3 all-pairs ring matmul per party online; each
     group of PRF draws is one launch that derives the streams' keys and
@@ -146,15 +150,28 @@ class HopperKernels(TorchKernels):
         if kind == "matmul":
             return super().gamma_pieces_round(kind, op, requests)
         _elementwise(kind)
-        return _split_pieces(ops.mult_terms_group(gamma_groups(requests)),
-                             requests)
+        if kind == "mul":
+            return _split_pieces(
+                ops.mult_terms_group(gamma_groups(requests)), requests)
+        # dotp: the term products in one launch, contracted after (exact:
+        # ring addition is associative), then the masks added
+        got = _split_pieces(_contract(ops.mult_terms_group(
+            gamma_groups(requests, consts=False))), requests)
+        return [{j: s + r[2][j] for j, s in pieces.items()}
+                for pieces, r in zip(got, requests)]
 
     def online_parts_round(self, kind, op, requests):
         if kind == "matmul":
             return super().online_parts_round(kind, op, requests)
         _elementwise(kind)
-        return _split_parts(ops.mult_terms_group(online_groups(requests)),
-                            requests)
+        if kind == "mul":
+            return _split_parts(
+                ops.mult_terms_group(online_groups(requests)), requests)
+        got = _split_parts(_contract(ops.mult_terms_group(
+            online_groups(requests, consts=False))), requests)
+        # r[4], r[5]: the request's gammas and lam_zs
+        return [(mm, {j: s + r[4][j] + r[5][j] for j, s in parts.items()})
+                for (mm, parts), r in zip(got, requests)]
 
     # -- boolean world -----------------------------------------------------
     def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
@@ -179,25 +196,34 @@ def _group(xor: bool, pairs, consts, signs) -> tuple:
     return (pairs, consts) if xor else (pairs, consts, signs)
 
 
-def gamma_groups(requests, xor: bool = False) -> list:
+def gamma_groups(requests, xor: bool = False, consts: bool = True) -> list:
     """The grouped kernel's groups of an offline round: for each request
     ``(lam_x, lam_y, masks, js)`` and each piece j, the three products
-    lam_x[p] lam_y[q] of GAMMA_TERMS[j] with masks[j] as the constant."""
+    lam_x[p] lam_y[q] of GAMMA_TERMS[j] with masks[j] as the constant
+    (none without `consts`)."""
     return [_group(xor, [(lam_x[p], lam_y[q]) for p, q in AL.GAMMA_TERMS[j]],
-                   (masks[j],), (1, 1, 1))
+                   (masks[j],) if consts else (), (1, 1, 1))
             for lam_x, lam_y, masks, js in requests for j in js]
 
 
-def online_groups(requests, xor: bool = False) -> list:
+def online_groups(requests, xor: bool = False, consts: bool = True) -> list:
     """The groups of an online round: for each request ``(m_x, m_y, lam_x,
     lam_y, gammas, lam_zs, js)``, part j = gamma_j + lam_z_j - lam_x[j] m_y
-    - m_x lam_y[j] (XOR for an AND) for each j in js, then m_x op m_y."""
+    - m_x lam_y[j] (XOR for an AND; without `consts`, gamma_j and lam_z_j
+    are left out) for each j in js, then m_x op m_y."""
     groups = []
     for m_x, m_y, lam_x, lam_y, gammas, lam_zs, js in requests:
         groups += [_group(xor, [(lam_x[j], m_y), (m_x, lam_y[j])],
-                          (gammas[j], lam_zs[j]), (-1, -1)) for j in js]
+                          (gammas[j], lam_zs[j]) if consts else (), (-1, -1))
+                   for j in js]
         groups.append(_group(xor, [(m_x, m_y)], (), (1,)))
     return groups
+
+
+def _contract(outs: list) -> list:
+    """Pi_DotP's contraction of the last axis of each group's output;
+    ``dtype`` keeps int32 words int32 (torch.sum would promote them)."""
+    return [o.sum(-1, dtype=o.dtype) for o in outs]
 
 
 def _split_pieces(outs: list, requests) -> list:
@@ -224,7 +250,7 @@ def _batched_matmul(t: torch.Tensor) -> None:
 
 
 def _elementwise(kind: str) -> None:
-    if kind != "mul":
+    if kind not in ("mul", "dotp"):
         raise NotImplementedError(f"hopper backend: no {kind!r} kernel path")
 
 

@@ -6,8 +6,11 @@ of its hash-exchange verdicts.  ``PartyAView`` / ``PartyBView`` are one
 party's slice of an arithmetic / boolean share: P0 holds every lambda but
 never the masked value m; the online party P_i (i in 1..3) holds m and
 every lambda except lambda_i.  ``DistAShare`` / ``DistBShare`` bundle the
-four views of one logical share.  Components are torch tensors of ring
-words (int64 / int32).
+four views of one logical share; ``from_joint`` / ``to_joint`` convert to
+and from the joint simulation's ``AShare`` / ``BShare`` stacks (``to_joint``
+checks that every component agrees across the parties holding it).
+Components are torch tensors of ring words (int64 / int32).  In the
+dealer pass (deal mode) shares are lambda-only: every view's m is None.
 """
 from __future__ import annotations
 
@@ -15,9 +18,10 @@ import dataclasses
 
 import torch
 
-from ..core.algebra import PARTIES, CheckLedger
+from ..core.algebra import PARTIES, CheckLedger, lam_holders
 from ..core.prf import ThreefryKey, subset_id
 from ..core.ring import lshr, signed, width_of
+from ..core.shares import AShare, BShare
 
 
 class PartyKeys:
@@ -103,6 +107,29 @@ class PartyBView:
         return PartyBView(m, dict(self.lam), self.nbits)
 
 
+def _view_indices(party: int) -> tuple:
+    """Lambda components party i holds: all but i (P0 holds all three)."""
+    return tuple(j for j in (1, 2, 3) if j != party)
+
+
+def _joint_stack(views, what: str) -> torch.Tensor:
+    """The (4, *shape) stack (m, lambda_1..3) of four party views, after
+    checking that every component agrees across the parties holding it."""
+    m = views[1].m
+    for i in (2, 3):
+        if not torch.equal(views[i].m, m):
+            raise AssertionError(f"{what}: m view mismatch")
+    lams = []
+    for j in (1, 2, 3):
+        holders = lam_holders(j)
+        ref = views[holders[0]].lam[j]
+        for h in holders[1:]:
+            if not torch.equal(views[h].lam[j], ref):
+                raise AssertionError(f"{what}: lambda_{j} view mismatch")
+        lams.append(ref)
+    return torch.stack([m] + lams)
+
+
 @dataclasses.dataclass
 class DistAShare:
     """The four party views of one logical arithmetic share."""
@@ -115,6 +142,18 @@ class DistAShare:
     def from_views(cls, views) -> "DistAShare":
         ref = views[1].m
         return cls(tuple(views), tuple(ref.shape), ref.dtype)
+
+    @classmethod
+    def from_joint(cls, x: AShare) -> "DistAShare":
+        views = [PartyAView(None if i == 0 else x.m,
+                            {j: x.data[j] for j in _view_indices(i)})
+                 for i in PARTIES]
+        return cls(tuple(views), x.shape, x.dtype)
+
+    def to_joint(self) -> AShare:
+        """Reassemble the joint stack, checking that every component agrees
+        across all parties holding it (a corrupted runtime would diverge)."""
+        return AShare(_joint_stack(self.views, "arithmetic share"))
 
     def add(self, other: "DistAShare") -> "DistAShare":
         return DistAShare(tuple(a.add(b) for a, b in
@@ -136,6 +175,23 @@ class DistAShare:
         return DistAShare(tuple(v.mul_public(c) for v in self.views),
                           self.shape, self.dtype)
 
+    # operator sugar matching AShare, so engine-generic code can write
+    # `x + y` against either container
+    def __add__(self, other):
+        if isinstance(other, DistAShare):
+            return self.add(other)
+        return self.add_public(other)
+
+    __radd__ = __add__
+
+    def __sub__(self, other):
+        if isinstance(other, DistAShare):
+            return self.sub(other)
+        return self.add_public(-other)
+
+    def __neg__(self):
+        return self.neg()
+
 
 def map_components(fn, *xs: DistAShare) -> DistAShare:
     """Apply a share-local tensor function to every aligned component of
@@ -154,6 +210,25 @@ def map_components(fn, *xs: DistAShare) -> DistAShare:
     return DistAShare(tuple(views), tuple(ref.shape), ref.dtype)
 
 
+def map_components_multi(fn, x: DistAShare, n: int) -> list:
+    """`fn` returns a list of `n` tensors per component (e.g.
+    ``torch.split``); rebundles them into `n` shares."""
+    pieces = [[None] * len(PARTIES) for _ in range(n)]
+    for i in PARTIES:
+        v = x.views[i]
+        ms = fn(v.m) if v.m is not None else [None] * n
+        lams = {j: fn(v.lam[j]) for j in v.lam}
+        for k in range(n):
+            pieces[k][i] = PartyAView(ms[k], {j: lams[j][k] for j in v.lam})
+    out = []
+    for k in range(n):
+        ref = pieces[k][1].m if pieces[k][1].m is not None \
+            else next(iter(pieces[k][1].lam.values()))
+        out.append(DistAShare(tuple(pieces[k]), tuple(ref.shape),
+                              ref.dtype))
+    return out
+
+
 @dataclasses.dataclass
 class DistBShare:
     """The four party views of one logical boolean share."""
@@ -162,6 +237,16 @@ class DistBShare:
     shape: tuple
     dtype: torch.dtype
     nbits: int
+
+    @classmethod
+    def from_joint(cls, x: BShare) -> "DistBShare":
+        views = [PartyBView(None if i == 0 else x.m,
+                            {j: x.data[j] for j in _view_indices(i)},
+                            x.nbits) for i in PARTIES]
+        return cls(tuple(views), x.shape, x.dtype, x.nbits)
+
+    def to_joint(self) -> BShare:
+        return BShare(_joint_stack(self.views, "boolean share"), self.nbits)
 
     def _word(self, c: int) -> int:
         """A Python constant as the signed word this share's tensors hold."""

@@ -15,7 +15,13 @@ program opens the same ring words and moves the same bits per link:
 Every protocol acquires its data-independent material through
 ``rt.prep.acquire(tag, kind, build)``; ``build`` samples in the JAX
 package's counter order and moves the offline messages, returning the four
-per-party records of what each P_i holds afterwards.
+per-party records of what each P_i holds afterwards.  Inline mode runs it
+in place; deal mode records it into a PrepStore and stops before the
+online half (shares carry only lambdas, m is None); online mode pops the
+record and runs the online half alone, with the offline phase forbidden on
+the wire (``Transport.forbid_phase``).  Tags are taken in every mode
+exactly where the JAX package takes them, so a store dealt by either
+package feeds the other's online run.
 """
 from __future__ import annotations
 
@@ -25,9 +31,9 @@ from ..core import algebra as AL
 from ..core.algebra import (ASH_SUBSETS, B2A_VALS, GAMMA_LOCAL, GAMMA_RECV,
                             PART_HOLDERS, PARTIES, REC_ROUTE, TRUNC_GUARD,
                             ZERO_SUBSETS, as_op, lam_holders, matmul_shape)
-from ..core.ring import signed
+from ..core.ring import bit_planes, signed
 from ..obs import traced_protocol
-from .party import DistAShare, DistBShare, PartyAView
+from .party import DistAShare, DistBShare, PartyAView, PartyBView
 from .runtime import FourPartyRuntime
 
 
@@ -92,6 +98,9 @@ def share(rt: FourPartyRuntime, v, owner: int = 0) -> DistAShare:
         return [{"lam": _held_lam(lam, i)} for i in PARTIES]
 
     parts = rt.prep.acquire(tag, "share", build)
+    if rt.prep.skip_online:
+        views = [PartyAView(None, dict(parts[i]["lam"])) for i in PARTIES]
+        return DistAShare(tuple(views), tuple(v.shape), ring.dtype)
     lam0 = parts[0]["lam"]
     m = v + lam0[1] + lam0[2] + lam0[3]
     got = _broadcast_by_p0(rt, m, tag=tag, nbits=ring.ell)
@@ -99,6 +108,37 @@ def share(rt: FourPartyRuntime, v, owner: int = 0) -> DistAShare:
     for i in (1, 2, 3):
         views.append(PartyAView(got[i], dict(parts[i]["lam"])))
     return DistAShare.from_views(views)
+
+
+@traced_protocol("share_bool")
+def share_bool(rt: FourPartyRuntime, v, owner: int = 0,
+               nbits: int | None = None) -> DistBShare:
+    """Boolean-share words `v` held by P0 over their low `nbits` bits."""
+    if owner != 0:
+        raise NotImplementedError("runtime Pi_Sh^B: owner P0 only")
+    ring = rt.ring
+    nbits = ring.ell if nbits is None else nbits
+    v = rt.words(v)
+    mask = signed((1 << nbits) - 1, ring.ell)
+    tag = rt.next_tag("shB")
+
+    def build():
+        lam = {j: d & mask for j, d in zip((1, 2, 3), rt.sample_group(
+            [(lam_holders(j), v.shape) for j in (1, 2, 3)]))}
+        return [{"lam": _held_lam(lam, i)} for i in PARTIES]
+
+    parts = rt.prep.acquire(tag, "shareB", build)
+    if rt.prep.skip_online:
+        views = [PartyBView(None, dict(parts[i]["lam"]), nbits)
+                 for i in PARTIES]
+        return DistBShare(tuple(views), tuple(v.shape), ring.dtype, nbits)
+    lam0 = parts[0]["lam"]
+    m = (v ^ lam0[1] ^ lam0[2] ^ lam0[3]) & mask
+    got = _broadcast_by_p0(rt, m, tag=tag, nbits=nbits)
+    views = [PartyBView(None, dict(lam0), nbits)]
+    for i in (1, 2, 3):
+        views.append(PartyBView(got[i], dict(parts[i]["lam"]), nbits))
+    return DistBShare(tuple(views), tuple(v.shape), ring.dtype, nbits)
 
 
 # ---------------------------------------------------------------------------
@@ -110,7 +150,12 @@ def reconstruct(rt: FourPartyRuntime, x: DistAShare,
     """Open [[x]] towards `receivers`; returns {party: ring words}."""
     ring = rt.ring
     tp = rt.transport
-    tag = rt.next_tag("rec")
+    tag = rt.next_tag("rec")        # taken in every mode: tag parity
+    if rt.prep.skip_online:
+        # dealer pass: opening is pure online; zero placeholders keep
+        # programs that post-process the opened words runnable
+        zero = torch.zeros(x.shape, dtype=ring.dtype, device=rt.device)
+        return {r: zero for r in receivers}
     got = {}
     with tp.round("online"):
         for r in receivers:
@@ -169,7 +214,7 @@ def ash_by_p0(rt: FourPartyRuntime, v0) -> list:
 
 
 # ---------------------------------------------------------------------------
-# Pi_Mult / Pi_MatMul (+ fused truncation, Figs. 4/18).
+# Pi_Mult / Pi_DotP / Pi_MatMul (+ fused truncation, Figs. 4/9/18).
 # ---------------------------------------------------------------------------
 def _gamma_exchange(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
                     op, out_shape, *, tag: str, kind: str = "mul") -> list:
@@ -270,6 +315,10 @@ def _mult_like(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
             return {j: -parts[i]["rt"][j] for j in parts[i]["rt"]}
         return dict(parts[i]["lam_z"])
 
+    if rt.prep.skip_online:
+        views = [PartyAView(None, out_lam(i)) for i in PARTIES]
+        return DistAShare(tuple(views), tuple(out_shape), ring.dtype)
+
     # ---- online: every online party's m_x op m_y plus its two m_z' parts
     # is ONE kernel-backend round call ----------------------------------------
     def request(party: int) -> tuple:
@@ -315,10 +364,23 @@ def _matmul(a, b):
     return torch.matmul(a, b)
 
 
+def _dot_last(a, b):
+    # dtype keeps int32 words int32: torch.sum would promote them to int64
+    return torch.sum(a * b, dim=-1, dtype=a.dtype)
+
+
 @traced_protocol("mult")
 def mult(rt: FourPartyRuntime, x: DistAShare, y: DistAShare) -> DistAShare:
     """Pi_Mult (Fig. 4): elementwise product, no truncation."""
     return _mult_like(rt, x, y, name="mult")
+
+
+@traced_protocol("dotp")
+def dotp(rt: FourPartyRuntime, x: DistAShare, y: DistAShare) -> DistAShare:
+    """Pi_DotP (Fig. 9): wire cost independent of the vector length."""
+    out_shape = tuple(torch.broadcast_shapes(x.shape, y.shape))[:-1]
+    return _mult_like(rt, x, y, contract=_dot_last, out_shape=out_shape,
+                      name="dotp", kind="dotp")
 
 
 @traced_protocol("matmul")
@@ -362,25 +424,38 @@ def truncate_share(rt: FourPartyRuntime, x: DistAShare) -> DistAShare:
 
     parts = rt.prep.acquire(tag, "trunc", build)
 
+    def out_lam(i: int) -> dict:
+        return {j: -v for j, v in parts[i]["rt"].items()}
+
+    if rt.prep.skip_online:
+        views = [PartyAView(None, out_lam(i)) for i in PARTIES]
+        return DistAShare(tuple(views), tuple(out_shape), ring.dtype)
+
     # online: open z - r via the part routing (part j = -(lam_j + r_j))
     def parts_of(party: int, j: int):
         return -(x.views[party].lam[j] + parts[party]["r"][j])
 
     have = _open_parts(rt, parts_of, tag=tag, nbits=ring.ell)
-    views = [PartyAView(None, {j: -v for j, v in parts[0]["rt"].items()})]
+    views = [PartyAView(None, out_lam(0))]
     for i in (1, 2, 3):
         z_minus_r = x.views[i].m + have[i][1] + have[i][2] + have[i][3]
-        views.append(PartyAView(ring.truncate(z_minus_r),
-                                {j: -v for j, v in parts[i]["rt"].items()}))
+        views.append(PartyAView(ring.truncate(z_minus_r), out_lam(i)))
     return DistAShare(tuple(views), tuple(out_shape), ring.dtype)
+
+
+def scale_public(rt: FourPartyRuntime, x: DistAShare, c: float) -> DistAShare:
+    """[[x]] * c for a public real constant: local mul + one truncation."""
+    return truncate_share(rt, x.mul_public(rt.encode(c)))
 
 
 # ---------------------------------------------------------------------------
 # Pi_vSh (Fig. 7): sharing of a value two parties both know.  The masked
 # value is jmp-sent to every non-owner online party.  A phase="offline"
-# vSh runs its exchange inside the prep build; a phase="online" one is
-# data-dependent and exchanges online over prep lambdas.  The caller
-# provides the round scope so parallel vSh instances share one round.
+# vSh runs its exchange inside the prep build, so its record carries the
+# masked value too; a phase="online" one is data-dependent and exchanges
+# online over prep lambdas (in deal mode it stops at the lambdas and
+# val_of is never called).  The caller provides the round scope so
+# parallel vSh instances share one round.
 # ---------------------------------------------------------------------------
 def _vsh_lam_parts(rt: FourPartyRuntime, owners: tuple, shape,
                    mask=None) -> tuple:
@@ -432,6 +507,8 @@ def _vsh(rt: FourPartyRuntime, val_of, owners: tuple, shape, *, tag: str,
     parts = rt.prep.acquire(tag, f"vsh.{phase}", build)
     if phase == "offline":
         m = {i: parts[i]["m"] for i in (1, 2, 3)}
+    elif rt.prep.skip_online:
+        m = {i: None for i in (1, 2, 3)}
     else:
         m = _vsh_exchange(rt, val_of, owners, lambda p: parts[p]["lam"],
                           tag=tag, nbits=ring.ell, phase=phase, xor=False)
@@ -444,12 +521,6 @@ def _vsh(rt: FourPartyRuntime, val_of, owners: tuple, shape, *, tag: str,
 # ---------------------------------------------------------------------------
 # B2A (Fig. 16): boolean -> arithmetic, constant online rounds.
 # ---------------------------------------------------------------------------
-def bit_planes(word: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
-    """Bits lo..hi-1 of each word as 0/1 words, stacked on a new leading
-    axis (``& 1`` makes the arithmetic shift safe)."""
-    return torch.stack([(word >> i) & 1 for i in range(lo, hi)])
-
-
 @traced_protocol("b2a")
 def b2a(rt: FourPartyRuntime, v: DistBShare) -> DistAShare:
     ring = rt.ring

@@ -23,12 +23,24 @@ from .transport import LocalTransport, Transport
 
 class InlinePrep:
     """Preprocessing seam: every protocol acquires its data-independent
-    randomness through ``rt.prep.acquire(tag, kind, build)``; inline prep
-    runs ``build()`` here and now, interleaved with the online phase.  (The
-    dealt and online-only modes come with the port of the offline
-    subsystem.)"""
+    randomness -- lambda/gamma shares, truncation pairs, conversion masks
+    -- through ``rt.prep.acquire(tag, kind, build)``.  The three engines:
+
+      * ``InlinePrep``              -- run ``build()`` here and now;
+      * ``offline.store.DealPrep``  -- run ``build()`` (the dealer pass:
+        offline messages move on the dealer's transport) and record the
+        per-party material in a ``PrepStore`` under `tag`;
+      * ``offline.store.OnlinePrep`` -- never call ``build()``; pop the
+        recorded material from the store (use-once).
+
+    ``skip_online`` tells protocols to stop after the offline half (deal
+    mode, where shares carry only lambda components); ``consuming`` marks
+    the online-only run, where PRF sampling is refused because all
+    randomness must come from the store."""
 
     mode = "inline"
+    skip_online = False
+    consuming = False
 
     def acquire(self, tag: str, kind: str, build):
         return build()
@@ -39,14 +51,14 @@ class FourPartyRuntime:
                  transport: Transport | None = None,
                  malicious_checks: bool = True,
                  bitext_guard: int = 24, bitext_method: str = "mul",
-                 norm_window: tuple = (4, 40),
+                 norm_window: tuple = (4, 40), prep=None,
                  kernel_backend="hopper", device=None):
         self.ring = ring
         self.device = resolve_device(device)
         self.transport = transport if transport is not None \
             else LocalTransport()
         self.malicious_checks = malicious_checks
-        self.prep = InlinePrep()
+        self.prep = prep if prep is not None else InlinePrep()
         self.kernels = MeteredKernels(
             make_kernel_backend(kernel_backend, self.device))
         self.bitext_guard = bitext_guard
@@ -78,6 +90,12 @@ class FourPartyRuntime:
         bits)`` each: the counters are taken in list order, so the words
         equal those of the same ``sample``/``sample_bounded`` calls in a
         row; the kernel backend draws the group in one launch."""
+        if self.prep.consuming:
+            # the online-only run draws ALL randomness from the PrepStore; a
+            # PRF call here means a protocol path missed the prep seam
+            raise RuntimeError(
+                "PRF sampling during a PrepStore-backed online-only run: "
+                "all offline randomness must come from the store")
         draws = [(self.parties[min(sp[0])].keys.subset_key(sp[0]),
                   self.fresh_counter(), sp[1],
                   sp[2] if len(sp) > 2 else None) for sp in specs]

@@ -30,12 +30,28 @@ Example -- the paper's NN at full width, on the card::
     probs = RING64.decode(torch.stack(words))
     srv.report()                   # measured bits/rounds per batch and link
 
-The JAX package serves through its ``ServingGateway`` pool, with pipelined
-preprocessing and a socket path; those come with later slices of the port.
+Offline/online split (``repro_torch.offline``):
+``PartyPredictionServer(prep="pipelined")`` runs a background dealer (a
+``PrepPipeline``, on a CUDA stream of its own) that deals one PrepStore per
+batch -- batch k from seed ``seed + k`` (counted over every flush) on a
+zeros batch of the same shape -- while each batch runs online-only from
+its store: zero offline bits on the wire, and the report's
+``online_only_ms_per_batch`` is the serving wall without the offline half.
+In one process this mode is slower than inline serving, not faster: the
+dealer thread and the serving thread are both host-bound (Python and
+kernel dispatch) and take turns on one GIL, so a pipelined batch costs
+about a deal plus an online run, each slowed by the other's contention
+(PERF.md, Findings).  Use it where the offline half must leave the
+critical path's wire, not for throughput.
+
+The JAX package serves through its ``ServingGateway`` pool and has a socket
+path; those come with later slices of the port: batches are drained here
+in a plain loop.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Callable
 
@@ -58,6 +74,8 @@ class PartyServeStats:
     online_bits: int = 0
     offline_bits: int = 0
     batch_walls_s: list = dataclasses.field(default_factory=list)
+    online_compute_s: float = 0.0      # online-only wall (pipelined)
+    offline_deal_s: float = 0.0        # dealer wall (overlapped: pipelined)
     modeled_s: dict = dataclasses.field(
         default_factory=lambda: {"offline": 0.0, "online": 0.0})
     link_online_bits: dict = dataclasses.field(default_factory=dict)
@@ -84,11 +102,16 @@ class PartyPredictionServer:
     batch runs on a fresh ``FourPartyRuntime`` seeded with ``seed``.
 
     Runs on CUDA unless ``device`` says otherwise; ``kernel_backend`` is
-    the runtime's ("hopper" by default)."""
+    the runtime's ("hopper" by default).  ``prep="pipelined"`` serves each
+    batch online-only from a store a background dealer made for it
+    (``prep_capacity`` stores ahead at most)."""
 
     def __init__(self, predict_fn: Callable, batch_size: int = 32,
                  ring=RING64, seed: int = 0, net_model=None,
-                 kernel_backend="hopper", device=None):
+                 kernel_backend="hopper", device=None,
+                 prep: str | None = None, prep_capacity: int = 2):
+        if prep not in (None, "pipelined"):
+            raise ValueError(f"unknown prep mode {prep!r}")
         self.predict_fn = predict_fn
         self.batch_size = batch_size
         self.ring = ring
@@ -96,27 +119,52 @@ class PartyPredictionServer:
         self.net_model = net_model
         self.kernel_backend = kernel_backend
         self.device = resolve_device(device)
+        self.prep = prep
+        self.prep_capacity = prep_capacity
         self.stats = PartyServeStats()
         # each batch's (per_link(), totals()), in serving order
         self.batch_traffic: list = []
         self._queue: list[np.ndarray] = []
+        self._batches_dealt = 0
+        # the dealer thread's CUDA stream, one for every flush
+        self._deal_stream = None
 
     def submit(self, x: np.ndarray) -> None:
         self._queue.append(np.asarray(x))
 
-    def _run_batch(self, X, n):
+    def _transport(self):
         base = LocalTransport()
-        tp = base
         if self.net_model is not None:
             from ..runtime.net import NetModelTransport
-            tp = NetModelTransport(base, self.net_model)
+            return base, NetModelTransport(base, self.net_model)
+        return base, base
+
+    def _run_batch(self, X, n, pipe=None):
+        """One batch: inline on a fresh runtime, or (`pipe`) online-only
+        from the next dealt store."""
+        base, tp = self._transport()
         t0 = time.perf_counter()
-        rt = FourPartyRuntime(self.ring, seed=self.seed, transport=tp,
-                              kernel_backend=self.kernel_backend,
-                              device=self.device)
+        if pipe is None:
+            rt = FourPartyRuntime(self.ring, seed=self.seed, transport=tp,
+                                  kernel_backend=self.kernel_backend,
+                                  device=self.device)
+        else:
+            from ..offline import OnlinePrep
+            _, store, drep = pipe.next_store()
+            self.stats.offline_deal_s += drep.wall_s
+            t0 = time.perf_counter()
+            tp.forbid_phase("offline")
+            rt = FourPartyRuntime(self.ring, transport=tp,
+                                  prep=OnlinePrep(store, self.device),
+                                  kernel_backend=self.kernel_backend,
+                                  device=self.device)
         preds = self.predict_fn(rt, X)[:n].cpu()   # waits for the device
         aborted = rt.abort_flag()
         wall = time.perf_counter() - t0
+        if pipe is not None:
+            self.stats.online_compute_s += wall
+            if base.totals()["offline"]["bits"]:
+                raise RuntimeError("an online-only batch moved offline bits")
         self.stats.batch_walls_s.append(wall)
         self.stats.batches += 1
         self.stats.queries += n
@@ -131,11 +179,31 @@ class PartyPredictionServer:
         reg.counter("trident_serve_batches_total", "batches served").inc()
         return preds
 
+    def _deal_program(self, X, rt):
+        self.predict_fn(rt, X)
+
     def flush(self) -> list:
         """Serve every queued query; returns one prediction row each."""
+        batches = form_batches(self._queue, self.batch_size)
         out: list = []
-        for X, n in form_batches(self._queue, self.batch_size):
-            out.extend(torch.unbind(self._run_batch(X, n)))
+        if self.prep != "pipelined":
+            for X, n in batches:
+                out.extend(torch.unbind(self._run_batch(X, n)))
+            return out
+        from ..offline import PrepPipeline
+        if self.device.type == "cuda" and self._deal_stream is None:
+            self._deal_stream = torch.cuda.Stream(self.device)
+        base_seed = self.seed + self._batches_dealt
+        self._batches_dealt += len(batches)
+        programs = [functools.partial(self._deal_program, np.zeros_like(X))
+                    for X, _ in batches]
+        with PrepPipeline(programs, ring=self.ring, base_seed=base_seed,
+                          capacity=self.prep_capacity, device=self.device,
+                          stream=self._deal_stream, runtime_kwargs={
+                              "kernel_backend": self.kernel_backend}
+                          ) as pipe:
+            for X, n in batches:
+                out.extend(torch.unbind(self._run_batch(X, n, pipe)))
         return out
 
     def report(self) -> dict:
@@ -158,4 +226,9 @@ class PartyPredictionServer:
                 self.stats.modeled_s["online"] / nb
             out[f"modeled_{self.net_model.name}_offline_s_per_batch"] = \
                 self.stats.modeled_s["offline"] / nb
+        if self.prep == "pipelined":
+            out["online_only_ms_per_batch"] = \
+                self.stats.online_compute_s / nb * 1e3
+            out["offline_deal_s_per_batch"] = \
+                self.stats.offline_deal_s / nb
         return out

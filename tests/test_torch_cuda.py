@@ -1,7 +1,12 @@
 """The hand-written Hopper kernels on the card, each against its plain
-PyTorch version, word for word, on 64- and 32-bit ring words.  They need
-an NVIDIA GPU and skip without one.  This file imports neither jax nor the
-JAX package, so it runs on a machine that has only PyTorch:
+PyTorch version, word for word, on 64- and 32-bit ring words; Pi_DotP's
+rounds on the "hopper" backend against the "torch" backend's on the CPU;
+the store handoff between two streams under stress; and the pipelined
+server (each batch dealt on the dealer thread's own CUDA stream and
+served online-only on this thread's), every prediction held to the inline
+runtime at that batch's seed.  They need an NVIDIA GPU and skip without
+one.  This file imports neither jax nor the JAX package, so it runs on a
+machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_cuda.py
@@ -11,12 +16,21 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import offline  # noqa: E402
+from repro_torch.core.algebra import GAMMA_LOCAL, PART_HOLDERS  # noqa: E402
+from repro_torch.core.ring import RING64  # noqa: E402
 from repro_torch.kernels import gamma_parts as GP  # noqa: E402
 from repro_torch.kernels import mpc_matmul_fused as MF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import ppa_msb as PPA  # noqa: E402
 from repro_torch.kernels import prf_mask as PM  # noqa: E402
 from repro_torch.kernels import ring_matmul as RM  # noqa: E402
+from repro_torch.runtime import FourPartyRuntime  # noqa: E402
+from repro_torch.runtime.kernel_backend import (  # noqa: E402
+    HopperKernels, TorchKernels)
+from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
+from repro_torch.train.paper_ml import (MLPNet, mlp_net_init,  # noqa: E402
+                                        mlp_net_predict, params_from_numpy)
 
 
 def _descriptor_groups(words, count: int, dev) -> tuple:
@@ -187,3 +201,112 @@ def test_kernels_equal_plain_on_card(cuda_device):
             assert torch.equal(PM.prf_mask_group_cuda(part, out).cpu(),
                                PM.prf_mask_group_plain(part, dtype)), \
                 (dtype, count)
+    # Pi_DotP's rounds (kernel route K1): one grouped mult_terms launch a
+    # round, contracted after, equal to the "torch" backend on the CPU
+    rng64 = np.random.RandomState(5)
+
+    def lam(*shape):
+        return {j: torch.from_numpy(rng64.randint(-2**62, 2**62, size=shape,
+                                                  dtype=np.int64))
+                for j in (1, 2, 3)}
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1, dtype=a.dtype)
+
+    def on_card(reqs):
+        return [tuple({j: t.to(cuda_device) for j, t in x.items()}
+                      if isinstance(x, dict) else
+                      x.to(cuda_device) if torch.is_tensor(x) else x
+                      for x in r) for r in reqs]
+
+    lx, ly, masks, gammas, lam_zs = (lam(128, 784), lam(128, 784),
+                                     lam(128), lam(128), lam(128))
+    mx, my = lam(128, 784)[1], lam(128, 784)[1]
+    gamma_reqs = [(lx, ly, masks, (1, 2, 3))] + [(lx, ly, masks, (j,))
+                                                 for j in GAMMA_LOCAL]
+    online_reqs = [(mx, my, lx, ly, gammas, lam_zs,
+                    tuple(j for j in (1, 2, 3) if p in PART_HOLDERS[j]))
+                   for p in (1, 2, 3)]
+    for name, reqs in (("gamma_pieces_round", gamma_reqs),
+                       ("online_parts_round", online_reqs)):
+        ops.reset_launches()
+        got = getattr(HopperKernels(), name)("dotp", dot, on_card(reqs))
+        assert ops.MULT_TERMS.launches == 1, name
+        want = getattr(TorchKernels(), name)("dotp", dot, reqs)
+        for g, w in zip(got, want):
+            g, w = (g, w) if isinstance(g, dict) else (
+                {0: g[0], **g[1]}, {0: w[0], **w[1]})
+            assert all(torch.equal(g[j].cpu(), w[j]) for j in w), name
+    # the store handoff under stress, with no host wait between the
+    # streams: (a) words written on a side stream behind a spin, popped
+    # and read at once on this stream (the wait on store.ready); (b) words
+    # popped, their read held behind a spin on this stream while the host
+    # drops them and the side stream allocates and scribbles blocks of
+    # their size (record_stream)
+    n, spin = 1 << 20, 200_000_000
+    want = torch.arange(4 * n, dtype=torch.int64).view(4, n) * 3 + 1
+    # (a first pass with no spins loads the kernels these launch: a module
+    # loaded lazily mid-case would wait for the spinning stream)
+    side = torch.cuda.Stream(cuda_device)
+    for case in ("warm-up", "a", "b"):
+        torch.cuda.synchronize(cuda_device)
+        torch.cuda.empty_cache()
+        store = offline.PrepStore()
+        with torch.cuda.stream(side):
+            recs = [torch.full((n,), -1, dtype=torch.int64,
+                               device=cuda_device) for _ in range(4)]
+            torch.cuda._sleep(spin if case == "a" else 1)
+            for i, r in enumerate(recs):
+                torch.arange(i * n, (i + 1) * n, out=r)
+                r.mul_(3).add_(1)
+            store.put("h#0", "h", [{"w": r} for r in recs])
+            store.mark_ready(cuda_device)
+        del recs, r
+        parts = offline.OnlinePrep(store, cuda_device).acquire("h#0", "h",
+                                                               None)
+        assert case != "a" or not side.query()   # the side stream spins
+        torch.cuda._sleep(spin if case == "b" else 1)
+        got = torch.stack([p["w"] for p in parts])
+        del parts
+        if case == "b":
+            with torch.cuda.stream(side):
+                scribble = [torch.full((n,), -2, dtype=torch.int64,
+                                       device=cuda_device) for _ in range(8)]
+            del scribble
+        assert torch.equal(got.cpu(), want), case
+    # the offline-online split on the card: a store dealt on a side
+    # stream is consumed on this thread's stream; then the pipelined
+    # server (its dealer thread on a stream of its own), every batch equal
+    # to its inline twin
+    net = MLPNet(16, (8, 8, 4))
+    params = params_from_numpy(mlp_net_init(np.random.RandomState(0), net),
+                               RING64, cuda_device)
+
+    def predict(rt, X):
+        return mlp_net_predict(rt, params, net, X)
+
+    queries = np.random.RandomState(1).randn(4 * 8 - 3, 16)
+    side = torch.cuda.Stream(cuda_device)
+    with torch.cuda.stream(side):
+        store, _ = offline.deal(lambda rt: predict(rt, np.zeros((8, 16))),
+                                seed=3, device=cuda_device)
+    assert isinstance(store.ready, torch.cuda.Event)
+    got, rep = offline.run_online(lambda rt: predict(rt, queries[:8]), store,
+                                  device=cuda_device)
+    inline = predict(FourPartyRuntime(RING64, seed=3, device=cuda_device),
+                     queries[:8])
+    assert torch.equal(got.cpu(), inline.cpu()) and rep.offline_bits == 0
+    srv = PartyPredictionServer(predict, batch_size=8, seed=3,
+                                prep="pipelined", device=cuda_device)
+    for q in queries:
+        srv.submit(q)
+    words = torch.stack(srv.flush()).cpu()
+    report = srv.report()
+    assert report["batches"] == 4 and not report["aborted"]
+    assert report["offline_bits_per_batch"] == 0
+    X = np.concatenate([queries, np.zeros((3, 16))])
+    for k in range(4):
+        rows = slice(8 * k, 8 * (k + 1))
+        twin = predict(FourPartyRuntime(RING64, seed=3 + k,
+                                        device=cuda_device), X[rows]).cpu()
+        assert torch.equal(words[rows], twin[:len(words[rows])]), k

@@ -24,8 +24,9 @@ from repro.train.paper_ml import MLPNet as JNet, mlp_net_init  # noqa: E402
 from repro_torch.core.context import make_context  # noqa: E402
 from repro_torch.core.ring import RING64 as T64, words_to_numpy  # noqa: E402
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
+from repro_torch import offline  # noqa: E402
 from repro_torch.runtime.kernel_backend import (  # noqa: E402
-    HopperKernels, make_kernel_backend)
+    HopperKernels, TorchKernels, make_kernel_backend)
 from repro_torch.serve.engine import PredictionServer  # noqa: E402
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
 from repro_torch.train.paper_ml import (MLPNet, mlp_net_predict,  # noqa: E402
@@ -119,6 +120,10 @@ def test_port_imports_neither_jax_nor_repro():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    # the offline subsystem keeps its own copy of the store's format
+    assert {f.name for f in files if f.parent.name == "offline"} >= {
+        "__init__.py", "store.py", "dealer.py", "executor.py",
+        "workload.py", "pipeline.py"}
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -126,14 +131,27 @@ def test_port_imports_neither_jax_nor_repro():
 
 def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
     """No CUDA and no device given: refuse rather than run on the CPU (the
-    party runtime and its server, the joint simulation's context and its
-    server); the "torch" backend refuses CUDA; a batched ring matmul on a
-    non-CPU device names the slice that brings it."""
+    party runtime and its server, inline and pipelined; the dealer, the
+    online-only run and the prep pipeline; the joint simulation's context
+    and its server); the "torch" backend refuses CUDA; a batched ring
+    matmul on a non-CPU device names the slice that brings it; the "dotp"
+    kind runs on the "hopper" backend."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FourPartyRuntime(T64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PartyPredictionServer(lambda rt, X: X)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PartyPredictionServer(lambda rt, X: X, prep="pipelined")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offline.deal(lambda rt: None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offline.run_online(lambda rt: None, offline.PrepStore())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offline.PrepPipeline([lambda rt: None])
+    store, rep = offline.deal(lambda rt: None, device="cpu")
+    assert rep.entries == 0
+    assert offline.run_online(lambda rt: 5, store, device="cpu")[0] == 5
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_context(T64)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -152,3 +170,16 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
     with pytest.raises(NotImplementedError, match="slice"):
         HopperKernels().gamma_pieces("matmul", torch.matmul, lam, lam, lam,
                                      (1, 2, 3))
+    words = {j: torch.arange(6, dtype=torch.int64).reshape(2, 3) * j - 7
+             for j in (1, 2, 3)}
+    masks = {j: torch.full((2,), 11 * j, dtype=torch.int64)
+             for j in (1, 2, 3)}
+
+    def dot(a, b):
+        return torch.sum(a * b, dim=-1, dtype=a.dtype)
+
+    for backend in (HopperKernels(), TorchKernels()):
+        got = backend.gamma_pieces("dotp", dot, words, words, masks,
+                                   (1, 2, 3))
+        assert all(torch.equal(got[j], words[j].new_tensor(want)) for j, want
+                   in {1: [309, 30], 2: [249, 87], 3: [255, 48]}.items())
