@@ -71,16 +71,36 @@ from the root of a checkout.  In order, it
   7. joint path B: one batch on a collapsed context (the
      ``mpc_matmul_fused`` route): the kernels launched, the words equal to
      a CPU run and the launches to its wrapper calls, ``totals()`` equal to
-     path A's, and the probabilities; then profiles one more batch.
+     path A's, and the probabilities; then profiles one more batch;
+  8. secure training on the party runtime (phase "runtime-train"): 3
+     steps of the NN (``secure_sgd.nn_task()``, lr 0.5, weights from
+     ``init_params(seed=0)``, ``MNISTLike(n=8192, seed=2)`` batches of
+     128) through ``secure_sgd.run_step`` on the card, each step's
+     (params, loss) and ``totals()`` equal to a CPU run with the "torch"
+     backend, its launches per kernel equal to a CPU step's wrapper calls;
+     the same 3 steps in the joint world on the card (the same params and
+     losses); params after step 1 within 1e-2 of one float64 SGD step with
+     the truncations' mean bias, and within 5e-2 of it without; 3
+     steps of logistic regression on 784 features, equal to the CPU run;
+     the NN steps dealt and run online-only (equal to the inline steps, the
+     inline traffic split exactly, no ``prf_mask`` or ``ring_matmul``
+     launch online, deal + online launches = inline per kernel);
+     ``PrepAheadSGD`` over a ``ContinuousDealer`` (the same trajectory,
+     no offline bit); a ``Trainer`` crashed at step 1 and resumed from its
+     checkpoint ending on the uninterrupted params; steady step walls, a
+     profiled NN step, and each kernel at the training step's new shapes
+     against its plain version, timed beside its bound.
 
-Each path (the deal and the online-only run of step 5 being two) is
-driven with the launch counts set to 0 just before it and read just
-after; the kernel rows report the sum over the paths, and each path
-prints its ``prf_mask`` launches and PRF streams per batch.  Any failure
-exits nonzero.  Before the last lines come ``{"offline_online": {...}}``
-(step 5's times) and ``{"kernels": [...]}``, then the card's name and
-power limit; the last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout,
-it exits nonzero and prints no result.
+Each path (the deal and the online-only run of steps 5 and 8 being two
+each) is driven with the launch counts set to 0 just before it and read
+just after; the kernel rows report the sum over the paths, and each path
+prints its ``prf_mask`` launches and PRF streams per batch or step.  Any
+failure exits nonzero.  Before the last lines come
+``{"offline_online": {...}}`` (step 5's times),
+``{"runtime_train": {...}}`` (step 8's) and ``{"kernels": [...]}``, then
+the card's name and power limit; the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
+and prints no result.
 """
 from __future__ import annotations
 
@@ -818,6 +838,24 @@ def capture_rounds(dev) -> dict:
     return rec.rounds
 
 
+def terms_bound(groups) -> tuple:
+    """(unique bytes, bound ms, bound by) of one grouped gamma-piece
+    launch: each distinct operand read once, each output written once;
+    2 operations a term pair and 1 a constant per output word."""
+    from repro_torch.kernels import gamma_parts as GP
+    seen = {}
+    for pairs, consts, *_ in groups:
+        for t in (*(v for pr in pairs for v in pr), *consts):
+            seen[t.data_ptr()] = max(seen.get(t.data_ptr(), 0),
+                                     t.numel() * t.element_size())
+    shapes = [GP.group_shape(g) for g in groups]
+    n_out = sum(int(np.prod(sh)) for sh in shapes)
+    nbytes = sum(seen.values()) + 8 * n_out
+    nops = sum(int(np.prod(sh)) * (2 * len(g[0]) + len(g[1]))
+               for sh, g in zip(shapes, groups))
+    return (nbytes, *bound(nbytes, nops))
+
+
 def round_rows(dev) -> dict:
     """The mult_terms and and_terms rows: each round launch of the main
     path's Pi_Mult (6 groups x 3 terms offline, 9 groups online at
@@ -879,19 +917,8 @@ def round_rows(dev) -> dict:
                 for g, w, r in zip(got, was, ref)),
                 f"{kern.name}: the {stage} round call disagrees with the "
                 f"per-party sequence or the plain version")
-            # unique bytes: each distinct operand read once, each output
-            # written once
-            seen = {}
-            for pairs, consts, *_ in groups:
-                for t in (*(v for pr in pairs for v in pr), *consts):
-                    seen[t.data_ptr()] = max(seen.get(t.data_ptr(), 0),
-                                             t.numel() * t.element_size())
+            nbytes, b_ms, b_by = terms_bound(groups)
             shapes = [GP.group_shape(g) for g in groups]
-            n_out = sum(int(np.prod(sh)) for sh in shapes)
-            nbytes = sum(seen.values()) + 8 * n_out
-            nops = sum(int(np.prod(sh)) * (2 * len(g[0]) + len(g[1]))
-                       for sh, g in zip(shapes, groups))
-            b_ms, b_by = bound(nbytes, nops)
             old_ms, old_n = device_ops(old)
             new_ms, new_n = device_ops(new)
             info[stage] = {
@@ -934,12 +961,13 @@ def serve(device: str, backend: str, params: dict, net, queries) -> tuple:
     import torch
     from repro_torch.core.ring import RING64
     from repro_torch.serve.party_server import PartyPredictionServer
-    from repro_torch.train.paper_ml import mlp_net_predict, params_from_numpy
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
 
     enc = params_from_numpy(params, RING64, device)
     srv = PartyPredictionServer(
-        lambda rt, X: mlp_net_predict(rt, enc, net, X), batch_size=BATCH,
-        seed=SEED, kernel_backend=backend, device=device)
+        lambda rt, X: mlp_net_predict_runtime(rt, enc, net, X),
+        batch_size=BATCH, seed=SEED, kernel_backend=backend, device=device)
     for q in queries:
         srv.submit(q)
     words = torch.stack(srv.flush())
@@ -979,10 +1007,12 @@ def predict_collapsed(device: str, params: dict, net, X) -> tuple:
     return ctx, words
 
 
-def profile_batch(label: str, run, steady_wall_s: float) -> tuple:
-    """One more batch (`run()`) under the profiler (CUDA activity): device
-    busy time against the unprofiled steady batch wall, and device time by
-    kernel name.  Returns (busy ms, device operations)."""
+def profile_batch(label: str, run, steady_wall_s: float,
+                  unit: str = "batch") -> tuple:
+    """One more batch (`run()`; a training step where `unit` says so)
+    under the profiler (CUDA activity): device busy time against the
+    unprofiled steady wall, and device time by kernel name.  Returns (busy
+    ms, device operations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -993,13 +1023,13 @@ def profile_batch(label: str, run, steady_wall_s: float) -> tuple:
     evs = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)
     busy_ms = sum(e.device_time_total for e in evs) / 1e3
     check(busy_ms > 0, f"the profiler saw no device time in the {label} "
-          f"batch")
+          f"{unit}")
     # device operations (kernels, copies, fills) against every profiler
     # event, which also counts the host's runtime API calls (launches,
     # copies, synchronizations)
     device_ops = sum(e.count for e in evs if e.device_time_total > 0)
     events = sum(e.count for e in evs)
-    print(f"profiled {label} batch: device busy {busy_ms:.3f} ms in "
+    print(f"profiled {label} {unit}: device busy {busy_ms:.3f} ms in "
           f"{device_ops} device ops ({events} profiler events with the "
           f"runtime API calls); wall {wall * 1e3:.1f} ms profiled, "
           f"{steady_wall_s * 1e3:.1f} ms unprofiled -> busy share "
@@ -1027,10 +1057,12 @@ def tensor_core_instructions(build, source: str) -> tuple | None:
     return len(lines), sum("IGMMA" in ln for ln in lines)
 
 
-def drive(path: str, kernels: list, needed: tuple, run, batches: int):
-    """Run one path with every launch count set to 0 just before it; read
-    the counts just after, add them to the kernel rows, and fail if a
-    kernel of the path was not launched."""
+def drive(path: str, kernels: list, needed: tuple, run, batches: int,
+          unit: str = "batch"):
+    """Run one path (`batches` batches, or training steps where `unit`
+    says so) with every launch count set to 0 just before it; read the
+    counts just after, add them to the kernel rows, and fail if a kernel
+    of the path was not launched."""
     import torch
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -1050,7 +1082,7 @@ def drive(path: str, kernels: list, needed: tuple, run, batches: int):
     print(f"{path}: {wall:.3f} s; launches "
           f"{ {n: c for n, c in launches.items() if c} }")
     print(f"{path}: prf_mask {ops.PRF_MASK.launches / batches:g} launches "
-          f"and {ops.PRF_MASK.streams / batches:g} streams per batch")
+          f"and {ops.PRF_MASK.streams / batches:g} streams per {unit}")
     return out, wall
 
 
@@ -1259,7 +1291,8 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
     from repro_torch.core.ring import RING64
     from repro_torch.runtime import FourPartyRuntime
     from repro_torch.serve.party_server import PartyPredictionServer
-    from repro_torch.train.paper_ml import mlp_net_predict, params_from_numpy
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
 
     enc = params_from_numpy(params, RING64, "cuda")
     kw = {"device": "cuda", "runtime_kwargs": {"kernel_backend": "hopper"}}
@@ -1269,12 +1302,13 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
                        / N_BATCHES for k in kernels}
 
     def deal_batch():
-        return offline.deal(lambda rt: mlp_net_predict(rt, enc, net, zeros),
-                            seed=SEED, **kw)
+        return offline.deal(
+            lambda rt: mlp_net_predict_runtime(rt, enc, net, zeros),
+            seed=SEED, **kw)
 
     def online_batch(store):
         return offline.run_online(
-            lambda rt: mlp_net_predict(rt, enc, net, X), store, **kw)
+            lambda rt: mlp_net_predict_runtime(rt, enc, net, X), store, **kw)
 
     # 1. deal
     (store, drep), _ = drive(
@@ -1334,8 +1368,9 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
     from repro_torch.runtime import LocalTransport
     tp = LocalTransport()
     store2, _ = deal_batch()
-    offline.run_online(lambda rt: mlp_net_predict(rt, enc, net, X), store2,
-                       transport=tp, **kw)
+    offline.run_online(
+        lambda rt: mlp_net_predict_runtime(rt, enc, net, X), store2,
+        transport=tp, **kw)
     check({k: v["online"] for k, v in tp.per_link().items()}
           == {k: v["online"] for k, v in inline_links.items()}
           and all(v["offline"] == 0 for v in tp.per_link().values()),
@@ -1350,8 +1385,8 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
     # dealer stream's allocator blocks are warm)
     queries = np.random.RandomState(SEED + 2).randn(6 * BATCH, net.features)
     psrv = PartyPredictionServer(
-        lambda rt, Xb: mlp_net_predict(rt, enc, net, Xb), batch_size=BATCH,
-        seed=SEED, prep="pipelined", device="cuda")
+        lambda rt, Xb: mlp_net_predict_runtime(rt, enc, net, Xb),
+        batch_size=BATCH, seed=SEED, prep="pipelined", device="cuda")
     pipe_walls = []
     for flush in range(2):
         for q in queries[flush * 3 * BATCH:(flush + 1) * 3 * BATCH]:
@@ -1363,9 +1398,9 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
         pipe_walls.append((time.perf_counter() - t0) / 3)
         for k in range(3 * flush, 3 * flush + 3):
             rows = slice(k * BATCH, (k + 1) * BATCH)
-            twin = mlp_net_predict(FourPartyRuntime(RING64, seed=SEED + k,
-                                                    device="cuda"),
-                                   enc, net, queries[rows])
+            twin = mlp_net_predict_runtime(
+                FourPartyRuntime(RING64, seed=SEED + k, device="cuda"),
+                enc, net, queries[rows])
             check(torch.equal(pwords[rows.start - 3 * flush * BATCH:
                                      rows.stop - 3 * flush * BATCH].cpu(),
                               twin.cpu()),
@@ -1415,6 +1450,491 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
           f"online-only busy {on_busy:.3f} ms in {on_ops} device ops, deal "
           f"{deal_busy:.3f} ms in {deal_ops}")
     return times
+
+
+# the training phase (runtime-train): the paper's NN and logistic
+# regression at batch 128, TRAIN_STEPS steps from the step-indexed seeds
+# SEED + step
+TRAIN_STEPS = 3
+TRAIN_LR = 0.5
+# the products a training step gives the kernels that no serving path
+# gives them, (M, K, N) at batch 128: X^T dz0, dz2 w2^T, h2^T dz2, and
+# logistic regression's X w and X^T err.  Each is one gamma piece
+# (M, 3K) @ (3K, N) a piece and one online grid (3M, K) @ (K, 3N) a party.
+TRAIN_PRODUCTS = ((784, BATCH, 128), (BATCH, 10, 128), (128, BATCH, 10),
+                  (BATCH, 784, 1), (784, BATCH, 1))
+# One secure step against one float64 step in numpy.  Each truncating
+# product of the protocols (Pi_MultTr, Pi_MatMulTr, the public scalings)
+# ends 0-2 units of 2^-13 low, 1 on average (the floor, then the carry of
+# the probabilistic truncation), and the backward pass sums 128 such words
+# a gradient, so against the plain float64 step w0 comes out about 0.015
+# off after one step (the JAX package's words are the same).  The
+# tolerance of 1e-2 holds the step against the float64 step with that
+# mean of -2^-13 a truncating product; the plain float64 step is held to
+# 5e-2, the bias summed over the batch: 0.5 (lr) x 128 x 3 (|X|) x 2 x
+# 2^-13 = 0.047 at most.  A wrong sign or a missing mask moves a weight by
+# its whole update (up to about 0.15 at step 1).
+PARAM_ATOL = 1e-2
+PLAIN_PARAM_ATOL = 5e-2
+# the five kernels of the runtime's training step
+TRAIN_KERNELS = ("prf_mask", "ring_matmul", "mpc_matmul_grid", "mult_terms",
+                 "and_terms")
+
+
+def sgd_float64(params: dict, X: np.ndarray, onehot: np.ndarray,
+                lr: float, trunc: float = 0.0) -> dict:
+    """One SGD step of the NN in float64 numpy: ``forward_float64``'s smx,
+    dlogits = (p - onehot) / B passed straight to the last layer (as
+    ``mlp_net_bwd`` does), ReLU's 0/1 derivative; each product that the
+    protocols truncate less `trunc`."""
+    n = len(params)
+    hs, zs, h = [X], [], X
+    for i in range(n):
+        zs.append(h @ params[f"w{i}"])
+        h = np.maximum(zs[-1], 0.0)
+        hs.append(h)
+    p = hs[-1] / (hs[-1].sum(axis=-1, keepdims=True) + 1e-2)
+    dz = (p - onehot) / X.shape[0] - trunc
+    new = {}
+    for i in reversed(range(n)):
+        grad = hs[i].T @ dz - trunc
+        new[f"w{i}"] = params[f"w{i}"] - (lr * grad - trunc)
+        if i > 0:
+            dz = (dz @ params[f"w{i}"].T - trunc) * (zs[i - 1] > 0)
+    return new
+
+
+def same_params(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(
+        a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a)
+
+
+def train_steps(task, params: dict, batches, *, device, world: str = "runtime",
+                backend: str = "hopper") -> list:
+    """``secure_sgd.run_step`` over `batches`, step k from seed SEED + k:
+    [(params, loss, totals() of the runtime's transport or None, wall s)]
+    a step.  A step ends with its results on the host, so its wall holds
+    its device work."""
+    from repro_torch.runtime import LocalTransport
+    from repro_torch.train import secure_sgd as SGD
+    out = []
+    for step, batch in enumerate(batches):
+        tp = LocalTransport() if world == "runtime" else None
+        t0 = time.perf_counter()
+        params, loss, abort = SGD.run_step(
+            task, params, batch, step=step, base_seed=SEED, world=world,
+            transport=tp, device=device, kernel_backend=backend)
+        wall = time.perf_counter() - t0
+        check(not abort, f"{world} step {step} on {device}: aborted")
+        check(np.isfinite(loss) and all(np.isfinite(v).all()
+                                        for v in params.values()),
+              f"{world} step {step} on {device}: a value is not finite")
+        out.append((params, loss, None if tp is None else tp.totals(),
+                    wall))
+    return out
+
+
+def check_trajectory(what: str, got: list, want: list) -> None:
+    """Equal params and loss at every step (bit for bit), and equal
+    totals() where both carry them."""
+    check(len(got) == len(want), f"{what}: {len(got)} steps, {len(want)}")
+    for step, (g, w) in enumerate(zip(got, want)):
+        check(same_params(g[0], w[0]) and g[1] == w[1],
+              f"{what}: params or loss differ at step {step}")
+        if g[2] is not None and w[2] is not None:
+            check(g[2] == w[2], f"{what}: totals() differ at step {step}")
+
+
+def capture_train_calls(task, params, batch, dev) -> dict:
+    """One NN training step on the card through a backend that records
+    the largest PRF group (by words) and the largest Pi_Mult and AND round
+    call of each stage: {"prf": draws, (stage, world): (op, requests)}."""
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn.runtime_engine import RuntimeEngine
+    from repro_torch.runtime import FourPartyRuntime
+    from repro_torch.runtime.kernel_backend import HopperKernels
+
+    def words(t) -> int:
+        return int(t.numel())
+
+    class Recorder(HopperKernels):
+        def __init__(self):
+            super().__init__()
+            self.calls, self._size = {}, {}
+
+        def _keep(self, key, size, value):
+            if size > self._size.get(key, -1):
+                self._size[key], self.calls[key] = size, value
+
+        def prf_bits_group(self, draws, ring, device):
+            self._keep("prf", sum(int(np.prod(d[2])) for d in draws),
+                       draws)
+            return super().prf_bits_group(draws, ring, device)
+
+        def gamma_pieces_round(self, kind, op, requests):
+            if kind == "mul":
+                self._keep(("offline", "mul"), sum(
+                    words(r[2][r[3][0]]) for r in requests), (op, requests))
+            return super().gamma_pieces_round(kind, op, requests)
+
+        def online_parts_round(self, kind, op, requests):
+            if kind == "mul":
+                self._keep(("online", "mul"), sum(
+                    words(r[4][r[6][0]]) for r in requests), (op, requests))
+            return super().online_parts_round(kind, op, requests)
+
+        def bool_gamma_pieces_round(self, requests):
+            self._keep(("offline", "bool"), sum(
+                words(r[2][r[3][0]]) for r in requests), (None, requests))
+            return super().bool_gamma_pieces_round(requests)
+
+        def bool_online_parts_round(self, requests):
+            self._keep(("online", "bool"), sum(
+                words(r[4][r[6][0]]) for r in requests), (None, requests))
+            return super().bool_online_parts_round(requests)
+
+    rec = Recorder()
+    rt = FourPartyRuntime(RING64, seed=SEED, kernel_backend=rec, device=dev)
+    _, _, abort = task.run(RuntimeEngine(rt), params, batch)
+    check(not abort, "the recorded training step aborted")
+    return rec.calls
+
+
+def train_shape_rows(task, params, batch, dev) -> dict:
+    """Each of the five kernels at the training step's new shapes, held
+    against its plain version, timed on the device beside its bound and
+    the plain version's time: ring_matmul at each TRAIN_PRODUCTS gamma
+    piece, mpc_matmul_grid at each online grid (the plain int64 matmul on
+    the CPU, as PyTorch has none on CUDA); prf_mask, mult_terms and
+    and_terms at the largest PRF group and the largest Pi_Mult and AND
+    round of an NN training step, recorded on the card (plain versions on
+    the card).  {kernel name: [row, ...]}."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import gamma_parts as GP
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prf_mask as PM
+    from repro_torch.kernels import ring_matmul as RM
+    from repro_torch.runtime.kernel_backend import (HopperKernels,
+                                                    gamma_groups,
+                                                    online_groups)
+    rng = np.random.RandomState(SEED + 3)
+
+    def words(*shape):
+        return torch.from_numpy(rng.randint(
+            -2**63, 2**63 - 1, size=shape, dtype=np.int64))
+
+    rows = {name: [] for name in TRAIN_KERNELS}
+    for M, K, N in TRAIN_PRODUCTS:
+        for name, (m, k, n) in (("ring_matmul", (M, 3 * K, N)),
+                                ("mpc_matmul_grid", (3 * M, K, 3 * N))):
+            a, b = words(m, k), words(k, n)
+            da, db = a.to(dev), b.to(dev)
+            got = RM.ring_matmul_cuda(da, db)
+            check(torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)),
+                  f"{name} disagrees with its plain version at "
+                  f"{m}x{k}x{n}")
+            rows[name].append({
+                "product": f"{M}x{K}x{N}", "shape": f"{m}x{k}x{n}",
+                "ms": device_ms(lambda: RM.ring_matmul_cuda(da, db),
+                                "ring_matmul_kernel"),
+                "plain_ms": host_ms(lambda: RM.ring_matmul_plain(a, b),
+                                    reps=2),
+                "max_abs_err": 0, **ring_matmul_bound(m, k, n)})
+        # the grid through the wrapper, the transposed operand a permuted
+        # view (not contiguous), as the backward pass hands it over
+        xs = [words(K, M).t() for _ in range(3)]
+        ys = [words(K, N) for _ in range(3)]
+        grid = ops.mpc_matmul_grid([x.to(dev) for x in xs],
+                                   [y.to(dev) for y in ys])
+        want = RM.ring_matmul_plain(torch.cat(xs), torch.cat(ys, dim=1))
+        check(all(torch.equal(grid[i][j].cpu(),
+                              want[i * M:(i + 1) * M, j * N:(j + 1) * N])
+                  for i in range(3) for j in range(3)),
+              f"mpc_matmul_grid disagrees on permuted operands at "
+              f"{M}x{K}x{N}")
+    calls = capture_train_calls(task, params, batch, dev)
+    hk = HopperKernels()
+    draws = calls["prf"]
+    n = sum(int(np.prod(d[2])) for d in draws)
+    got = hk.prf_bits_group(draws, RING64, dev)
+    want = hk.prf_bits_group(draws, RING64, torch.device("cpu"))
+    check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+          "prf_mask disagrees with its plain version on the training "
+          "step's largest group")
+    group = [(key.data, ctr, int(np.prod(shape)),
+              0 if bits is None else RING64.ell - bits)
+             for key, ctr, shape, bits in draws]
+    b_ms, b_by = bound(8 * n, 27 * n)
+    rows["prf_mask"].append({
+        "shape": [list(d[2]) for d in draws], "words": n,
+        "ms": device_ms(lambda: hk.prf_bits_group(draws, RING64, dev),
+                        "squares_group_kernel"),
+        "plain_ms": device_ms(lambda: PM.prf_mask_group_plain(
+            group, torch.int64, dev)),
+        "max_abs_err": 0, "bound_ms": b_ms, "bound_by": b_by})
+    for name, world, xor in (("mult_terms", "mul", False),
+                             ("and_terms", "bool", True)):
+        plain = GP.and_terms_group_plain if xor else \
+            GP.mult_terms_group_plain
+        launch = ops.and_terms_group if xor else ops.mult_terms_group
+        for stage in ("offline", "online"):
+            _, reqs = calls[(stage, world)]
+            groups = (gamma_groups if stage == "offline"
+                      else online_groups)(reqs, xor)
+            got, ref = launch(groups), plain(groups)
+            torch.cuda.synchronize()
+            check(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                  f"{name}: the training step's {stage} round disagrees "
+                  f"with the plain version")
+            nbytes, b_ms, b_by = terms_bound(groups)
+            rows[name].append({
+                "stage": stage, "groups": len(groups),
+                "shape": list(GP.group_shape(groups[0])),
+                "ms": device_ms(lambda g=groups, f=launch: f(g),
+                                "terms_group_kernel"),
+                "plain_ms": device_ms(lambda g=groups, f=plain: f(g)),
+                "max_abs_err": 0, "unique_bytes": nbytes,
+                "bound_ms": b_ms, "bound_by": b_by})
+    return rows
+
+
+def runtime_train_phase(kernels: list) -> dict:
+    """Secure training on the party runtime at full width (the NN,
+    784-128-128-10, and logistic regression on 784 features; batch 128),
+    each path driven with the launch counts reset before and read after;
+    see the module docstring, step 8."""
+    import tempfile
+
+    import torch
+    from repro_torch import offline
+    from repro_torch.configs.paper_models import LOGREG
+    from repro_torch.kernels import ops
+    from repro_torch.train import secure_sgd as SGD
+    from repro_torch.train.data import MNISTLike, RegressionData
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    task = SGD.nn_task(lr=TRAIN_LR)
+    params = task.init_params(seed=0)
+    data = MNISTLike(n=8192, seed=2)
+    batches = [data.batch(step, BATCH)[:2] for step in range(TRAIN_STEPS)]
+
+    # 1. the NN inline on the card, against the CPU ("torch" backend)
+    nn, _ = drive("train_runtime", kernels, TRAIN_KERNELS,
+                  lambda: train_steps(task, params, batches, device=dev),
+                  TRAIN_STEPS, "step")
+    t0 = time.perf_counter()
+    check_trajectory("runtime-train: the card against the CPU", nn,
+                     train_steps(task, params, batches, device="cpu",
+                                 backend="torch"))
+    print(f"runtime-train: {TRAIN_STEPS} NN steps, (params, loss) and "
+          f"totals() equal to the CPU run's ({time.perf_counter() - t0:.1f}"
+          f" s); per step {nn[0][2]}")
+    # launches a step on the card against the wrapper calls of one step on
+    # the CPU ("hopper" backend, plain versions): each call is one launch
+    # of the card (no PRF group of this step has more than MAX_STREAMS
+    # streams, no round more than MAX_GROUPS groups)
+    ops.reset_launches()
+    train_steps(task, params, batches[:1], device="cpu")
+    per_step = {}
+    for k in kernels:
+        if k["name"] in TRAIN_KERNELS:
+            on_card = k["launches_by_path"]["train_runtime"] / TRAIN_STEPS
+            cpu = next(c.calls for c in ops.KERNELS if c.name == k["name"])
+            check(on_card == cpu, f"runtime-train: {k['name']} {on_card:g} "
+                  f"launches a step on the card, {cpu} wrapper calls a "
+                  f"step on the CPU")
+            per_step[k["name"]] = on_card
+    print(f"runtime-train: launches per NN step {per_step}, equal to a CPU "
+          f"step's wrapper calls")
+    # 2. the joint world on the card: the same trajectory
+    joint, _ = drive("train_joint", kernels,
+                     ("prf_mask", "ring_matmul", "and_level"),
+                     lambda: train_steps(task, params, batches,
+                                         world="joint", device=dev),
+                     TRAIN_STEPS, "step")
+    check_trajectory("runtime-train: the joint world against the runtime",
+                     joint, nn)
+    # 3. accuracy: step 0 against one float64 SGD step, with the
+    # truncations' mean and without (PARAM_ATOL, PLAIN_PARAM_ATOL)
+    errs = {}
+    for trunc, tol in ((2.0**-13, PARAM_ATOL), (0.0, PLAIN_PARAM_ATOL)):
+        want = sgd_float64(params, *batches[0], TRAIN_LR, trunc)
+        errs[trunc] = err = max(float(np.abs(nn[0][0][k] - want[k]).max())
+                                for k in want)
+        check(err <= tol, f"runtime-train: params after step 0 off by "
+              f"{err} > {tol} from float64 SGD (truncation mean {trunc})")
+    param_err, plain_err = errs[2.0**-13], errs[0.0]
+    update = max(float(np.abs(want[k] - params[k]).max()) for k in want)
+    losses = [s[1] for s in nn]
+    print(f"runtime-train: joint world's (params, loss) equal to the "
+          f"runtime's at every step; params after step 0 within "
+          f"{param_err:.3e} of float64 SGD with the truncations' mean "
+          f"(tolerance {PARAM_ATOL}), {plain_err:.3e} of plain float64 SGD "
+          f"(tolerance {PLAIN_PARAM_ATOL}; largest update {update:.3e}); "
+          f"losses {losses}")
+    # 4. logistic regression, 784 features
+    ltask = SGD.logreg_task(features=LOGREG["features"])
+    lparams = ltask.init_params(seed=0)
+    ldata = RegressionData(features=LOGREG["features"], n=8192, seed=1,
+                           logistic=True)
+    lbatches = [ldata.batch(step, BATCH) for step in range(TRAIN_STEPS)]
+    logreg, _ = drive("train_logreg", kernels, TRAIN_KERNELS,
+                      lambda: train_steps(ltask, lparams, lbatches,
+                                          device=dev),
+                      TRAIN_STEPS, "step")
+    check_trajectory("runtime-train: logreg, the card against the CPU",
+                     logreg, train_steps(ltask, lparams, lbatches,
+                                         device="cpu", backend="torch"))
+    print(f"runtime-train: {TRAIN_STEPS} logreg steps equal to the CPU "
+          f"run's; losses {[s[1] for s in logreg]}")
+    # 5. the split: each step dealt, then each run online-only
+    deal_prog = SGD.deal_step_program(task, params, batches[0])
+    dealt, _ = drive("train_deal", kernels,
+                     ("prf_mask", "ring_matmul", "mult_terms", "and_terms"),
+                     lambda: [offline.deal(deal_prog, seed=SEED + step,
+                                           device=dev)
+                              for step in range(TRAIN_STEPS)], TRAIN_STEPS,
+                     "step")
+
+    def online_steps():
+        out, p = [], params
+        for step, (store, _) in enumerate(dealt):
+            (p, loss, abort), rep = offline.run_online(
+                SGD.step_program(task, p, batches[step]), store, device=dev)
+            check(not abort and not rep.abort,
+                  f"online-only step {step}: aborted")
+            out.append((p, loss, None, rep))
+        return out
+
+    online, _ = drive("train_online_only", kernels,
+                      ("mpc_matmul_grid", "mult_terms", "and_terms"),
+                      online_steps, TRAIN_STEPS, "step")
+    check_trajectory("runtime-train: online-only against inline", online,
+                     nn)
+    for step, ((_, drep), (*_, orep), inline) in enumerate(
+            zip(dealt, online, nn)):
+        tot = inline[2]
+        check((drep.offline_rounds, drep.offline_bits, orep.online_rounds,
+               orep.online_bits, orep.offline_bits)
+              == (tot["offline"]["rounds"], tot["offline"]["bits"],
+                  tot["online"]["rounds"], tot["online"]["bits"], 0),
+              f"runtime-train: step {step}'s deal and online-only traffic "
+              f"differ from the inline step's {tot}")
+    launches = {k["name"]: k["launches_by_path"] for k in kernels}
+    check(launches["prf_mask"]["train_online_only"] == 0
+          and launches["ring_matmul"]["train_online_only"] == 0,
+          "runtime-train: prf_mask or ring_matmul launched online-only")
+    for name in TRAIN_KERNELS:
+        got = (launches[name]["train_deal"]
+               + launches[name]["train_online_only"])
+        check(got == launches[name]["train_runtime"],
+              f"runtime-train: {name} deal + online launches {got} != the "
+              f"inline steps' {launches[name]['train_runtime']}")
+    split = {n: (launches[n]["train_deal"],
+                 launches[n]["train_online_only"]) for n in TRAIN_KERNELS}
+    print(f"runtime-train: online-only steps equal to the inline steps, 0 "
+          f"offline bits, the inline steps' traffic split exactly; deal + "
+          f"online launches = inline launches per kernel {split}")
+
+    # 6. prep-ahead: PrepAheadSGD over a ContinuousDealer dealing on its
+    # own stream (two threads share the launch counters: this path's
+    # counts are summed, not held to the others)
+    def prep_ahead():
+        with offline.ContinuousDealer(lambda step: deal_prog,
+                                      base_seed=SEED, ahead=2,
+                                      total=TRAIN_STEPS,
+                                      device=dev) as dealer:
+            sgd = SGD.PrepAheadSGD(task, dealer, device=dev)
+            out, p = [], params
+            for step, batch in enumerate(batches):
+                t0 = time.perf_counter()
+                p, loss, abort = sgd.step_fn(p, step, *batch)
+                out.append((p, loss, None, time.perf_counter() - t0))
+                check(not abort, f"prep-ahead step {step}: aborted")
+            return out, sgd.reports, dealer.reports
+
+    (ahead, oreps, _), _ = drive("train_prep_ahead", kernels, TRAIN_KERNELS,
+                                 prep_ahead, TRAIN_STEPS, "step")
+    check_trajectory("runtime-train: prep-ahead against inline", ahead, nn)
+    check(len(oreps) == TRAIN_STEPS and all(
+        r.offline_bits == 0 and r.online_bits > 0 for r in oreps),
+        f"runtime-train: prep-ahead offline/online bits "
+        f"{[(r.offline_bits, r.online_bits) for r in oreps]}")
+    print(f"runtime-train: PrepAheadSGD over a ContinuousDealer: "
+          f"{TRAIN_STEPS} online-only steps equal to the inline steps, "
+          f"offline bits {[r.offline_bits for r in oreps]}, online bits "
+          f"{[r.online_bits for r in oreps]}")
+
+    # 7. the Trainer: a crash at step 1 after step 0's checkpoint, then a
+    # resume from it, against the uninterrupted trajectory
+    def step_fn(p, step, *batch):
+        return SGD.run_step(task, p, batch, step=step, base_seed=SEED,
+                            world="runtime", device=dev)
+
+    with tempfile.TemporaryDirectory(prefix="trainer-") as tmp:
+        cfg = TrainerConfig(steps=TRAIN_STEPS, ckpt_dir=tmp, ckpt_every=1,
+                            seed=SEED)
+        crashed = Trainer(cfg, step_fn, params, lambda s: batches[s])
+        try:
+            crashed.run(crash_at=1)
+        except RuntimeError as exc:
+            check("injected crash at step 1" in str(exc), str(exc))
+        else:
+            check(False, "runtime-train: the Trainer did not crash")
+        resumed = Trainer(cfg, step_fn, params, lambda s: batches[s])
+        final = resumed.run()
+    check(resumed.events[0] == "resumed@1"
+          and same_params(final, nn[-1][0])
+          and resumed.losses == losses[1:],
+          f"runtime-train: the resumed Trainer ({resumed.events}) ends "
+          f"elsewhere than the uninterrupted run")
+    print(f"runtime-train: Trainer {crashed.events} then {resumed.events}: "
+          f"the same params as the uninterrupted run")
+
+    # 8. times: steady steps (2-3), a profiled step, the new shapes
+    def steady(walls):
+        return [w * 1e3 for w in walls[1:]]
+
+    walls = {"nn_inline_ms": steady([s[3] for s in nn]),
+             "nn_online_only_ms": steady([s[3].wall_s for s in online]),
+             "nn_deal_ms": steady([rep.wall_s for _, rep in dealt]),
+             "nn_prep_ahead_ms": steady([s[3] for s in ahead]),
+             "logreg_inline_ms": steady([s[3] for s in logreg]),
+             "nn_joint_ms": steady([s[3] for s in joint])}
+    busy, nops = profile_batch(
+        "runtime-train NN",
+        lambda: train_steps(task, params, batches[:1], device=dev),
+        min(walls["nn_inline_ms"]) / 1e3, unit="step")
+    rows = train_shape_rows(task, params, batches[0], dev)
+    for k in kernels:
+        if k["name"] in rows:
+            k["training_shapes"] = rows[k["name"]]
+            for r in rows[k["name"]]:
+                what = r.get("product", r.get("stage", ""))
+                print(f"  {k['name']} at {r['shape']} ({what}): "
+                      f"{r['ms']:.5f} ms on the device, bound "
+                      f"{r['bound_ms']:.5f} ms by {r['bound_by']}, plain "
+                      f"{r['plain_ms']:.4f} ms")
+    out = {"steps": TRAIN_STEPS, "lr": TRAIN_LR, "batch": BATCH,
+           "losses": losses, "logreg_losses": [s[1] for s in logreg],
+           "param_err_vs_float64_truncation_mean": param_err,
+           "param_err_vs_float64": plain_err,
+           "launches_per_step": per_step, **walls,
+           "profiled_step_busy_ms": busy,
+           "profiled_step_device_ops": nops,
+           "busy_share": busy / min(walls["nn_inline_ms"]),
+           "totals_per_step": nn[0][2]}
+    print(f"runtime-train times (steady steps 2-{TRAIN_STEPS}): NN inline "
+          f"{[round(w, 1) for w in walls['nn_inline_ms']]} ms, online-only "
+          f"{[round(w, 1) for w in walls['nn_online_only_ms']]} ms, deal "
+          f"{[round(w, 1) for w in walls['nn_deal_ms']]} ms, prep-ahead "
+          f"{[round(w, 1) for w in walls['nn_prep_ahead_ms']]} ms, joint "
+          f"{[round(w, 1) for w in walls['nn_joint_ms']]} ms; logreg inline "
+          f"{[round(w, 1) for w in walls['logreg_inline_ms']]} ms; a "
+          f"profiled NN step busy {busy:.3f} ms in {nops} device ops")
+    return out
 
 
 def main() -> int:
@@ -1640,8 +2160,13 @@ def main() -> int:
                                                        X),
                   time.perf_counter() - t0)
 
+    # --- secure training on the party runtime -----------------------------
+    print("phase runtime-train")
+    train = runtime_train_phase(kernels)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
+    print(json.dumps({"runtime_train": train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

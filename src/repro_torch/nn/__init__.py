@@ -1,2 +1,2 @@
-"""Engines: one op surface over the cleartext and joint-simulation worlds
-(``repro/nn``)."""
+"""Engines: one op surface over the cleartext, joint-simulation and
+party-runtime worlds (``repro/nn``)."""

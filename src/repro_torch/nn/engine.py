@@ -1,8 +1,8 @@
 """Engine abstraction (``repro/nn/engine.py``): a model runs in the clear
 (``PlainEngine``, float64: the correctness oracle) or as a joint simulation
 of the 4PC protocols (``TridentEngine``, tensors are [[.]]-shares stacked
-in one process).  The party-sliced world's engine (``RuntimeEngine``) comes
-with a later slice of the port.
+in one process); the party-sliced world's engine is ``RuntimeEngine``
+(``nn/runtime_engine.py``).
 
 Layers are written once against this interface with *manual* forward /
 backward (integer share dtypes have no autograd; the paper hand-codes

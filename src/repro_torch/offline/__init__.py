@@ -15,7 +15,9 @@ pipelining.
                     alone, with the transport forbidding offline traffic;
   * ``workload`` -- declared counts and shapes -> a canonical program;
   * ``pipeline`` -- a background dealer streaming sessions into a bounded
-                    queue while the online consumer drains them.
+                    queue while the online consumer drains them;
+  * ``continuous`` -- a background dealer refilling a PrepBank a window
+                    ahead of a training run (session k = step k's prep).
 
 Quick tour (on the card; pass ``device="cpu"`` on the CPU):
 
@@ -39,13 +41,14 @@ _LAZY = {
     "OnlineReport": "executor",
     "Workload": "workload", "OpSpec": "workload",
     "PrepPipeline": "pipeline",
+    "ContinuousDealer": "continuous",
 }
 
 __all__ = [
-    "DealPrep", "DealReport", "OnlinePrep", "OnlineReport", "OpSpec",
-    "PrepBank", "PrepError", "PrepKindError", "PrepMissingError",
-    "PrepPipeline", "PrepReplayError", "PrepStore", "Workload", "deal",
-    "deal_sessions", "online_runtime", "run_online",
+    "ContinuousDealer", "DealPrep", "DealReport", "OnlinePrep",
+    "OnlineReport", "OpSpec", "PrepBank", "PrepError", "PrepKindError",
+    "PrepMissingError", "PrepPipeline", "PrepReplayError", "PrepStore",
+    "Workload", "deal", "deal_sessions", "online_runtime", "run_online",
 ]
 
 

@@ -27,9 +27,13 @@ def relu(rt: FourPartyRuntime, v: DistAShare, return_bit: bool = False):
 
 
 @traced_protocol("sigmoid")
-def sigmoid(rt: FourPartyRuntime, v: DistAShare):
+def sigmoid(rt: FourPartyRuntime, v: DistAShare, return_cache: bool = False):
     """sig(v) = (1^b1) b2 (v + 1/2) + (1^b2);
-    b1 = [v + 1/2 < 0], b2 = [v - 1/2 < 0]."""
+    b1 = [v + 1/2 < 0], b2 = [v - 1/2 < 0].
+
+    ``return_cache`` also returns the segment bit (1^b1) b2, the
+    derivative indicator ``RuntimeEngine``'s backward pass injects with;
+    the protocol trace is the same either way."""
     ring = rt.ring
     tp = rt.transport
     half = rt.encode(0.5)
@@ -47,7 +51,8 @@ def sigmoid(rt: FourPartyRuntime, v: DistAShare):
             t = CV.bit_inject(rt, a, v_hi)
         with tp.branch():
             d = CV.bit2a(rt, b2.invert())
-    return t.add(d.mul_public(ring.scale))
+    y = t.add(d.mul_public(ring.scale))
+    return (y, a) if return_cache else y
 
 
 def _stack_bit_planes(v: DistBShare, lo: int, hi: int) -> DistBShare:
@@ -117,15 +122,23 @@ def rsqrt(rt: FourPartyRuntime, x: DistAShare, iters: int = 3) -> DistAShare:
 
 
 @traced_protocol("softmax")
-def smx_softmax(rt: FourPartyRuntime, u: DistAShare, axis: int = -1
-                ) -> DistAShare:
+def smx_softmax(rt: FourPartyRuntime, u: DistAShare, axis: int = -1,
+                mask=None, return_cache: bool = False):
     """MPC-friendly softmax smx = relu / (sum(relu) + 0.01); the
-    denominator stays in the arithmetic world via the NR reciprocal."""
-    r = relu(rt, u)
+    denominator stays in the arithmetic world via the NR reciprocal.
+    `mask`: a public 0/1 array applied to the relu before the sum.
+
+    ``return_cache`` also returns the (p, inv, relu bit) triple
+    ``RuntimeEngine``'s backward pass consumes; the relu bit is a
+    byproduct, so the protocol trace is the same either way."""
+    r, bit = relu(rt, u, return_bit=True)
+    if mask is not None:
+        r = r.mul_public(rt.words(mask))
     s = map_components(
         lambda a: torch.sum(a, dim=axis, keepdim=True, dtype=rt.ring.dtype),
         r)
     # eps keeps the denominator strictly positive (all-negative rows)
     inv = reciprocal(rt, s.add_public(rt.encode(1e-2)))
     inv_b = map_components(lambda a: a.expand(r.shape), inv)
-    return RT.mult_tr(rt, r, inv_b)
+    p = RT.mult_tr(rt, r, inv_b)
+    return (p, (p, inv, bit)) if return_cache else p

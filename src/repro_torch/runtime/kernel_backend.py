@@ -246,7 +246,7 @@ def _batched_matmul(t: torch.Tensor) -> None:
     if t.device.type != "cpu":
         raise NotImplementedError(
             "batched (ndim != 2) ring matmul on CUDA: the batched kernel "
-            "comes with the nn/train slice of the port")
+            "comes with the LM-stack slice of the port")
 
 
 def _elementwise(kind: str) -> None:

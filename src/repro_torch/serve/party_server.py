@@ -16,14 +16,15 @@ Example -- the paper's NN at full width, on the card::
     from repro_torch.core.ring import RING64
     from repro_torch.serve.party_server import PartyPredictionServer
     from repro_torch.train.paper_ml import (MLPNet, mlp_net_init,
-                                            mlp_net_predict,
+                                            mlp_net_predict_runtime,
                                             params_from_numpy)
 
     net = MLPNet(NN["features"], NN["layers"])
     params = params_from_numpy(
         mlp_net_init(np.random.RandomState(0), net), RING64, "cuda")
     srv = PartyPredictionServer(
-        lambda rt, X: mlp_net_predict(rt, params, net, X), batch_size=128)
+        lambda rt, X: mlp_net_predict_runtime(rt, params, net, X),
+        batch_size=128)
     for x in np.random.RandomState(1).randn(256, 784):
         srv.submit(x)
     words = srv.flush()            # opened ring words, one row per query

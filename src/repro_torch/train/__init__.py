@@ -1,2 +1,3 @@
-"""The paper's ML workloads on the party runtime and over the engines
+"""The paper's ML workloads over the engines, secure SGD on the party
+runtime and the joint simulation, and the trainer with its checkpoints
 (``repro/train``)."""

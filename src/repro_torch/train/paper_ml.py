@@ -1,14 +1,19 @@
-"""The paper's NN workload (``repro/train/paper_ml.py``).
+"""The paper's ML workloads over the Engine (``repro/train/paper_ml.py``,
+Section VI).
 
-NN: 784-128-128-10, ReLU hidden, smx output (Section VI-A c).  The port
-carries the network description, its initialisation, the carry-over of the
-JAX package's parameters, the engine-generic forward pass ``mlp_net_fwd``,
-and secure prediction in two worlds: ``mlp_net_predict`` on the party
-runtime and ``mlp_net_predict_joint`` on the joint simulation.  Both share
-X and then the weights, run ``matmul_tr`` -> ``relu`` per hidden layer and
-``matmul_tr`` -> ``smx`` at the output, and open the probabilities.  (The
-runtime's ``mlp_net_predict`` becomes engine-generic when the runtime's
-engine is ported.)
+Linear Regression  w <- w - a/B X^T (X w - y)            (Section VI-A a)
+Logistic Regression  ... sig(X w) ...                    (Section VI-A b)
+NN    784-128-128-10, ReLU hidden, smx output            (Section VI-A c)
+
+All matmuls are Pi_MatMulTr; activations are the paper's protocols.
+Forward and backward passes are written by hand against the Engine
+interface, so one program trains on ``PlainEngine``, ``TridentEngine`` and
+``RuntimeEngine``.  Besides the engine-generic functions the module keeps
+the parameters' carry-over from the JAX package (``params_from_numpy``)
+and two secure prediction programs over encoded weights:
+``mlp_net_predict_runtime`` on the party runtime and
+``mlp_net_predict_joint`` on the joint simulation, word for word the same
+program on the same seed.
 """
 from __future__ import annotations
 
@@ -26,6 +31,44 @@ from ..runtime import protocols as RT
 from ..runtime.runtime import FourPartyRuntime
 
 
+# ---------------------------------------------------------------------------
+# Linear / logistic regression
+# ---------------------------------------------------------------------------
+def reg_init(rng: np.random.RandomState, d: int) -> dict:
+    return {"w": (rng.randn(d, 1) * 0.01).astype(np.float64)}
+
+
+def linreg_step(eng: Engine, params, X, y, lr: float):
+    """One GD iteration; X: (B, d), y: (B, 1) engine tensors."""
+    pred = eng.matmul(X, params["w"])                   # (B, 1)
+    err = eng.sub(pred, y)
+    grad = eng.matmul(eng.transpose(X, (1, 0)), err)    # (d, 1)
+    bsz = eng.shape_of(X)[0]
+    upd = eng.scale(grad, lr / bsz)
+    return {"w": eng.sub(params["w"], upd)}, err
+
+
+def logreg_step(eng: Engine, params, X, y, lr: float):
+    z = eng.matmul(X, params["w"])
+    p, _ = eng.sigmoid(z)
+    err = eng.sub(p, y)
+    grad = eng.matmul(eng.transpose(X, (1, 0)), err)
+    bsz = eng.shape_of(X)[0]
+    upd = eng.scale(grad, lr / bsz)
+    return {"w": eng.sub(params["w"], upd)}, err
+
+
+def reg_predict(eng: Engine, params, X, logistic: bool = False):
+    z = eng.matmul(X, params["w"])
+    if logistic:
+        p, _ = eng.sigmoid(z)
+        return p
+    return z
+
+
+# ---------------------------------------------------------------------------
+# NN (MLP stack per the paper's benchmark network)
+# ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class MLPNet:
     features: int
@@ -53,19 +96,6 @@ def params_from_numpy(params: dict, ring: Ring, device) -> dict:
             for k, v in params.items()}
 
 
-def mlp_net_predict(rt: FourPartyRuntime, params: dict, net: MLPNet,
-                    X) -> torch.Tensor:
-    """Secure prediction of one batch: returns the opened probabilities as
-    ring words (P1's copy; every receiver opens the same words).  `params`
-    are encoded weights (``params_from_numpy``); X is float data."""
-    h = RT.share(rt, rt.encode(X))
-    ws = [RT.share(rt, params[f"w{i}"]) for i in range(len(net.layers))]
-    for i, w in enumerate(ws):
-        z = RT.matmul_tr(rt, h, w)
-        h = RA.relu(rt, z) if i < len(ws) - 1 else RA.smx_softmax(rt, z)
-    return RT.reconstruct(rt, h)[1]
-
-
 def mlp_net_fwd(eng: Engine, params: dict, net: MLPNet, X):
     """Returns (probs, caches).  Hidden ReLU; output smx softmax.  `X` and
     `params` are the engine's tensors."""
@@ -85,13 +115,66 @@ def mlp_net_fwd(eng: Engine, params: dict, net: MLPNet, X):
     return h, caches
 
 
+def mlp_net_bwd(eng: Engine, params: dict, net: MLPNet, caches, dout):
+    """`dout` is dL/dlogits: (p - y) / B passed straight to the last layer
+    (the cross-entropy shortcut), so the softmax's backward is skipped."""
+    n = len(net.dims) - 1
+    grads = {}
+    dz = dout
+    for i in reversed(range(n)):
+        h, _ = caches[i]
+        grads[f"w{i}"] = eng.matmul(eng.transpose(
+            eng.reshape(h, (-1, net.dims[i])), (1, 0)), dz)
+        if i > 0:
+            dh = eng.matmul(dz, eng.transpose(params[f"w{i}"], (1, 0)))
+            _, bit = caches[i - 1]
+            dz = eng.relu_bwd(bit, dh)
+    return grads
+
+
+def mlp_net_step(eng: Engine, params: dict, net: MLPNet, X, labels_onehot,
+                 lr: float):
+    """One training iteration (forward + backward + SGD); returns (new
+    params, probs)."""
+    p, caches = mlp_net_fwd(eng, params, net, X)
+    bsz = eng.shape_of(X)[0]
+    diff = eng.add_public(p, -np.asarray(labels_onehot, np.float64))
+    dlogits = eng.scale(diff, 1.0 / bsz)
+    grads = mlp_net_bwd(eng, params, net, caches, dlogits)
+    new = {k: eng.sub(params[k], eng.scale(grads[k], lr)) for k in params}
+    return new, p
+
+
+def mlp_net_predict(eng: Engine, params: dict, net: MLPNet, X):
+    """The forward pass's probabilities, on any engine."""
+    p, _ = mlp_net_fwd(eng, params, net, X)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# Secure prediction over encoded weights (the serving programs)
+# ---------------------------------------------------------------------------
+def mlp_net_predict_runtime(rt: FourPartyRuntime, params: dict, net: MLPNet,
+                            X) -> torch.Tensor:
+    """Secure prediction of one batch on the party runtime: returns the
+    opened probabilities as ring words (P1's copy; every receiver opens
+    the same words).  `params` are encoded weights
+    (``params_from_numpy``); X is float data."""
+    h = RT.share(rt, rt.encode(X))
+    ws = [RT.share(rt, params[f"w{i}"]) for i in range(len(net.layers))]
+    for i, w in enumerate(ws):
+        z = RT.matmul_tr(rt, h, w)
+        h = RA.relu(rt, z) if i < len(ws) - 1 else RA.smx_softmax(rt, z)
+    return RT.reconstruct(rt, h)[1]
+
+
 def mlp_net_predict_joint(ctx: TridentContext, params: dict, net: MLPNet,
                           X, nonlinear: str = "newton") -> torch.Tensor:
     """Secure prediction of one batch on the joint simulation: share X,
     then the encoded weights (``params_from_numpy``), then ``mlp_net_fwd``
     on a ``TridentEngine``; returns the opened probabilities as ring words.
-    With nonlinear="newton" this is ``mlp_net_predict``'s program, word
-    for word on the same seed."""
+    With nonlinear="newton" this is ``mlp_net_predict_runtime``'s program,
+    word for word on the same seed."""
     eng = TridentEngine(ctx, nonlinear=nonlinear)
     h = eng.from_plain(X)
     ws = {f"w{i}": PR.share(ctx, params[f"w{i}"])

@@ -30,7 +30,8 @@ from repro_torch.runtime.kernel_backend import (  # noqa: E402
     HopperKernels, TorchKernels)
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
 from repro_torch.train.paper_ml import (MLPNet, mlp_net_init,  # noqa: E402
-                                        mlp_net_predict, params_from_numpy)
+                                        mlp_net_predict_runtime,
+                                        params_from_numpy)
 
 
 def _descriptor_groups(words, count: int, dev) -> tuple:
@@ -88,6 +89,34 @@ def test_kernels_equal_plain_on_card(cuda_device):
             got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
             assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), \
                 (dtype, M, K, N)
+        # the training step's products at batch 128 (X^T dz0, dz2 w2^T,
+        # h2^T dz2, and logreg's X w and X^T err): each gamma piece
+        # (M, 3K) @ (3K, N) and each online grid (3M, K) @ (K, 3N) through
+        # the wrappers, the transposed operands as permuted views
+        for M, K, N in [(784, 128, 128), (128, 10, 128), (128, 128, 10),
+                        (128, 784, 1), (784, 128, 1)]:
+            xs = [words(K, M).t() for _ in range(3)]
+            ys = [words(K, N) for _ in range(3)]
+            dev_xs = [x.to(cuda_device) for x in xs]
+            dev_ys = [y.to(cuda_device) for y in ys]
+            assert not dev_xs[0].is_contiguous()
+            a, b = torch.cat(xs, dim=1), torch.cat(ys, dim=0)
+            got = ops.ring_matmul(torch.cat(dev_xs, dim=1),
+                                  torch.cat(dev_ys, dim=0))
+            assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), \
+                (dtype, "gamma", M, K, N)
+            got = ops.ring_matmul(dev_xs[0], dev_ys[0])
+            assert torch.equal(got.cpu(), RM.ring_matmul_plain(
+                xs[0], ys[0])), (dtype, "permuted", M, K, N)
+            grid = ops.mpc_matmul_grid(dev_xs, dev_ys)
+            want = RM.ring_matmul_plain(torch.cat(xs, dim=0),
+                                        torch.cat(ys, dim=1))
+            for i in range(3):
+                for j in range(3):
+                    assert torch.equal(
+                        grid[i][j].cpu(),
+                        want[i * M:(i + 1) * M, j * N:(j + 1) * N]), \
+                        (dtype, "grid", M, K, N, i, j)
         # all-ones words maximise every limb sum; K spans two chunks of the
         # exactness bound, with an odd K (one-word copies) beside it
         top = RM.max_k_chunk(info.bits)
@@ -283,7 +312,7 @@ def test_kernels_equal_plain_on_card(cuda_device):
                                RING64, cuda_device)
 
     def predict(rt, X):
-        return mlp_net_predict(rt, params, net, X)
+        return mlp_net_predict_runtime(rt, params, net, X)
 
     queries = np.random.RandomState(1).randn(4 * 8 - 3, 16)
     side = torch.cuda.Stream(cuda_device)

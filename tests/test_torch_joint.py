@@ -3,8 +3,9 @@
 every protocol of the secure-prediction path in faithful and collapsed
 mode, the plain versions of the and_level / mpc_matmul_fused / ppa_msb
 kernels, joint serving of a small NN, and the port's joint world against
-its own party runtime.  Ring words are compared as uint64 views; the JAX
-kernels run in interpret mode, as tests/test_kernels.py runs them."""
+its own party runtime -- at RING64 and at RING32.  Ring words are compared
+as uint64/uint32 views; the JAX kernels run in interpret mode, as
+tests/test_kernels.py runs them."""
 import numpy as np
 import pytest
 
@@ -21,7 +22,7 @@ from repro.core import conversions as JC  # noqa: E402
 from repro.core import garbled as JG  # noqa: E402
 from repro.core import protocols as JP  # noqa: E402
 from repro.core.context import make_context as jmake  # noqa: E402
-from repro.core.ring import RING64 as J64  # noqa: E402
+from repro.core.ring import RING32 as J32, RING64 as J64  # noqa: E402
 from repro.kernels import ops as JK  # noqa: E402
 from repro.kernels.mpc_matmul_fused import (  # noqa: E402
     mpc_matmul_fused as jax_mpc_matmul_fused)
@@ -35,8 +36,8 @@ from repro_torch.core import conversions as TC  # noqa: E402
 from repro_torch.core import garbled as TG  # noqa: E402
 from repro_torch.core import protocols as TP  # noqa: E402
 from repro_torch.core.context import make_context as tmake  # noqa: E402
-from repro_torch.core.ring import (RING64 as T64, words_from_numpy,  # noqa: E402
-                                   words_to_numpy)
+from repro_torch.core.ring import (  # noqa: E402
+    RING32 as T32, RING64 as T64, words_from_numpy, words_to_numpy)
 from repro_torch.kernels import ops as TK  # noqa: E402
 from repro_torch.kernels.mpc_matmul_fused import (  # noqa: E402
     mpc_matmul_fused_limbs_plain, mpc_matmul_fused_plain)
@@ -49,6 +50,7 @@ from repro_torch.train import paper_ml as TML  # noqa: E402
 NET = (32, (16, 10))
 BATCH = 8
 SEED = 11
+RINGS = ((J64, T64), (J32, T32))
 
 
 def _words(x) -> np.ndarray:
@@ -58,8 +60,13 @@ def _words(x) -> np.ndarray:
         else np.asarray(x)
 
 
-def _assert_same(jx, tx, what):
+def _assert_same(jx, tx, what, wrap32=False):
+    """`wrap32`: compare mod 2^32 (ROADMAP F1: at RING32 the reference's
+    dotp sums uint32 words with jnp.sum, which promotes them to uint64
+    under x64, so its words are right mod 2^32 only)."""
     j, t = _words(jx), _words(tx)
+    if wrap32:
+        j = j.astype(np.uint32)
     assert j.shape == t.shape and j.dtype == t.dtype, what
     assert np.array_equal(j, t), f"{what}: words differ"
 
@@ -70,26 +77,32 @@ def test_joint_protocols_match_jax(collapse):
     """share, mult, matmul_tr, truncation, the conversions and the
     activations of the secure-prediction path, then the rest of the joint
     protocol surface and an offline -> online split: equal words in all
-    four components, equal tallies, equal abort flags."""
-    jc = jmake(J64, seed=SEED, collapse=collapse)
-    tc = tmake(T64, seed=SEED, collapse=collapse, device="cpu")
+    four components, equal tallies, equal abort flags; at RING64 and
+    RING32."""
+    for jr, tr in RINGS:
+        _check_protocols(jr, tr, collapse)
+
+
+def _check_protocols(jr, tr, collapse):
+    jc = jmake(jr, seed=SEED, collapse=collapse)
+    tc = tmake(tr, seed=SEED, collapse=collapse, device="cpu")
     rng = np.random.RandomState(SEED)
     a, b = rng.randn(4, 16) * 2, rng.randn(16, 8) * 0.5
     pos = np.abs(rng.randn(4, 1)) + 0.5   # the shape of smx's denominator
 
-    def both(jfn, tfn, *args, what, adders=None):
+    def both(jfn, tfn, *args, what, adders=None, wrap32=False):
         """`adders`: the whole-chain and_level calls the port's fused
         route must make (one per Sklansky adder or prefix-OR chain)."""
         TK.reset_launches()
         j = jfn(jc, *[x[0] for x in args])
         t = tfn(tc, *[x[1] for x in args])
-        _assert_same(j, t, what)
+        _assert_same(j, t, f"{what} RING{tr.ell}", wrap32)
         if adders is not None:
             assert TK.AND_LEVEL.calls == adders, (what, TK.AND_LEVEL.calls)
         return j, t
 
-    x = both(JP.share, TP.share, (J64.encode(a), tc.encode(a)), what="share")
-    w = both(JP.share, TP.share, (J64.encode(b), tc.encode(b)), what="share")
+    x = both(JP.share, TP.share, (jr.encode(a), tc.encode(a)), what="share")
+    w = both(JP.share, TP.share, (jr.encode(b), tc.encode(b)), what="share")
     both(JP.mult, TP.mult, x, x, what="mult")
     z = both(JP.matmul_tr, TP.matmul_tr, x, w, what="matmul_tr")
     both(JP.truncate_share, TP.truncate_share, z, what="truncate_share")
@@ -104,7 +117,7 @@ def test_joint_protocols_match_jax(collapse):
     both(JC.bit_inject, TC.bit_inject, bit, z, what="bit_inject")
     both(JA.relu, TA.relu, z, what="relu")
     both(JA.sigmoid, TA.sigmoid, z, what="sigmoid")
-    p = both(JP.share, TP.share, (J64.encode(pos), tc.encode(pos)),
+    p = both(JP.share, TP.share, (jr.encode(pos), tc.encode(pos)),
              what="share")
     both(JA.reciprocal, TA.reciprocal, p, what="reciprocal")
     # smx: A2B's subtractor and the prefix-OR of the normalization
@@ -113,7 +126,7 @@ def test_joint_protocols_match_jax(collapse):
     both(lambda c: JP.zero_shares(c, (3,)),
          lambda c: TP.zero_shares(c, (3,)), what="zero_shares")
     both(JP.ash_by_p0, TP.ash_by_p0, (z[0].m, z[1].m), what="ash_by_p0")
-    both(JP.dotp, TP.dotp, x, x, what="dotp")
+    both(JP.dotp, TP.dotp, x, x, what="dotp", wrap32=tr.ell == 32)
     both(JP.matmul, TP.matmul, x, w, what="matmul")
     both(lambda c, v: JP.scale_public(c, v, 0.7),
          lambda c, v: TP.scale_public(c, v, 0.7), z, what="scale_public")
@@ -146,13 +159,14 @@ def test_joint_protocols_match_jax(collapse):
     tfns = (TP.share, TP.matmul_tr, TA.relu, TC.a2b)
     materials = None
     for mode in ("offline", "online"):
-        jm = jmake(J64, seed=SEED, collapse=collapse, mode=mode)
-        tm = tmake(T64, seed=SEED, collapse=collapse, mode=mode, device="cpu")
+        jm = jmake(jr, seed=SEED, collapse=collapse, mode=mode)
+        tm = tmake(tr, seed=SEED, collapse=collapse, mode=mode,
+                   device="cpu")
         if materials is not None:
             jm.materials, tm.materials = materials
-        for j, t in zip(program(*jfns, jm, J64.encode),
+        for j, t in zip(program(*jfns, jm, jr.encode),
                         program(*tfns, tm, tm.encode)):
-            _assert_same(j, t, f"{mode} run")
+            _assert_same(j, t, f"{mode} run RING{tr.ell}")
         assert tm.tally.totals() == jm.tally.totals()
         materials = jm.materials, tm.materials
     assert tm.abort_flag() is bool(jm.abort_flag()) is False
@@ -181,30 +195,7 @@ def test_joint_kernel_plain_versions_match_jax():
         want0 = JK.bool_and_level(*map(jnp.asarray, (
             x, y, lamz, np.zeros_like(zero))))
         _assert_same(want0, got0, f"and_level zero=None n={n}")
-    for M, K, N in ((64, 128, 64), (5, 37, 3)):
-        ops_ = (_u(rng, (M, K)), _u(rng, (3, M, K)), _u(rng, (K, N)),
-                _u(rng, (3, K, N)))
-        want = JK.mpc_matmul_online(*map(jnp.asarray, ops_))
-        got = TK.mpc_matmul_fused(*map(words_from_numpy, ops_))
-        # the gamma term comes as the collapsed stack [gamma, 0, 0]
-        assert got[2].shape == (3, M, N) and not got[2][1:].any()
-        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
-                                (got[0], got[1], got[2][0])):
-            _assert_same(jw, tw, f"mpc_matmul_fused.{name} {M}x{K}x{N}")
-        assert all(torch.equal(p, q) for p, q in zip(
-            got, mpc_matmul_fused_plain(*map(words_from_numpy, ops_))))
-    # the kernel's limb arithmetic (wrapped lambda sums, 8-bit limbs, s32
-    # sums over K chunks shorter than K) against the JAX package's kernel
-    for (M, K, N), chunk in (((16, 40, 10), 16), ((8, 24, 8), 5)):
-        ops_ = (_u(rng, (M, K)), _u(rng, (3, M, K)), _u(rng, (K, N)),
-                _u(rng, (3, K, N)))
-        want = jax_mpc_matmul_fused(*map(jnp.asarray, ops_))
-        got = mpc_matmul_fused_limbs_plain(*map(words_from_numpy, ops_),
-                                           chunk)
-        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
-                                (got[0], got[1], got[2][0])):
-            _assert_same(jw, tw, f"limbs.{name} {M}x{K}x{N} chunk {chunk}")
-        assert not got[2][1:].any()
+    _check_fused(rng, np.uint64)
     # the whole adder and prefix-OR chains: on zero lambdas and zero draws
     # their m words are x + y + cin and the prefix-OR; on random lambdas
     # and draws (faithful: 6 streams an AND; collapsed: 3, zero = None)
@@ -250,26 +241,69 @@ def test_joint_kernel_plain_versions_match_jax():
                 v |= v >> dt(j)
                 j <<= 1
             assert np.array_equal(opened(prefix_or_plain(xs, d, -1)), v)
-    n = 512
-    x, y = _u(rng, n), _u(rng, n)
-    lamz = _u(rng, (7, 3, n))
-    raw = _u(rng, (7, 2, n))
+    _check_msb_loop(rng, np.uint64)
+    # RING32: the fused product, its limb twin and the msb loop on 32-bit
+    # words (and_level and the chains above run both widths)
+    _check_fused(rng, np.uint32)
+    _check_msb_loop(rng, np.uint32)
+
+
+def _check_fused(rng, dt):
+    """mpc_matmul_fused's plain version and its limb twin against the JAX
+    package's on `dt` words."""
+    def operands(M, K, N):
+        return (_u(rng, (M, K), dt), _u(rng, (3, M, K), dt),
+                _u(rng, (K, N), dt), _u(rng, (3, K, N), dt))
+
+    for M, K, N in ((64, 128, 64), (5, 37, 3)):
+        ops_ = operands(M, K, N)
+        want = JK.mpc_matmul_online(*map(jnp.asarray, ops_))
+        got = TK.mpc_matmul_fused(*map(words_from_numpy, ops_))
+        # the gamma term comes as the collapsed stack [gamma, 0, 0]
+        assert got[2].shape == (3, M, N) and not got[2][1:].any()
+        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
+                                (got[0], got[1], got[2][0])):
+            _assert_same(jw, tw, f"mpc_matmul_fused.{name} {M}x{K}x{N} "
+                         f"{dt.__name__}")
+        assert all(torch.equal(p, q) for p, q in zip(
+            got, mpc_matmul_fused_plain(*map(words_from_numpy, ops_))))
+    # the kernel's limb arithmetic (wrapped lambda sums, 8-bit limbs, s32
+    # sums over K chunks shorter than K) against the JAX package's kernel
+    for (M, K, N), chunk in (((16, 40, 10), 16), ((8, 24, 8), 5)):
+        ops_ = operands(M, K, N)
+        want = jax_mpc_matmul_fused(*map(jnp.asarray, ops_))
+        got = mpc_matmul_fused_limbs_plain(*map(words_from_numpy, ops_),
+                                           chunk)
+        for name, jw, tw in zip(("mm", "cross", "gamma"), want,
+                                (got[0], got[1], got[2][0])):
+            _assert_same(jw, tw, f"limbs.{name} {M}x{K}x{N} chunk {chunk} "
+                         f"{dt.__name__}")
+        assert not got[2][1:].any()
+
+
+def _check_msb_loop(rng, dt):
+    """The ppa_msb loop's plain version against the JAX package's loop and
+    its reference on `dt` words."""
+    n, levels = 512, int(np.log2(np.iinfo(dt).bits)) + 1
+    x, y = _u(rng, n, dt), _u(rng, n, dt)
+    lamz = _u(rng, (levels, 3, n), dt)
+    raw = _u(rng, (levels, 2, n), dt)
     zero = np.stack([raw[:, 0], raw[:, 1], raw[:, 0] ^ raw[:, 1]], axis=1)
     got = TK.msb_of_sum_words(*map(words_from_numpy, (x, y, lamz, zero)))
     _assert_same(JK.msb_of_sum_words(*map(jnp.asarray, (x, y, lamz, zero))),
-                 got, "msb_of_sum_words")
+                 got, f"msb_of_sum_words {dt.__name__}")
     _assert_same(JR.ppa_msb_ref(jnp.asarray(x), jnp.asarray(y)), got,
-                 "msb_of_sum_words vs ppa_msb_ref")
+                 f"msb_of_sum_words vs ppa_msb_ref {dt.__name__}")
 
 
 @pytest.fixture(scope="module")
 def nn_setup():
     params = JML.mlp_net_init(np.random.RandomState(0), JML.MLPNet(*NET))
     queries = np.random.RandomState(1).randn(20, NET[0])
-    return params, queries, TML.params_from_numpy(params, T64, "cpu")
+    return params, queries
 
 
-def _jax_predict(params, nonlinear):
+def _jax_predict(params, nonlinear, ring):
     """The port's mlp_net_predict_joint in the JAX package: share X, then
     the weights, mlp_net_fwd on a TridentEngine, open."""
     net = JML.MLPNet(*NET)
@@ -277,7 +311,7 @@ def _jax_predict(params, nonlinear):
     def predict(ctx, X):
         eng = JEngine(ctx, nonlinear=nonlinear)
         h = eng.from_plain(X)
-        ws = {f"w{i}": JP.share(ctx, J64.encode(params[f"w{i}"]))
+        ws = {f"w{i}": JP.share(ctx, ring.encode(params[f"w{i}"]))
               for i in range(len(params))}
         p, _ = JML.mlp_net_fwd(eng, ws, net, h)
         return JP.reconstruct(ctx, p)
@@ -293,65 +327,75 @@ def _serve(server, queries):
 def test_joint_serving_matches_jax(nn_setup):
     """PredictionServer on both packages: equal opened words (the tail
     batch padded) and equal ServeStats; one batch on the default garbled
-    engine too."""
-    params, queries, enc = nn_setup
+    engine too; at RING64 and RING32."""
+    params, queries = nn_setup
     net = TML.MLPNet(*NET)
-    jsrv = JServer(_jax_predict(params, "newton"), batch_size=BATCH,
-                   ring=J64, seed=SEED)
-    jwords = np.stack(_serve(jsrv, queries))
-    srv = PredictionServer(
-        lambda ctx, X: TML.mlp_net_predict_joint(ctx, enc, net, X),
-        batch_size=BATCH, seed=SEED, device="cpu")
-    words = torch.stack(_serve(srv, queries))
-    _assert_same(jwords, words, "served words")
-    assert words.shape == (len(queries), NET[1][-1])
-    for f in ("batches", "queries", "online_rounds", "online_bits",
-              "offline_bits"):
-        assert getattr(srv.stats, f) == getattr(jsrv.stats, f), f
-    assert srv.stats.batches == 3 and srv.stats.aborted is False
-    for k in ("queries", "lan_latency_ms", "wan_latency_s"):
-        assert srv.report()[k] == jsrv.report()[k], k
+    for jr, tr in RINGS:
+        where = f"RING{tr.ell}"
+        enc = TML.params_from_numpy(params, tr, "cpu")
+        jsrv = JServer(_jax_predict(params, "newton", jr), batch_size=BATCH,
+                       ring=jr, seed=SEED)
+        jwords = np.stack(_serve(jsrv, queries))
+        srv = PredictionServer(
+            lambda ctx, X: TML.mlp_net_predict_joint(ctx, enc, net, X),
+            batch_size=BATCH, ring=tr, seed=SEED, device="cpu")
+        words = torch.stack(_serve(srv, queries))
+        _assert_same(jwords, words, f"served words {where}")
+        assert words.shape == (len(queries), NET[1][-1])
+        for f in ("batches", "queries", "online_rounds", "online_bits",
+                  "offline_bits"):
+            assert getattr(srv.stats, f) == getattr(jsrv.stats, f), \
+                (f, where)
+        assert srv.stats.batches == 3 and srv.stats.aborted is False
+        for k in ("queries", "lan_latency_ms", "wan_latency_s"):
+            assert srv.report()[k] == jsrv.report()[k], (k, where)
 
-    X = queries[:BATCH]
-    jc = jmake(J64, seed=SEED)
-    tc = tmake(T64, seed=SEED, device="cpu")
-    _assert_same(_jax_predict(params, "garbled")(jc, X),
-                 TML.mlp_net_predict_joint(tc, enc, net, X,
-                                           nonlinear="garbled"),
-                 "garbled-engine words")
-    assert tc.tally.totals() == jc.tally.totals()
+        X = queries[:BATCH]
+        jc = jmake(jr, seed=SEED)
+        tc = tmake(tr, seed=SEED, device="cpu")
+        _assert_same(_jax_predict(params, "garbled", jr)(jc, X),
+                     TML.mlp_net_predict_joint(tc, enc, net, X,
+                                               nonlinear="garbled"),
+                     f"garbled-engine words {where}")
+        assert tc.tally.totals() == jc.tally.totals(), where
 
 
 def test_joint_collapsed_nn_and_runtime_twin(nn_setup):
     """The collapsed NN (the mpc_matmul_fused route) against JAX; and the
     port's faithful joint NN against its own party runtime on the same
-    seed: the same words and the same totals."""
-    params, queries, enc = nn_setup
+    seed: the same words and the same totals; at RING64 and RING32."""
+    params, queries = nn_setup
     net = TML.MLPNet(*NET)
     X = queries[:BATCH]
-    jc = jmake(J64, seed=SEED, collapse=True)
-    tc = tmake(T64, seed=SEED, collapse=True, device="cpu")
-    words = TML.mlp_net_predict_joint(tc, enc, net, X)
-    _assert_same(_jax_predict(params, "newton")(jc, X), words,
-                 "collapsed NN words")
-    assert tc.tally.totals() == jc.tally.totals()
+    for jr, tr in RINGS:
+        where = f"RING{tr.ell}"
+        enc = TML.params_from_numpy(params, tr, "cpu")
+        jc = jmake(jr, seed=SEED, collapse=True)
+        tc = tmake(tr, seed=SEED, collapse=True, device="cpu")
+        words = TML.mlp_net_predict_joint(tc, enc, net, X)
+        _assert_same(_jax_predict(params, "newton", jr)(jc, X), words,
+                     f"collapsed NN words {where}")
+        assert tc.tally.totals() == jc.tally.totals(), where
 
-    fc = tmake(T64, seed=SEED, device="cpu")
-    joint = TML.mlp_net_predict_joint(fc, enc, net, X)
-    rt = FourPartyRuntime(T64, seed=SEED, device="cpu")
-    assert torch.equal(joint, TML.mlp_net_predict(rt, enc, net, X))
-    assert fc.tally.totals() == rt.transport.totals()
-    assert not fc.abort_flag() and not rt.abort_flag()
-    assert not torch.equal(joint, words)     # other PRF draws, other words
-    np.testing.assert_allclose(T64.decode(joint).numpy(),
-                               T64.decode(words).numpy(), atol=1e-3)
+        fc = tmake(tr, seed=SEED, device="cpu")
+        joint = TML.mlp_net_predict_joint(fc, enc, net, X)
+        rt = FourPartyRuntime(tr, seed=SEED, device="cpu")
+        assert torch.equal(joint,
+                           TML.mlp_net_predict_runtime(rt, enc, net, X))
+        assert fc.tally.totals() == rt.transport.totals(), where
+        assert not fc.abort_flag() and not rt.abort_flag()
+        # other PRF draws, other words
+        assert not torch.equal(joint, words), where
+        np.testing.assert_allclose(tr.decode(joint).numpy(),
+                                   tr.decode(words).numpy(), atol=1e-3,
+                                   err_msg=where)
 
 
 def test_engine_op_surface_matches_jax():
     """The engines' shared op surface (shape ops on logical axes, public
     scaling, embedding): TridentEngine word for word against the JAX
-    package's on one context stream, PlainEngine against its float64
-    twin."""
+    package's on one context stream, at RING64 and RING32; PlainEngine
+    against its float64 twin."""
     from repro.nn.engine import PlainEngine as JPlain
     from repro_torch.nn.engine import PlainEngine, TridentEngine
 
@@ -393,19 +437,21 @@ def test_engine_op_surface_matches_jax():
 
     # collapsed contexts: the protocols' faithful paths are the first
     # test's; this one is about the engine layer
-    jc = jmake(J64, seed=SEED, collapse=True)
-    tc = tmake(T64, seed=SEED, collapse=True, device="cpu")
-    jouts, touts = program(JEngine(jc)), program(TridentEngine(tc))
-    for i, (j, t) in enumerate(zip(jouts, touts)):
-        _assert_same(j, t, f"TridentEngine op {i}")
-    assert tc.tally.totals() == jc.tally.totals()
-    # AShare.matmul_public, both sides, through the ring matmul
     w_r, w_l = rng.randint(0, 5, (4, 5)), rng.randint(0, 5, (5, 6))
-    _assert_same(jouts[0].matmul_public(w_r), touts[0].matmul_public(w_r),
-                 "matmul_public")
-    _assert_same(jouts[0].matmul_public(w_l, right=False),
-                 touts[0].matmul_public(w_l, right=False),
-                 "matmul_public(right=False)")
+    for jr, tr in RINGS:
+        where = f"RING{tr.ell}"
+        jc = jmake(jr, seed=SEED, collapse=True)
+        tc = tmake(tr, seed=SEED, collapse=True, device="cpu")
+        jouts, touts = program(JEngine(jc)), program(TridentEngine(tc))
+        for i, (j, t) in enumerate(zip(jouts, touts)):
+            _assert_same(j, t, f"TridentEngine op {i} {where}")
+        assert tc.tally.totals() == jc.tally.totals(), where
+        # AShare.matmul_public, both sides, through the ring matmul
+        _assert_same(jouts[0].matmul_public(w_r),
+                     touts[0].matmul_public(w_r), f"matmul_public {where}")
+        _assert_same(jouts[0].matmul_public(w_l, right=False),
+                     touts[0].matmul_public(w_l, right=False),
+                     f"matmul_public(right=False) {where}")
     pouts = program(PlainEngine(device="cpu"))
     for i, (j, p) in enumerate(zip(program(JPlain(jnp.float64)), pouts)):
         np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-12,

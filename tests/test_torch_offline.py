@@ -53,8 +53,8 @@ from repro_torch.runtime.party import (  # noqa: E402
     DistAShare as TDistA, DistBShare as TDistB,
     map_components_multi as tmap_multi)
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
-from repro_torch.train.paper_ml import (MLPNet, mlp_net_predict,  # noqa: E402
-                                        params_from_numpy)
+from repro_torch.train.paper_ml import (  # noqa: E402
+    MLPNet, mlp_net_predict_runtime, params_from_numpy)
 
 from test_torch_slice import _jax_predict  # noqa: E402
 
@@ -320,7 +320,7 @@ def _nn():
     params = mlp_net_init(np.random.RandomState(0), JNet(*NET))
     net = MLPNet(*NET)
     enc = params_from_numpy(params, T64, "cpu")
-    return params, (lambda rt, X: mlp_net_predict(rt, enc, net, X))
+    return params, (lambda rt, X: mlp_net_predict_runtime(rt, enc, net, X))
 
 
 def _check_stores_cross(tmp_path):

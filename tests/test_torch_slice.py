@@ -29,8 +29,9 @@ from repro_torch.runtime.kernel_backend import (  # noqa: E402
     HopperKernels, TorchKernels, make_kernel_backend)
 from repro_torch.serve.engine import PredictionServer  # noqa: E402
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
-from repro_torch.train.paper_ml import (MLPNet, mlp_net_predict,  # noqa: E402
-                                        params_from_numpy)
+from repro_torch.train import secure_sgd as SGD  # noqa: E402
+from repro_torch.train.paper_ml import (  # noqa: E402
+    MLPNet, mlp_net_predict_runtime, params_from_numpy)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 NET = (12, (8, 8, 4))
@@ -40,8 +41,8 @@ SEED = 13
 
 def _jax_predict(params):
     """mlp_net_fwd's forward pass on the JAX runtime, as the port's
-    mlp_net_predict runs it: share X then the weights, matmul_tr -> relu
-    per hidden layer, matmul_tr -> smx at the output, open."""
+    mlp_net_predict_runtime runs it: share X then the weights, matmul_tr
+    -> relu per hidden layer, matmul_tr -> smx at the output, open."""
     def predict(rt, X):
         h = JP.share(rt, rt.ring.encode(X))
         ws = [JP.share(rt, rt.ring.encode(params[f"w{i}"]))
@@ -79,7 +80,7 @@ def test_nn_prediction_matches_jax_server(served):
     enc = params_from_numpy(params, T64, "cpu")
     for backend in ("torch", "hopper"):
         srv = PartyPredictionServer(
-            lambda rt, X: mlp_net_predict(rt, enc, net, X),
+            lambda rt, X: mlp_net_predict_runtime(rt, enc, net, X),
             batch_size=BATCH, seed=SEED, kernel_backend=backend,
             device="cpu")
         words = words_to_numpy(torch.stack(_serve(srv, queries)))
@@ -123,7 +124,10 @@ def test_port_imports_neither_jax_nor_repro():
     # the offline subsystem keeps its own copy of the store's format
     assert {f.name for f in files if f.parent.name == "offline"} >= {
         "__init__.py", "store.py", "dealer.py", "executor.py",
-        "workload.py", "pipeline.py"}
+        "workload.py", "pipeline.py", "continuous.py"}
+    assert {f.name for f in files if f.parent.name == "train"} >= {
+        "paper_ml.py", "secure_sgd.py", "data.py", "checkpoint.py",
+        "trainer.py"}
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
@@ -132,8 +136,9 @@ def test_port_imports_neither_jax_nor_repro():
 def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
     """No CUDA and no device given: refuse rather than run on the CPU (the
     party runtime and its server, inline and pipelined; the dealer, the
-    online-only run and the prep pipeline; the joint simulation's context
-    and its server); the "torch" backend refuses CUDA; a batched ring
+    online-only run, the prep pipeline and the continuous dealer; the joint
+    simulation's context and its server; a training step's engine in
+    either world); the "torch" backend refuses CUDA; a batched ring
     matmul on a non-CPU device names the slice that brings it; the "dotp"
     kind runs on the "hopper" backend."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -149,6 +154,14 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         offline.run_online(lambda rt: None, offline.PrepStore())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         offline.PrepPipeline([lambda rt: None])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offline.ContinuousDealer(lambda step: None)
+    for world in ("runtime", "joint"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SGD.make_engine(world, 0)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            SGD.run_step(SGD.logreg_task(features=2), {}, (), step=0,
+                         world=world)
     store, rep = offline.deal(lambda rt: None, device="cpu")
     assert rep.entries == 0
     assert offline.run_online(lambda rt: 5, store, device="cpu")[0] == 5
