@@ -2,7 +2,7 @@
 JAX package's on-disk layout, so either package restores the other's
 checkpoint of the same params:
 
-  * ``step_<n>/`` holds ``shard_<host>.npz`` (leaf i under ``leaf_i``, the
+  * ``step_<n>/`` holds ``shard_0.npz`` (leaf i under ``leaf_i``, the
     leaves in sorted key order, as JAX flattens a dict) and
     ``manifest.json`` (the step, the leaf count, which leaves are None, the
     tree's description, each file's SHA-256, and ``meta``);
@@ -44,14 +44,14 @@ def _checksum(path: str) -> str:
     return h.hexdigest()
 
 
-def save(ckpt_dir: str, step: int, tree: dict, meta: dict | None = None,
-         host: int = 0) -> str:
+def save(ckpt_dir: str, step: int, tree: dict,
+         meta: dict | None = None) -> str:
     """Atomic checkpoint publish.  Returns the final directory."""
     leaves, keys = _flatten(tree)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
     os.makedirs(tmp, exist_ok=True)
-    shard = os.path.join(tmp, f"shard_{host}.npz")
+    shard = os.path.join(tmp, "shard_0.npz")
     np.savez(shard, **{f"leaf_{i}": np.asarray(x)
                        for i, x in enumerate(leaves) if x is not None})
     manifest = {
@@ -98,7 +98,7 @@ def latest(ckpt_dir: str) -> str | None:
     return None
 
 
-def restore(path: str, tree_like: dict, host: int = 0) -> tuple:
+def restore(path: str, tree_like: dict) -> tuple:
     """Restore into the keys of `tree_like`; returns (tree, manifest)."""
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -106,7 +106,7 @@ def restore(path: str, tree_like: dict, host: int = 0) -> tuple:
     if manifest["n_leaves"] != len(keys):
         raise ValueError(f"checkpoint {path} holds {manifest['n_leaves']} "
                          f"leaves, the tree {len(keys)}")
-    with np.load(os.path.join(path, f"shard_{host}.npz")) as data:
+    with np.load(os.path.join(path, "shard_0.npz")) as data:
         out = {k: None if manifest["none_mask"][i] else data[f"leaf_{i}"]
                for i, k in enumerate(keys)}
     return out, manifest

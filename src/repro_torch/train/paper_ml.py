@@ -26,7 +26,7 @@ from ..core import protocols as PR
 from ..core.context import TridentContext
 from ..core.ring import Ring
 from ..nn.engine import Engine, TridentEngine
-from ..runtime import activations as RA
+from ..nn.runtime_engine import RuntimeEngine
 from ..runtime import protocols as RT
 from ..runtime.runtime import FourPartyRuntime
 
@@ -154,30 +154,30 @@ def mlp_net_predict(eng: Engine, params: dict, net: MLPNet, X):
 # ---------------------------------------------------------------------------
 # Secure prediction over encoded weights (the serving programs)
 # ---------------------------------------------------------------------------
+def _predict_encoded(eng: Engine, share, params: dict, net: MLPNet, X):
+    """The serving program on `eng`: share X, then the encoded weights
+    with `share`, ``mlp_net_fwd``, and open the probabilities as ring
+    words."""
+    h = eng.from_plain(X)
+    ws = {f"w{i}": share(params[f"w{i}"]) for i in range(len(net.layers))}
+    p, _ = mlp_net_fwd(eng, ws, net, h)
+    return eng.reveal(p)
+
+
 def mlp_net_predict_runtime(rt: FourPartyRuntime, params: dict, net: MLPNet,
                             X) -> torch.Tensor:
     """Secure prediction of one batch on the party runtime: returns the
     opened probabilities as ring words (P1's copy; every receiver opens
     the same words).  `params` are encoded weights
     (``params_from_numpy``); X is float data."""
-    h = RT.share(rt, rt.encode(X))
-    ws = [RT.share(rt, params[f"w{i}"]) for i in range(len(net.layers))]
-    for i, w in enumerate(ws):
-        z = RT.matmul_tr(rt, h, w)
-        h = RA.relu(rt, z) if i < len(ws) - 1 else RA.smx_softmax(rt, z)
-    return RT.reconstruct(rt, h)[1]
+    return _predict_encoded(RuntimeEngine(rt), lambda w: RT.share(rt, w),
+                            params, net, X)
 
 
 def mlp_net_predict_joint(ctx: TridentContext, params: dict, net: MLPNet,
                           X, nonlinear: str = "newton") -> torch.Tensor:
-    """Secure prediction of one batch on the joint simulation: share X,
-    then the encoded weights (``params_from_numpy``), then ``mlp_net_fwd``
-    on a ``TridentEngine``; returns the opened probabilities as ring words.
-    With nonlinear="newton" this is ``mlp_net_predict_runtime``'s program,
-    word for word on the same seed."""
-    eng = TridentEngine(ctx, nonlinear=nonlinear)
-    h = eng.from_plain(X)
-    ws = {f"w{i}": PR.share(ctx, params[f"w{i}"])
-          for i in range(len(net.layers))}
-    p, _ = mlp_net_fwd(eng, ws, net, h)
-    return PR.reconstruct(ctx, p)
+    """Secure prediction of one batch on the joint simulation, the same
+    program on a ``TridentEngine``.  With nonlinear="newton" it opens
+    ``mlp_net_predict_runtime``'s words on the same seed."""
+    return _predict_encoded(TridentEngine(ctx, nonlinear=nonlinear),
+                            lambda w: PR.share(ctx, w), params, net, X)

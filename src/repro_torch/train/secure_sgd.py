@@ -117,7 +117,7 @@ def nn_task(net: PML.MLPNet | None = None, lr: float = 0.25) -> SGDTask:
 # World runners (one step; step-indexed seeds).
 # ---------------------------------------------------------------------------
 def make_engine(world: str, seed: int, *, ring: Ring = RING64,
-                transport=None, prep=None, device=None,
+                transport=None, device=None,
                 kernel_backend="hopper") -> Engine:
     """The engine of `world` on `device`.  The joint world reaches the
     kernels through ``kernels.ops`` directly, by its tensors' device, so
@@ -127,18 +127,18 @@ def make_engine(world: str, seed: int, *, ring: Ring = RING64,
                              nonlinear="newton")
     if world == "runtime":
         return RuntimeEngine(FourPartyRuntime(
-            ring, seed=seed, transport=transport, prep=prep,
+            ring, seed=seed, transport=transport,
             kernel_backend=kernel_backend, device=device))
     raise ValueError(f"unknown world {world!r}")
 
 
 def run_step(task: SGDTask, params: dict, batch: tuple, *, step: int,
              base_seed: int = 0, world: str = "joint", ring: Ring = RING64,
-             transport=None, prep=None, device=None,
+             transport=None, device=None,
              kernel_backend="hopper"):
     """One training step in `world` from the step-indexed seed."""
     eng = make_engine(world, seed_for_step(base_seed, step), ring=ring,
-                      transport=transport, prep=prep, device=device,
+                      transport=transport, device=device,
                       kernel_backend=kernel_backend)
     return task.run(eng, params, batch)
 
