@@ -22,17 +22,26 @@ from the root of a checkout.  In order, it
      int8 stage.  ``mpc_matmul_fused`` is held and timed at the NN's three
      layer shapes (beside its bound and the time the ring matmul's fit
      gives its grid), on all-ones words in chunks at the exactness bound
-     and on 32-bit words.  The PRF row times the wrapper the paths call on
-     the main path's largest group (the three lambda streams of the
-     (128, 784) input share) as one grouped launch and as three lone
-     draws.  The grouped gamma-piece kernel (``mult_terms``/``and_terms``,
-     one launch per protocol round) is held against its plain version on
-     ragged, unaligned, broadcast, expanded and 32-bit groups and over
-     more groups than one launch takes; its rows are the round launches of
-     one Pi_Mult on (128, 128) words and one AND on (128, 1), captured from
-     a runtime on the card, each beside the per-party sequence it replaces
-     (staging stacks, one stacked launch per party, the combine), its
-     bound from the unique bytes the launch moves.  The ``and_level`` row
+     and on 32-bit words.  The PRF row (one launch a draw group) times
+     the wrapper the paths call on the main path's largest group (the three
+     lambda streams of the (128, 784) input share), a lone draw of that
+     size, a lone 128-word draw and the joint adder's 78 streams, and holds
+     mixed groups (shifts, empty and odd streams, 120 streams, outputs off
+     the 16-byte grid, streams longer than a wave) at both widths; its
+     compute bound counts the integer instructions of one word in the
+     library's SASS (cuobjdump).  The ``ppa_msb`` row is the whole
+     msb(x + y) in one launch, held against its loop and the exact sum's
+     msb at n = 4096 and 1001, both widths.  Rows 1-3 and 8 are also read
+     without the profiler: CUDA events around launches queued behind a
+     spin kernel.  The grouped gamma-piece kernel (``mult_terms``/
+     ``and_terms``, one launch per protocol round) is held against its
+     plain version on ragged, unaligned, broadcast, expanded and 32-bit
+     groups and over more groups than one launch takes; its rows are the
+     round launches of one Pi_Mult on (128, 128) words and one AND on
+     (128, 1), captured from a runtime on the card, each beside the
+     per-party sequence it replaces (staging stacks, one stacked launch
+     per party, the combine), its bound from the unique bytes the launch
+     moves.  The ``and_level`` row
      is the joint paths' whole-chain launches (the Sklansky adder and the
      prefix-OR, faithful and collapsed, at n = 128 and 2^20 and on 32-bit
      words) beside the single level;
@@ -94,7 +103,9 @@ from the root of a checkout.  In order, it
 Each path (the deal and the online-only run of steps 5 and 8 being two
 each) is driven with the launch counts set to 0 just before it and read
 just after; the kernel rows report the sum over the paths, and each path
-prints its ``prf_mask`` launches and PRF streams per batch or step.  Any
+prints its ``prf_mask`` launches, draw groups and PRF streams per batch or
+step (one launch a group, and on the runtime, joint and training paths as
+many as a CPU run's draw groups).  Any
 failure exits nonzero.  Before the last lines come
 ``{"offline_online": {...}}`` (step 5's times),
 ``{"runtime_train": {...}}`` (step 8's) and ``{"kernels": [...]}``, then
@@ -115,15 +126,16 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth; the dense int8
-# tensor-core rate, which bounds the ring matmul's limb-pair products; and
-# the float32 CUDA-core rate, which stands in for the integer rate of the
-# other kernels (the data sheet gives none; a 64-bit integer multiply takes
-# several 32-bit instructions, so this rate is an upper bound and those
-# bounds are optimistic).
+# H100 SXM rates: HBM3 bandwidth and the dense int8 tensor-core rate, which
+# bounds the ring matmul's limb-pair products (NVIDIA data sheet); and the
+# INT32 rate of the CUDA cores, which bounds the other kernels' integer
+# instructions: 64 results a clock an SM for 32-bit integer add, multiply-
+# add, logic and shift (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) x 132 SMs x 1.98 GHz (the boost clock
+# the data sheet's 67 TFLOP/s float32 implies: 67e12 / (132 x 128 x 2)).
 HBM_BYTES_PER_S = 3.35e12
 INT8_TC_OPS_PER_S = 1979e12
-CUDA_CORE_OPS_PER_S = 67e12
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
 
 BATCH = 128
 N_BATCHES = 2
@@ -210,7 +222,84 @@ def host_ms(fn, reps: int = 5) -> float:
     return (time.perf_counter() - t0) / reps * 1e3
 
 
-def bound(nbytes: int, ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S
+def spin_gated_ms(fn, reps: int = 50, spin_cycles: int = 20_000_000) -> dict:
+    """Device time a call of `fn` without the profiler: CUDA events around
+    `reps` calls queued behind a spin kernel (torch.cuda._sleep), so the
+    host enqueues them all while the card spins and the card then runs them
+    back to back (each call's kernel plus the card's own gap between
+    launches; no host gap).  The spin doubles until it outlasts the
+    enqueue: the start event must still be pending when the last call is
+    queued.  {"ms": per call, "spin_cycles": ..., "enqueue_ms": host time
+    to queue the calls}."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda._sleep(spin_cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        gated = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if gated:
+            return {"ms": start.elapsed_time(end) / reps,
+                    "spin_cycles": spin_cycles, "enqueue_ms": enqueue_ms}
+        spin_cycles *= 4
+    check(False, f"spin-gated timing: the spin never outlasted the enqueue "
+          f"of {reps} calls of {fn}")
+
+
+def sass(build, source: str) -> str | None:
+    """The SASS of one source's library (cuobjdump -sass), or None where
+    the toolkit has no cuobjdump."""
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        return None
+    return subprocess.run([cuobjdump, "-sass", str(build._target(source))],
+                          capture_output=True, text=True, timeout=120).stdout
+
+
+def prf_word_instructions(build) -> tuple:
+    """(instructions, {opcode: count}) of one squares() word: the SASS of
+    the prf_mask library's squares_probe, its parameter loads, thread
+    index read and one store left out (and NOP/EXIT/BRA); (None, {})
+    where the toolkit has no cuobjdump."""
+    text = sass(build, "prf_mask")
+    if text is None:
+        return None, {}
+    ops_, inside = {}, False
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = line.split("Function :")[1].strip() == "squares_probe"
+            continue
+        if not inside or "/*" not in line or ";" not in line:
+            continue
+        body = line.split("*/", 1)[1].split(";")[0].strip()
+        if body.startswith("@"):                   # a predicate guard
+            body = body.split(None, 1)[1]
+        op = body.split()[0] if body else ""
+        if op and op.split(".")[0] not in ("NOP", "EXIT", "BRA", "LDC",
+                                           "ULDC", "STG", "S2R", "S2UR"):
+            ops_[op] = ops_.get(op, 0) + 1
+    check(ops_, "squares_probe not found in the prf_mask library's SASS")
+    return sum(ops_.values()), ops_
+
+
+def prf_bound(words: int, instructions: int | None,
+              elsize: int = 8) -> tuple:
+    """prf_mask's bound for `words` words of `elsize` bytes: the words
+    written once against `instructions` integer instructions a word at the
+    INT32 rate (bytes alone where they were not counted)."""
+    return bound(elsize * words, (instructions or 0) * words)
+
+
+def bound(nbytes: int, ops: int, ops_per_s: float = INT32_OPS_PER_S
           ) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S
     to = ops / ops_per_s
@@ -221,7 +310,7 @@ def ring_matmul_bound(M: int, K: int, N: int) -> dict:
     """The ring matmul's bound: its bytes (each operand read once, C written
     once) against its limb-pair int8 operations (36 pairs of 8-bit limbs,
     2 M N K each) at the tensor-core rate; beside it, the count of 2 M N K
-    64-bit operations at the CUDA-core rate that bounded the earlier
+    64-bit operations at the INT32 rate that bounded the earlier
     native-uint64 kernel."""
     nbytes = 8 * (M * K + K * N + M * N)
     b_ms, b_by = bound(nbytes, 36 * 2 * M * N * K, INT8_TC_OPS_PER_S)
@@ -416,16 +505,175 @@ def int_mm_yardstick(M: int, K: int, N: int, dev) -> dict:
     return out
 
 
-def kernel_phase(rng, ptxas: dict) -> list:
+def prf_rows(rng, dev, instructions: int | None) -> dict:
+    """The prf_mask row: each case (the largest group of a batch, lone
+    draws, the joint adder's 78 streams) held against the plain version on
+    the card, one launch a call, read two ways (the profiler's kernel time;
+    CUDA events around launches queued behind a spin), with the wrapper
+    call's time and the bound; then mixed groups at both widths (shifts,
+    empty and odd streams, more than 8 streams, MAX_STREAMS streams, an
+    output off the 16-byte grid, streams longer than one wave of tiles).
+    `instructions`: a squares() word's, for the bound."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import prf_mask as PM
+    kd = (int(rng.randint(0, 2**32)), int(rng.randint(0, 2**32)))
+    cases = {
+        "largest_group": [(kd, c, (BATCH, 784), 0) for c in range(3)],
+        "lone_draw": [(kd, 3, (BATCH, 784), 0)],
+        "lone_small_draw": [(kd, 4, (BATCH, 1), 0)],
+        # lam_z (3) and the Pi_Zero streams (3) of each of 13 ANDs
+        "adder_group_78": [(kd, 5 + c, (BATCH, 1), 0) for c in range(78)],
+    }
+    out = {}
+    for name, draws in cases.items():
+        sized = [(k, c, int(np.prod(shape)), sh) for k, c, shape, sh in draws]
+        words = sum(n for _, _, n, _ in sized)
+        ops.reset_launches()
+        got = ops.lambda_masks_group(draws, torch.int64, dev, flat=True)
+        check(ops.PRF_MASK.launches == 1,
+              f"prf_mask ({name}, {len(draws)} streams): "
+              f"{ops.PRF_MASK.launches} launches for one call")
+        want = PM.prf_mask_group_plain(sized, torch.int64, dev)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want),
+              f"prf_mask disagrees with its plain version ({name})")
+        raw = torch.empty(words, dtype=torch.int64, device=dev)
+        b_ms, b_by = prf_bound(words, instructions)
+        out[name] = {
+            "streams": len(draws), "words": words,
+            "ms": device_ms(lambda d=draws: ops.lambda_masks_group(
+                d, torch.int64, dev), "squares_group_kernel", reps=50,
+                warmup=5),
+            "spin_gated": spin_gated_ms(
+                lambda s=sized, r=raw: PM.launch_group(s, r)),
+            "call_ms": cuda_ms(lambda d=draws: ops.lambda_masks_group(
+                d, torch.int64, dev)),
+            "host_ms": host_ms(lambda d=draws: ops.lambda_masks_group(
+                d, torch.int64, dev), reps=200),
+            "plain_ms": device_ms(lambda s=sized: PM.prf_mask_group_plain(
+                s, torch.int64, dev)),
+            "max_abs_err": (got - want).abs().max().item(),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes": 8 * words / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_int32_ops": None if instructions is None else
+            instructions * words / INT32_OPS_PER_S * 1e3}
+    # mixed groups against the plain version, both widths
+    for dt in (torch.int64, torch.int32):
+        ell = torch.iinfo(dt).bits
+        shapes = [(BATCH * 784, 0), (5, ell - 1), (0, 0), (1000, 20), (3, 1),
+                  (257, 0), (1, 4), (64, ell - 13), (0, 3), (511, 2)]
+        mixed = [(kd, 2**32 + c, m, s) for c, (m, s) in
+                 enumerate(shapes + shapes[1:])]
+        wide = [(kd, 77 + c, 1 + (c * 37) % 300, c % 5) for c in
+                range(PM.MAX_STREAMS)]
+        # longer than one wave of tiles: the persistent loop, across streams
+        long_ = [(kd, 9, 1 << 24, 0), (kd, 10, 7, 1), (kd, 11, (1 << 23) + 3,
+                                                        0)]
+        for what, group in (("mixed", mixed), ("MAX_STREAMS", wide),
+                            ("longer than a wave", long_)):
+            total = sum(m for _, _, m, _ in group)
+            want = PM.prf_mask_group_plain(group, dt, dev)
+            for skew in range(4):
+                buf = torch.empty(total + skew, dtype=dt, device=dev)
+                got = PM.prf_mask_group_cuda(group, buf[skew:])
+                check(torch.equal(got, want),
+                      f"prf_mask's grouped draw disagrees ({ell}-bit words, "
+                      f"{what}, {len(group)} streams, output {skew} words "
+                      f"off its allocation)")
+    first = out["largest_group"]
+    k = ops.PRF_MASK
+    row = {"name": k.name, "route": "cuda", "source": k.source,
+           "replaces": k.replaces, "launches": 0,
+           **{f: first[f] for f in ("max_abs_err", "ms", "call_ms",
+                                    "plain_ms", "bound_ms", "bound_by")},
+           "library_ms": None, "ms_spin_gated": first["spin_gated"]["ms"],
+           "word_instructions": instructions, "cases": out}
+    return {k.name: row}
+
+
+# the ppa_msb row's sizes: n = 4096 and an odd n, at both widths
+MSB_SIZES = (4096, 1001)
+
+
+def msb_rows(rng, dev) -> dict:
+    """The ppa_msb row: the one-launch kernel (``ops.msb_of_sum_words``)
+    against its plain version (the Python loop over and_level_plain, on
+    the card) and the exact msb(x + y), on zero shares that XOR to 0 and
+    on shares that do not (then against the loop alone), at MSB_SIZES and
+    both widths; one launch a call; timed two ways (profiler, spin-gated
+    events) beside the wrapper call, the plain loop and the earlier route
+    (the loop over one and_level launch a level), with the bound by bytes
+    (x, y, 2 L x 3 draws, the output: (2 + 6 L + 1) words an element)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ppa_msb as PPA
+    sizes = {}
+    for dt in (torch.int64, torch.int32):
+        ell = torch.iinfo(dt).bits
+        L = int(np.log2(ell)) + 1
+        lo, hi = -2**(ell - 1), 2**(ell - 1) - 1
+        for n in MSB_SIZES:
+            def words(*shape):
+                return torch.from_numpy(rng.randint(
+                    lo, hi, size=shape, dtype=np.int64)).to(dt).to(dev)
+            x, y, lamz = words(n), words(n), words(L, 3, n)
+            zero = torch.stack([lamz[:, 0], lamz[:, 1],
+                                lamz[:, 0] ^ lamz[:, 1]], dim=1)
+            for z, xor0 in ((zero, True), (words(L, 3, n), False)):
+                ops.reset_launches()
+                got = ops.msb_of_sum_words(x, y, lamz, z)
+                check(ops.PPA_MSB.launches == 1 and ops.AND_LEVEL.launches
+                      == 0, f"ppa_msb: {ops.PPA_MSB.launches} ppa_msb and "
+                      f"{ops.AND_LEVEL.launches} and_level launches a call")
+                loop = PPA.ppa_msb(x, y, lamz, z, PPA.and_level_plain)
+                torch.cuda.synchronize()
+                check(torch.equal(got, loop),
+                      f"ppa_msb disagrees with its loop ({ell}-bit, n = {n},"
+                      f" zero shares XOR to 0: {xor0})")
+                if xor0:
+                    exact = ((x + y) >> (ell - 1)) & 1
+                    check(torch.equal(got, exact),
+                          f"ppa_msb disagrees with the exact msb(x + y) "
+                          f"({ell}-bit, n = {n})")
+            b_ms, b_by = bound((2 + 2 * L * 3 + 1) * n * (ell // 8),
+                               L * 2 * 30 * n)
+            sizes[f"{ell}-bit n = {n}"] = {
+                "ms": device_ms(lambda: PPA.ppa_msb_cuda(x, y, lamz, zero),
+                                "ppa_msb_kernel", reps=50, warmup=5),
+                "spin_gated": spin_gated_ms(
+                    lambda: PPA.ppa_msb_cuda(x, y, lamz, zero)),
+                "call_ms": cuda_ms(lambda: ops.msb_of_sum_words(
+                    x, y, lamz, zero)),
+                "plain_ms": device_ms(lambda: PPA.ppa_msb(
+                    x, y, lamz, zero, PPA.and_level_plain)),
+                "and_level_loop_ms": device_ms(lambda: PPA.ppa_msb(
+                    x, y, lamz, zero, PPA.and_level_cuda)),
+                "and_level_loop_call_ms": cuda_ms(lambda: PPA.ppa_msb(
+                    x, y, lamz, zero, PPA.and_level_cuda), reps=10),
+                "max_abs_err": 0, "bound_ms": b_ms, "bound_by": b_by}
+    first = sizes[f"64-bit n = {MSB_SIZES[0]}"]
+    k = ops.PPA_MSB
+    return {k.name: {
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": 0,
+        **{f: first[f] for f in ("max_abs_err", "ms", "call_ms", "plain_ms",
+                                 "bound_ms", "bound_by")},
+        "library_ms": None, "ms_spin_gated": first["spin_gated"]["ms"],
+        "sizes": sizes}}
+
+
+def kernel_phase(rng, ptxas: dict, prf_instructions: int | None) -> list:
     """Each kernel against its plain version at main-path shapes; `ptxas`:
-    {source: compiler lines (registers, spills)} from the build."""
+    {source: compiler lines (registers, spills)} from the build;
+    `prf_instructions`: a squares() word's (prf_mask's compute bound)."""
     import torch
     from repro_torch.kernels import gamma_parts as GP
     from repro_torch.kernels import mpc_matmul_fused as MF
     from repro_torch.kernels import ops
     from repro_torch.kernels import ppa_msb as PPA
-    from repro_torch.kernels import prf_mask as PM
     from repro_torch.kernels import ring_matmul as RM
+    from repro_torch.kernels.build import launch
 
     dev = torch.device("cuda")
 
@@ -455,53 +703,14 @@ def kernel_phase(rng, ptxas: dict) -> list:
             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 
-    # prf_mask: the largest group of a batch, the three lambda streams of
-    # the (128, 784) input share, through the wrapper the paths call
-    # (``ops.lambda_masks_group``: output allocated, one launch, keys
-    # derived on the card, a view per stream); beside it the same three
-    # streams as three lone draws (three groups of one) through the same
-    # wrapper.  A single stream and a mixed group are held against the
-    # plain version too.
-    n = BATCH * 784
-    kd = (int(rng.randint(0, 2**32)), int(rng.randint(0, 2**32)))
-    group = [(kd, c, n, 0) for c in range(3)]
-    draws = [(kd, c, (BATCH, 784), 0) for c in range(3)]
-
-    def draw_group():
-        return ops.lambda_masks_group(draws, torch.int64, dev)
-
-    def draw_lone():
-        return [ops.lambda_masks_group([d], torch.int64, dev) for d in draws]
-
-    row(ops.PRF_MASK, torch.cat([t.reshape(-1) for t in draw_group()]),
-        PM.prf_mask_group_plain(group, torch.int64, dev),
-        (draw_group, "squares_group_kernel"),
-        device_ms(lambda: PM.prf_mask_group_plain(group, torch.int64, dev)),
-        8 * 3 * n, 3 * 27 * n)
-    r = rows[ops.PRF_MASK.name]
-    r["streams_per_launch"] = 3
-    r["ms_per_stream"] = r["ms"] / 3
-    r["call_ms_per_stream"] = r["call_ms"] / 3
-    r["lone_draws_ms_per_stream"] = device_ms(
-        draw_lone, "squares_group_kernel") / 3
-    r["lone_draws_call_ms_per_stream"] = cuda_ms(draw_lone) / 3
-    one = [(kd, 12345, n, 0)]                # a lone draw: a group of one
-    check(torch.equal(
-        PM.prf_mask_group_cuda(one, torch.empty(n, dtype=torch.int64,
-                                                device=dev)),
-        PM.prf_mask_group_plain(one, torch.int64, dev)),
-        "prf_mask disagrees with its plain version on a single stream")
-    for dt in (torch.int64, torch.int32):
-        ell = torch.iinfo(dt).bits
-        mixed = [(kd, 2**32 + c, m, s) for c, (m, s) in enumerate(
-            [(n, 0), (5, ell - 1), (0, 0), (1000, 20), (3, 1), (257, 0),
-             (1, 4), (64, ell - 13)])]
-        out = torch.empty(sum(m for _, _, m, _ in mixed), dtype=dt,
-                          device=dev)
-        check(torch.equal(PM.prf_mask_group_cuda(mixed, out).cpu(),
-                          PM.prf_mask_group_plain(mixed, dt)),
-              f"prf_mask's grouped draw disagrees ({ell}-bit words, "
-              f"shifts, 8 streams)")
+    # prf_mask: one launch a draw group.  Its row is the main path's
+    # largest group, the three lambda streams of the (128, 784) input
+    # share, through the wrapper the paths call (ops.lambda_masks_group:
+    # output allocated, one launch, keys derived on the card, a view per
+    # stream); beside it a lone draw of the same size, a lone smx-sized
+    # draw (128 words: the floor of a near-empty launch) and the joint
+    # adder's group of 78 streams (13 ANDs x 6) of 128 words.
+    rows.update(prf_rows(rng, dev, prf_instructions))
 
     # ring_matmul: layer 1's gamma piece, three terms fused on K; and
     # mpc_matmul_grid: layer 1's online 3x3 grid, (3*128, 784) @ (784,
@@ -517,6 +726,13 @@ def kernel_phase(rng, ptxas: dict) -> list:
         r.update(ring_matmul_bound(M, K, N))
         r["shape"] = f"{M}x{K}x{N}"
         r["k_chunk"] = RM.k_chunk(M, N, K, RM._sm_count(dev))
+        # the kernel alone (the wrapper may zero its output first), read
+        # without the profiler
+        acc = torch.zeros((M, N), dtype=torch.int64, device=dev)
+        r["spin_gated"] = spin_gated_ms(lambda: launch(
+            "ring_matmul", "ring_matmul_u64", dev, a.data_ptr(), b.data_ptr(),
+            acc.data_ptr(), M, N, K, r["k_chunk"]))
+        r["ms_spin_gated"] = r["spin_gated"]["ms"]
         r["ptxas"] = ptxas.get("ring_matmul", [])
         r["phases"] = ring_matmul_phases(M, N, K, r["k_chunk"], dev)
         r["yardstick_int_mm_limb_planes"] = int_mm_yardstick(M, K, N, dev)
@@ -605,24 +821,8 @@ def kernel_phase(rng, ptxas: dict) -> list:
     check(torch.equal(PPA.and_level_cuda(*lv32), PPA.and_level_plain(*lv32)),
           "and_level disagrees on 32-bit words")
 
-    # ppa_msb: the Sklansky loop over and_level at n = 4096, held against
-    # its plain version and the exact msb(x + y)
-    n, levels = 4096, 7
-    x, y, lamz = words(n), words(n), words(levels, 3, n)
-    zero = torch.stack([lamz[:, 0], lamz[:, 1], lamz[:, 0] ^ lamz[:, 1]],
-                       dim=1)
-
-    def msb_kernel():
-        return PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_cuda)
-
-    exact = ((x + y) >> 63) & 1
-    check(torch.equal(msb_kernel(), exact),
-          "ppa_msb disagrees with the exact msb(x + y)")
-    row(ops.PPA_MSB, msb_kernel(),
-        PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_plain),
-        (msb_kernel, None),
-        device_ms(lambda: PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_plain)),
-        8 * (2 * n + 2 * levels * 3 * n + n), levels * 30 * n)
+    # ppa_msb: the whole Sklansky msb(x + y) in one launch
+    rows.update(msb_rows(rng, dev))
 
     # 32-bit ring words through the same sources (not on the main path)
     a32 = torch.from_numpy(rng.randint(-2**31, 2**31 - 1, size=(70, 300),
@@ -1048,21 +1248,20 @@ def tensor_core_instructions(build, source: str) -> tuple | None:
     """(GMMA, IGMMA) counts of warpgroup MMA instructions in the SASS of
     one source's library, the integer ones being IGMMA; None where the
     toolkit has no cuobjdump."""
-    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
-    if not os.path.exists(cuobjdump):
+    text = sass(build, source)
+    if text is None:
         return None
-    sass = subprocess.run([cuobjdump, "-sass", str(build._target(source))],
-                          capture_output=True, text=True, timeout=120).stdout
-    lines = [ln for ln in sass.splitlines() if "GMMA" in ln]
+    lines = [ln for ln in text.splitlines() if "GMMA" in ln]
     return len(lines), sum("IGMMA" in ln for ln in lines)
 
 
 def drive(path: str, kernels: list, needed: tuple, run, batches: int,
-          unit: str = "batch"):
+          unit: str = "batch", threads: int = 1):
     """Run one path (`batches` batches, or training steps where `unit`
     says so) with every launch count set to 0 just before it; read the
     counts just after, add them to the kernel rows, and fail if a kernel
-    of the path was not launched."""
+    of the path was not launched, or (one thread drawing: two threads may
+    lose each other's counts) if a prf_mask call was not one launch."""
     import torch
     from repro_torch.kernels import ops
     ops.reset_launches()
@@ -1079,19 +1278,24 @@ def drive(path: str, kernels: list, needed: tuple, run, batches: int,
     missing = [n for n in needed if launches[n] == 0]
     check(not missing, f"{path}: kernels of the path not launched: "
           f"{missing} ({launches})")
+    check(threads > 1 or ops.PRF_MASK.launches == ops.PRF_MASK.calls,
+          f"{path}: {ops.PRF_MASK.launches} prf_mask launches for "
+          f"{ops.PRF_MASK.calls} draw groups")
     print(f"{path}: {wall:.3f} s; launches "
           f"{ {n: c for n, c in launches.items() if c} }")
     print(f"{path}: prf_mask {ops.PRF_MASK.launches / batches:g} launches "
-          f"and {ops.PRF_MASK.streams / batches:g} streams per {unit}")
+          f"for {ops.PRF_MASK.calls / batches:g} draw groups and "
+          f"{ops.PRF_MASK.streams / batches:g} streams per {unit}")
     return out, wall
 
 
 def check_calls(path: str, kernels: list, batches: int) -> None:
-    """The joint paths' whole-chain and_level and mpc_matmul_fused launches
-    a batch on the card against the wrapper calls a batch of the CPU run
-    just made (plain versions; each call is the launch the card makes)."""
+    """The joint paths' whole-chain and_level, mpc_matmul_fused and
+    prf_mask launches a batch on the card against the wrapper calls a batch
+    of the CPU run just made (plain versions; each call is the launch the
+    card makes)."""
     from repro_torch.kernels import ops
-    for k in (ops.AND_LEVEL, ops.MPC_MATMUL_FUSED):
+    for k in (ops.AND_LEVEL, ops.MPC_MATMUL_FUSED, ops.PRF_MASK):
         on_card = next(r for r in kernels if r["name"] == k.name)[
             "launches_by_path"][path] / batches
         check(on_card == k.calls / batches,
@@ -1602,7 +1806,7 @@ def capture_train_calls(task, params, batch, dev) -> dict:
     return rec.calls
 
 
-def train_shape_rows(task, params, batch, dev) -> dict:
+def train_shape_rows(task, params, batch, dev, instructions) -> dict:
     """Each of the five kernels at the training step's new shapes, held
     against its plain version, timed on the device beside its bound and
     the plain version's time: ring_matmul at each TRAIN_PRODUCTS gamma
@@ -1610,7 +1814,8 @@ def train_shape_rows(task, params, batch, dev) -> dict:
     the CPU, as PyTorch has none on CUDA); prf_mask, mult_terms and
     and_terms at the largest PRF group and the largest Pi_Mult and AND
     round of an NN training step, recorded on the card (plain versions on
-    the card).  {kernel name: [row, ...]}."""
+    the card); `instructions`: a squares() word's, for prf_mask's bound.
+    {kernel name: [row, ...]}."""
     import torch
     from repro_torch.core.ring import RING64
     from repro_torch.kernels import gamma_parts as GP
@@ -1667,7 +1872,7 @@ def train_shape_rows(task, params, batch, dev) -> dict:
     group = [(key.data, ctr, int(np.prod(shape)),
               0 if bits is None else RING64.ell - bits)
              for key, ctr, shape, bits in draws]
-    b_ms, b_by = bound(8 * n, 27 * n)
+    b_ms, b_by = prf_bound(n, instructions)
     rows["prf_mask"].append({
         "shape": [list(d[2]) for d in draws], "words": n,
         "ms": device_ms(lambda: hk.prf_bits_group(draws, RING64, dev),
@@ -1735,8 +1940,8 @@ def runtime_train_phase(kernels: list) -> dict:
           f" s); per step {nn[0][2]}")
     # launches a step on the card against the wrapper calls of one step on
     # the CPU ("hopper" backend, plain versions): each call is one launch
-    # of the card (no PRF group of this step has more than MAX_STREAMS
-    # streams, no round more than MAX_GROUPS groups)
+    # of the card (a PRF group is one launch; no round of this step has
+    # more than MAX_GROUPS groups)
     ops.reset_launches()
     train_steps(task, params, batches[:1], device="cpu")
     per_step = {}
@@ -1858,7 +2063,7 @@ def runtime_train_phase(kernels: list) -> dict:
             return out, sgd.reports, dealer.reports
 
     (ahead, oreps, _), _ = drive("train_prep_ahead", kernels, TRAIN_KERNELS,
-                                 prep_ahead, TRAIN_STEPS, "step")
+                                 prep_ahead, TRAIN_STEPS, "step", threads=2)
     check_trajectory("runtime-train: prep-ahead against inline", ahead, nn)
     check(len(oreps) == TRAIN_STEPS and all(
         r.offline_bits == 0 and r.online_bits > 0 for r in oreps),
@@ -1909,7 +2114,9 @@ def runtime_train_phase(kernels: list) -> dict:
         "runtime-train NN",
         lambda: train_steps(task, params, batches[:1], device=dev),
         min(walls["nn_inline_ms"]) / 1e3, unit="step")
-    rows = train_shape_rows(task, params, batches[0], dev)
+    prf = next(k for k in kernels if k["name"] == ops.PRF_MASK.name)
+    rows = train_shape_rows(task, params, batches[0], dev,
+                            prf["word_instructions"])
     for k in kernels:
         if k["name"] in rows:
             k["training_shapes"] = rows[k["name"]]
@@ -1978,8 +2185,14 @@ def main() -> int:
                   f"library's SASS, {gmma[1]} of them IGMMA")
             check(gmma[1] > 0, f"{src}: no integer GMMA in its SASS")
 
+    # integer instructions of one squares() word: the compute side of
+    # prf_mask's bound
+    prf_instructions, prf_sass = prf_word_instructions(build)
+    print(f"prf_mask: {prf_instructions} integer instructions a squares() "
+          f"word in the SASS of squares_probe: {prf_sass}")
+
     rng = np.random.RandomState(SEED)
-    kernels = kernel_phase(rng, ptxas)
+    kernels = kernel_phase(rng, ptxas, prf_instructions)
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms on the device, "
               f"{k['call_ms']:.4f} ms per wrapper call (plain "
@@ -2036,12 +2249,24 @@ def main() -> int:
                   f"{r['plain_ms']:.5f} ms; at n = 2^20 "
                   f"{r['at_n_2^20']['ms']:.5f} ms (bound "
                   f"{r['at_n_2^20']['bound_ms']:.5f} ms)")
-        if "streams_per_launch" in k:
-            print(f"  {k['streams_per_launch']} streams a launch: "
-                  f"{k['ms_per_stream']:.5f} ms on the device and "
-                  f"{k['call_ms_per_stream']:.5f} ms of the call per "
-                  f"stream; as lone draws {k['lone_draws_ms_per_stream']:.5f}"
-                  f" ms and {k['lone_draws_call_ms_per_stream']:.5f} ms")
+        if "ms_spin_gated" in k:
+            print(f"  spin-gated CUDA events: {k['ms_spin_gated']:.5f} ms a "
+                  f"launch back to back")
+        for case, r in k.get("cases", {}).items():
+            print(f"  {case} ({r['streams']} streams, {r['words']} words): "
+                  f"{r['ms']:.5f} ms on the device (profiler), "
+                  f"{r['spin_gated']['ms']:.5f} ms spin-gated; call "
+                  f"{r['call_ms']:.5f} ms, host {r['host_ms']:.5f} ms; plain "
+                  f"{r['plain_ms']:.5f} ms; bound {r['bound_ms']:.5f} ms by "
+                  f"{r['bound_by']} (bytes {r['bound_ms_bytes']:.5f}, INT32 "
+                  f"instructions {r['bound_ms_int32_ops']:.5f})")
+        for size, r in k.get("sizes", {}).items():
+            print(f"  {size}: {r['ms']:.5f} ms on the device (profiler), "
+                  f"{r['spin_gated']['ms']:.5f} ms spin-gated; call "
+                  f"{r['call_ms']:.5f} ms; plain {r['plain_ms']:.5f} ms; the "
+                  f"loop over and_level {r['and_level_loop_ms']:.5f} ms on "
+                  f"the device, call {r['and_level_loop_call_ms']:.5f} ms; "
+                  f"bound {r['bound_ms']:.7f} ms by {r['bound_by']}")
 
     net = MLPNet(NN["features"], NN["layers"])
     params = mlp_net_init(np.random.RandomState(SEED), net)
@@ -2083,13 +2308,14 @@ def main() -> int:
     _, hop_words = serve("cpu", "hopper", params, net, queries[:BATCH])
     check(torch.equal(hop_words, ref_words[:BATCH]),
           "runtime: the 'hopper' backend's CPU words differ from 'torch''s")
-    for k in (ops.MULT_TERMS, ops.AND_TERMS):
+    for k in (ops.MULT_TERMS, ops.AND_TERMS, ops.PRF_MASK):
         check(on_card[k.name] == k.calls,
               f"runtime: {k.name} {on_card[k.name]:g} launches a batch on "
               f"the card, {k.calls} round calls a batch on the CPU")
     print(f"runtime: launches per batch {on_card}; mult_terms "
           f"{ops.MULT_TERMS.calls} and and_terms {ops.AND_TERMS.calls} "
-          f"round calls a batch on the CPU")
+          f"round calls, prf_mask {ops.PRF_MASK.calls} draw groups a batch "
+          f"on the CPU")
     check_probs("runtime", words, want)
     profile_batch("runtime", lambda: serve("cuda", "hopper", params, net,
                                            queries[:BATCH]),

@@ -97,8 +97,8 @@ class TridentContext:
         """Several draws, ``(subset, shape)`` or ``(subset, shape, bits)``
         each, with their counters taken in list order (the words of the
         same ``sample``/``sample_bounded`` calls in a row), in one
-        ``prf_mask`` launch per MAX_STREAMS draws: a view per draw, or with
-        `flat` the one buffer of their words, draw after draw."""
+        ``prf_mask`` launch (up to MAX_STREAMS draws): a view per draw, or
+        with `flat` the one buffer of their words, draw after draw."""
         return ops.lambda_masks_group(
             [(self.keys.subset_key(sp[0]).data, self.fresh_counter(), sp[1],
               self.ring.ell - sp[2] if len(sp) > 2 else 0) for sp in specs],

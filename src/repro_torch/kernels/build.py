@@ -49,6 +49,9 @@ SIGNATURES = {
     # x, draws, streams an AND, NOT's mask, out, n
     "prefix_or_u64": (_P, _P, _I, _U64, _P, _I64, _P),
     "prefix_or_u32": (_P, _P, _I, _U64, _P, _I64, _P),
+    # x, y, lamz levels, zero levels, out, n
+    "ppa_msb_u64": (_P, _P, _P, _P, _P, _I64, _P),
+    "ppa_msb_u32": (_P, _P, _P, _P, _P, _I64, _P),
     "mpc_matmul_fused_u64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mpc_matmul_fused_u32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -132,12 +135,21 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def launch(source: str, symbol: str, device, *args) -> None:
-    """Call one C entry point on the current stream of `device`; raise if
-    the launch was refused (the C side returns ``cudaGetLastError()``)."""
+    """Call one C entry point on the current stream of `device` (a
+    ``torch.device``); raise if the launch was refused (the C side returns
+    ``cudaGetLastError()``).  The stream comes as a raw handle, and the
+    device is switched only when it is not the current one: both cost
+    microseconds of host time a launch."""
     import torch
     fn = getattr(library(source), symbol)
-    with torch.cuda.device(device):
-        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    current = torch.cuda.current_device()
+    index = current if device.index is None else device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    if index == current:
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, stream)
     if rc:
         raise RuntimeError(f"{symbol}: CUDA error {rc} at launch")
 

@@ -25,6 +25,13 @@
 //               the upper-half masks and two ANDs, then the sum.
 //   prefix_or   [[OR_{j >= i} x_j]] from the msb down: log2(ell) ANDs of
 //               NOT cur and NOT (cur >> j), each result inverted.
+//   ppa_msb     msb(x + y) of (n,) public words (src/repro/kernels/
+//               ppa_msb.py:65): the Sklansky adder on stacks whose lambdas
+//               are 0, its log2(ell) + 1 levels of ANDs (the first AND, then
+//               two a level sharing that level's draws) each opened as the
+//               XOR of its output stack; lamz and zero (log2(ell) + 1, 3,
+//               n), the zero shares given as they are.  Output (n,) words of
+//               0/1.
 // The two chains read their ANDs' draws where the protocol's one group of
 // PRF draws put them: (A, S, n) words, AND a's streams S = 6 (z1, z2, z3,
 // f1, f2, f3) faithful, S = 3 (z1, z2, z3) collapsed; the kernel forms
@@ -40,7 +47,8 @@
 //
 // Bound on the H100: bytes.  A level moves 18 words an element (144 B at
 // ell = 64) for about 30 integer operations; the adder 2 x 4 input words,
-// 13 x 6 draws and 4 output words (720 B) for about 850.  At the main
+// 13 x 6 draws and 4 output words (720 B) for about 850; ppa_msb 2 input
+// words, 7 x 6 draws and 1 output word (360 B) for about 450.  At the main
 // path's n = 128 every launch is one near-empty block: launch bound.
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -220,6 +228,47 @@ __global__ void prefix_or_kernel(const W* __restrict__ x,
   store(out, n, i, cur);
 }
 
+// msb(x + y) of public words: every AND of the adder on (v, 0, 0, 0)
+// stacks with its level's draws, opened (the XOR of the output stack) as
+// the Python loop opens it, so any zero shares give the loop's words.
+template <typename W>
+__global__ void ppa_msb_kernel(const W* __restrict__ x,
+                               const W* __restrict__ y,
+                               const W* __restrict__ lamz,
+                               const W* __restrict__ zero,
+                               W* __restrict__ out, int64_t n) {
+  constexpr int kLevels = kLog2Ell<W>;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const Draws<W, kLevels + 1, 3> lz(lamz, n, i), zr(zero, n, i);
+  auto open_and = [&](int lvl, W a, W b) {
+    const Stack<W> z = and_level(Stack<W>{a, 0, 0, 0}, Stack<W>{b, 0, 0, 0},
+                                 lz.d[lvl][0], lz.d[lvl][1], lz.d[lvl][2],
+                                 zr.d[lvl][0], zr.d[lvl][1], zr.d[lvl][2]);
+    return W(z.m ^ z.l1 ^ z.l2 ^ z.l3);
+  };
+  const W X = x[i], Y = y[i];
+  W g = open_and(0, X, Y);
+  W p = X ^ Y;
+#pragma unroll
+  for (int k = 0; k < kLevels; ++k) {
+    const int half = 1 << k;
+    const W lower = W(~W(0)) / W((W(1) << half) + W(1));
+    const W upper = W(~lower);
+    const W bnd = lower & W(upper >> 1);
+    W gb = W((g & bnd) << 1), pb = W((p & bnd) << 1);
+    for (int j = 1; j < half; j <<= 1) {
+      gb ^= W(gb << j);
+      pb ^= W(pb << j);
+    }
+    const W pu = p & upper;
+    g ^= open_and(k + 1, pu, gb);
+    p = W((p & lower) ^ open_and(k + 1, pu, pb));
+  }
+  out[i] = W(W(X ^ Y ^ W(g << 1)) >> (8 * sizeof(W) - 1));
+}
+
 constexpr int kThreads = 256;
 
 unsigned blocks_for(int64_t n) {
@@ -276,6 +325,18 @@ int launch_or(const void* x, const void* draws, int streams, uint64_t mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename W>
+int launch_msb(const void* x, const void* y, const void* lamz,
+               const void* zero, void* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  ppa_msb_kernel<W><<<blocks_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const W*>(x), static_cast<const W*>(y),
+      static_cast<const W*>(lamz), static_cast<const W*>(zero),
+      static_cast<W*>(out), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int and_level_u64(const void* x, const void* y, const void* lamz,
@@ -312,4 +373,16 @@ extern "C" int prefix_or_u32(const void* x, const void* draws, int streams,
                              uint64_t mask, void* out, int64_t n,
                              void* stream) {
   return launch_or<uint32_t>(x, draws, streams, mask, out, n, stream);
+}
+
+extern "C" int ppa_msb_u64(const void* x, const void* y, const void* lamz,
+                           const void* zero, void* out, int64_t n,
+                           void* stream) {
+  return launch_msb<uint64_t>(x, y, lamz, zero, out, n, stream);
+}
+
+extern "C" int ppa_msb_u32(const void* x, const void* y, const void* lamz,
+                           const void* zero, void* out, int64_t n,
+                           void* stream) {
+  return launch_msb<uint32_t>(x, y, lamz, zero, out, n, stream);
 }

@@ -20,10 +20,10 @@ from .gamma_parts import (MAX_GROUPS, and_terms_group_plain,
                           terms_group_cuda)
 from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
 from .ppa_msb import (and_level_cuda, and_level_plain, ppa_add_cuda,
-                      ppa_add_plain, ppa_msb, prefix_or_cuda,
+                      ppa_add_plain, ppa_msb, ppa_msb_cuda, prefix_or_cuda,
                       prefix_or_plain)
-from .prf_mask import (MAX_STREAMS, prf_mask_group_cuda,
-                       prf_mask_group_plain)
+from .prf_mask import launch_group as prf_launch_group
+from .prf_mask import prf_mask_group_plain
 from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
 
 _CSRC = "src/repro_torch/kernels/csrc/"
@@ -40,8 +40,7 @@ class Kernel:
     streams: int = 0       # prf_mask: PRF streams its launches drew
     # wrapper calls on either device, so a CPU run counts what the card
     # launches (one launch a call; mult_terms / and_terms one a call of
-    # <= MAX_GROUPS groups, prf_mask one a call of <= MAX_STREAMS streams;
-    # ppa_msb none: its levels count on and_level)
+    # <= MAX_GROUPS groups)
     calls: int = 0
 
 
@@ -59,8 +58,7 @@ MPC_MATMUL_FUSED = Kernel("mpc_matmul_fused", _CSRC + "mpc_matmul_fused.cu",
                           "src/repro/kernels/mpc_matmul_fused.py:72")
 AND_LEVEL = Kernel("and_level", _CSRC + "and_level.cu",
                    "src/repro/kernels/ppa_msb.py:43")
-# the msb(x + y) loop (kernels/ppa_msb.py) launching and_level per level;
-# its count is of loop runs on the card, each level also counted by AND_LEVEL
+# the whole msb(x + y) in one and_level.cu launch (its ppa_msb entry)
 PPA_MSB = Kernel("ppa_msb", _CSRC + "and_level.cu",
                  "src/repro/kernels/ppa_msb.py:65")
 KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MPC_MATMUL_FUSED,
@@ -76,37 +74,33 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def lambda_masks_group(streams, dtype: torch.dtype, device="cpu",
+def lambda_masks_group(streams, dtype: torch.dtype, device,
                        flat: bool = False):
-    """The protocols' PRF draws, one launch per MAX_STREAMS streams.
-    `streams`: (key_data, counter, shape, shift) each -- the subset key's
-    two uint32 words, the protocol counter, the shape and the logical right
-    shift of each word; returns one tensor of ring words (`dtype`) per
-    stream, views of one buffer -- or, with `flat`, that buffer, the
-    streams' words one after another."""
+    """The protocols' PRF draws, ONE launch per call on the card (up to
+    MAX_STREAMS streams).  `streams`: (key_data, counter, shape, shift)
+    each -- the subset key's two uint32 words, the protocol counter, the
+    shape and the logical right shift of each word; returns one tensor of
+    ring words (`dtype`) per stream, views of one buffer -- or, with
+    `flat`, that buffer, the streams' words one after another."""
     PRF_MASK.calls += 1
     sized = [(kd, ctr, prf_numel(shape), shift)
              for kd, ctr, shape, shift in streams]
-    if torch.device(device).type == "cpu":
+    device = torch.device(device)
+    if device.type == "cpu":
         buf = prf_mask_group_plain(sized, dtype, device)
     else:
+        if device.type != "cuda":
+            raise ValueError(f"kernel operands must be CUDA tensors, got "
+                             f"{device}")
         buf = torch.empty(sum(n for _, _, n, _ in sized), dtype=dtype,
                           device=device)
-        off = 0
-        for i in range(0, len(sized), MAX_STREAMS):
-            part = sized[i:i + MAX_STREAMS]
-            n = sum(k for _, _, k, _ in part)
-            prf_mask_group_cuda(part, buf[off:off + n])
+        if prf_launch_group(sized, buf):
             PRF_MASK.launches += 1
-            off += n
         PRF_MASK.streams += len(sized)
     if flat:
         return buf
-    out, off = [], 0
-    for (_, _, shape, _), (_, _, n, _) in zip(streams, sized):
-        out.append(buf[off:off + n].view(tuple(shape)))
-        off += n
-    return out
+    return [part.view(tuple(shape)) for part, (_, _, shape, _) in
+            zip(buf.split([n for _, _, n, _ in sized]), streams)]
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -256,9 +250,11 @@ def prefix_or(x, draws, mask: int) -> torch.Tensor:
 
 
 def msb_of_sum_words(x, y, lamz_levels, zero_levels) -> torch.Tensor:
-    """msb(x + y) of (n,) public words through the Sklansky loop; one
-    ``and_level`` per level, lamz/zero levels (log2(ell) + 1, 3, n)."""
-    out = ppa_msb(x, y, lamz_levels, zero_levels, and_level)
-    if not _on_cpu(x):
-        PPA_MSB.launches += 1
+    """msb(x + y) of (n,) public words by the Sklansky adder in one
+    ``and_level.cu`` launch; lamz/zero levels (log2(ell) + 1, 3, n)."""
+    PPA_MSB.calls += 1
+    if _on_cpu(x):
+        return ppa_msb(x, y, lamz_levels, zero_levels, and_level_plain)
+    out = ppa_msb_cuda(x, y, lamz_levels, zero_levels)
+    PPA_MSB.launches += 1
     return out

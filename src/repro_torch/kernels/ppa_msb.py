@@ -20,7 +20,9 @@ its plain version word for word.
 
 ``ppa_msb`` is the Python loop of the whole msb(x + y) over public words:
 log2(ell) + 1 AND levels with the Sklansky smear masks, each level one call
-of the ``and_level`` it is given.
+of the ``and_level`` it is given; with ``and_level_plain`` it is the plain
+version of the ``ppa_msb`` kernel (``ppa_msb_cuda``), which runs the whole
+loop in one launch, one thread a word.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from .build import check_operands, launch
 _SYMBOL = {torch.int64: "and_level_u64", torch.int32: "and_level_u32"}
 _ADD = {torch.int64: "ppa_add_u64", torch.int32: "ppa_add_u32"}
 _OR = {torch.int64: "prefix_or_u64", torch.int32: "prefix_or_u32"}
+_MSB = {torch.int64: "ppa_msb_u64", torch.int32: "ppa_msb_u32"}
 
 
 def chain_ands(ell: int, adder: bool) -> int:
@@ -204,3 +207,27 @@ def ppa_msb(x, y, lamz_levels, zero_levels, and_level) -> torch.Tensor:
         p = (p & ~upper) ^ AND(pu, pb, k + 1)
     s = x ^ y ^ (g << 1)
     return lshr(s, ell - 1) & 1
+
+
+def ppa_msb_cuda(x, y, lamz_levels, zero_levels) -> torch.Tensor:
+    """The ``ppa_msb`` kernel: ``ppa_msb(x, y, lamz_levels, zero_levels,
+    and_level_plain)`` in one launch; x, y (n,), the levels (L, 3, n) with
+    L >= log2(ell) + 1 (the first log2(ell) + 1 are read)."""
+    n = x.shape[-1]
+    L = int(math.log2(width_of(x.dtype))) + 1
+    if (x.shape != (n,) or y.shape != (n,) or lamz_levels.dim() != 3
+            or lamz_levels.shape[0] < L
+            or lamz_levels.shape[1:] != (3, n)
+            or zero_levels.shape != lamz_levels.shape):
+        raise ValueError(
+            f"ppa_msb takes x, y (n,) and levels ({L}, 3, n), got "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, "
+            f"{tuple(lamz_levels.shape)}, {tuple(zero_levels.shape)}")
+    ins = [t.contiguous() for t in (x, y, lamz_levels[:L], zero_levels[:L])]
+    check_operands(*ins)
+    if x.dtype not in _MSB:
+        raise ValueError(f"ppa_msb takes int64/int32 words, got {x.dtype}")
+    out = torch.empty_like(ins[0])
+    launch("and_level", _MSB[x.dtype], x.device, *(t.data_ptr() for t in ins),
+           out.data_ptr(), n)
+    return out

@@ -24,7 +24,8 @@ from ..core.ring import lshr
 from ..obs import traced_protocol
 from . import boolean as RB
 from .party import DistAShare, DistBShare, PartyAView
-from .protocols import _ash_pieces, _held_lam, _open_parts, _vsh, reconstruct
+from .protocols import (_ash_pieces, _ash_specs, _held_lam, _open_parts,
+                        _vsh, reconstruct)
 from .protocols import mult as rt_mult
 from .runtime import FourPartyRuntime
 
@@ -174,9 +175,12 @@ def bit_inject(rt: FourPartyRuntime, b: DistBShare,
         lam_v0 = torch.broadcast_to(
             v.views[0].lam[1] + v.views[0].lam[2] + v.views[0].lam[3],
             out_shape)
+        # the two aSh's draws in one group (counter order kept)
+        drawn = rt.sample_group(_ash_specs(out_shape) * 2)
         with tp.parallel(("offline",)):
-            y1 = _ash_pieces(rt, lam_b0, tag=tag + ".y1")
-            y2 = _ash_pieces(rt, lam_b0 * lam_v0, tag=tag + ".y2")
+            y1 = _ash_pieces(rt, lam_b0, tag=tag + ".y1", drawn=drawn[:2])
+            y2 = _ash_pieces(rt, lam_b0 * lam_v0, tag=tag + ".y2",
+                             drawn=drawn[2:])
         # Verification round: <y1> as in Bit2A; <y2> aggregated to P0
         # (2*ell + 1 bits, 1 round: Lemma C.11).
         agg2 = y2[1][2] + y2[1][3]

@@ -180,13 +180,21 @@ def reconstruct(rt: FourPartyRuntime, x: DistAShare,
 # ---------------------------------------------------------------------------
 # Pi_aSh (Fig. 2): <.>-sharing of a P0-known value, offline phase.
 # ---------------------------------------------------------------------------
+def _ash_specs(shape) -> list:
+    """The two draws of a Pi_aSh of a value of `shape`."""
+    return [(s, shape) for s in ASH_SUBSETS]
+
+
 def _ash_pieces(rt: FourPartyRuntime, v0, *, tag: str,
-                phase: str = "offline") -> list:
+                phase: str = "offline", drawn=None) -> list:
     """Deal <v0> by P0.  Returns per-party piece dicts {index: value};
-    piece i is held by P0 and the pair ASH_HOLDERS[i]."""
+    piece i is held by P0 and the pair ASH_HOLDERS[i].  `drawn`: the two
+    draws of ``_ash_specs(v0.shape)`` where the caller took them in its
+    own group (the same counters in the same order), else None."""
     ring = rt.ring
     tp = rt.transport
-    v1, v2 = rt.sample_group([(s, v0.shape) for s in ASH_SUBSETS])
+    v1, v2 = (rt.sample_group(_ash_specs(v0.shape)) if drawn is None
+              else drawn)
     v3 = v0 - v1 - v2
     with tp.round(phase):
         tp.send(0, 1, v3, tag=tag + ".v3", nbits=ring.ell, phase=phase)
@@ -216,14 +224,19 @@ def ash_by_p0(rt: FourPartyRuntime, v0) -> list:
 # ---------------------------------------------------------------------------
 # Pi_Mult / Pi_DotP / Pi_MatMul (+ fused truncation, Figs. 4/9/18).
 # ---------------------------------------------------------------------------
+def _zero_specs(shape) -> list:
+    """The three Pi_Zero draws that mask the gamma pieces of `shape`."""
+    return [(s, shape) for s in ZERO_SUBSETS]
+
+
 def _gamma_exchange(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
-                    op, out_shape, *, tag: str, kind: str = "mul") -> list:
+                    op, fs, *, tag: str, kind: str = "mul") -> list:
     """Offline gamma distribution: P0 and GAMMA_LOCAL[j] compute piece j;
     P0 jmp-sends it to GAMMA_RECV[j].  Returns per-party {j: gamma_j}.
     The round's pieces -- P0's three, one at each GAMMA_LOCAL party -- are
-    one kernel-backend round call."""
+    one kernel-backend round call.  `fs`: the ``_zero_specs`` draws, taken
+    in the caller's group."""
     ring = rt.ring
-    fs = rt.sample_group([(s, out_shape) for s in ZERO_SUBSETS])
     masks = {j: fs[a] - fs[b] for j, (a, b) in AL.GAMMA_MASK_F.items()}
     gamma = _round_pieces(
         lambda reqs: rt.kernels.gamma_pieces_round(kind, op, reqs),
@@ -281,29 +294,35 @@ def _mult_like(rt: FourPartyRuntime, x: DistAShare, y: DistAShare,
     tag = rt.next_tag(name)
 
     # ---- offline half (PRF order matches the JAX package) ----------------
+    # Each build draws its streams in ONE group, in the JAX package's
+    # counter order: no other counter is taken between them.
     if not truncate:
         def build():
-            # counter order: lam_z, then gamma
-            lam_z = dict(zip((1, 2, 3), rt.sample_group(
-                [(lam_holders(j), out_shape) for j in (1, 2, 3)])))
+            # counter order: lam_z, then gamma's zero shares
+            drawn = rt.sample_group(
+                [(lam_holders(j), out_shape) for j in (1, 2, 3)]
+                + _zero_specs(out_shape))
+            lam_z = dict(zip((1, 2, 3), drawn[:3]))
             with tp.round("offline"):
-                gamma = _gamma_exchange(rt, x, y, op, out_shape, tag=tag,
+                gamma = _gamma_exchange(rt, x, y, op, drawn[3:], tag=tag,
                                         kind=kind)
             return [{"gamma": dict(gamma[i]), "lam_z": _held_lam(lam_z, i)}
                     for i in PARTIES]
     else:
         def build():
-            # counter order: gamma, r_j, aSh(r^t); guarded r keeps the
-            # opened z - r from wrapping for |z| < 2^{ell-2}
+            # counter order: gamma's zero shares, r_j, aSh(r^t); guarded r
+            # keeps the opened z - r from wrapping for |z| < 2^{ell-2}
+            drawn = rt.sample_group(
+                _zero_specs(out_shape)
+                + [(lam_holders(j), out_shape, ring.ell - TRUNC_GUARD)
+                   for j in (1, 2, 3)] + _ash_specs(out_shape))
             with tp.round("offline"):
-                gamma = _gamma_exchange(rt, x, y, op, out_shape, tag=tag,
+                gamma = _gamma_exchange(rt, x, y, op, drawn[:3], tag=tag,
                                         kind=kind)
-                r = dict(zip((1, 2, 3), rt.sample_group(
-                    [(lam_holders(j), out_shape, ring.ell - TRUNC_GUARD)
-                     for j in (1, 2, 3)])))
+                r = dict(zip((1, 2, 3), drawn[3:6]))
                 r_total = r[1] + r[2] + r[3]              # P0-only knowledge
                 pieces = _ash_pieces(rt, ring.truncate(r_total),
-                                     tag=tag + ".rt")
+                                     tag=tag + ".rt", drawn=drawn[6:])
             _trunc_pair_check(rt, r, pieces, tag=tag)
             return [{"gamma": dict(gamma[i]), "r": _held_lam(r, i),
                      "rt": dict(pieces[i])} for i in PARTIES]
@@ -413,11 +432,13 @@ def truncate_share(rt: FourPartyRuntime, x: DistAShare) -> DistAShare:
     out_shape = x.shape
 
     def build():
-        r = dict(zip((1, 2, 3), rt.sample_group(
+        # r_j and aSh(r^t)'s draws in one group (counter order kept)
+        drawn = rt.sample_group(
             [(lam_holders(j), out_shape, ring.ell - TRUNC_GUARD)
-             for j in (1, 2, 3)])))
+             for j in (1, 2, 3)] + _ash_specs(out_shape))
+        r = dict(zip((1, 2, 3), drawn[:3]))
         pieces = _ash_pieces(rt, ring.truncate(r[1] + r[2] + r[3]),
-                             tag=tag + ".rt")
+                             tag=tag + ".rt", drawn=drawn[3:])
         _trunc_pair_check(rt, r, pieces, tag=tag)
         return [{"r": _held_lam(r, i), "rt": dict(pieces[i])}
                 for i in PARTIES]

@@ -198,38 +198,60 @@ def test_kernels_equal_plain_on_card(cuda_device):
                                              mask)
                     assert torch.equal(got.cpu(), PPA.prefix_or_plain(
                         x, or_d, mask)), (dtype, n, S, mask)
-        n = 4096
-        x, y = words(n), words(n)
-        lamz = words(8, 3, n)
-        zero = torch.stack([lamz[:, 0], lamz[:, 1], lamz[:, 0] ^ lamz[:, 1]],
-                           dim=1)
-        dev = [t.to(cuda_device) for t in (x, y, lamz, zero)]
-        got = PPA.ppa_msb(*dev, PPA.and_level_cuda).cpu()
-        assert torch.equal(got, PPA.ppa_msb(x, y, lamz, zero,
-                                            PPA.and_level_plain))
-        ell = torch.iinfo(dtype).bits
-        assert torch.equal(got, ((x + y) >> (ell - 1)) & 1)
+        # msb(x + y): the loop over the and_level kernel, and the ppa_msb
+        # kernel (the whole loop in one launch) on zero shares that XOR to
+        # 0 and on shares that do not, at n = 4096 and an odd n
+        ell = info.bits
+        for n in (4096, 1001):
+            x, y = words(n), words(n)
+            lamz = words(8, 3, n)
+            zero = torch.stack([lamz[:, 0], lamz[:, 1],
+                                lamz[:, 0] ^ lamz[:, 1]], dim=1)
+            dev = [t.to(cuda_device) for t in (x, y, lamz, zero)]
+            loop = PPA.ppa_msb(x, y, lamz, zero, PPA.and_level_plain)
+            assert torch.equal(loop, ((x + y) >> (ell - 1)) & 1), n
+            got = PPA.ppa_msb(*dev, PPA.and_level_cuda).cpu()
+            assert torch.equal(got, loop), (dtype, n)
+            ops.reset_launches()
+            got = ops.msb_of_sum_words(*dev).cpu()
+            assert ops.PPA_MSB.launches == 1 and ops.AND_LEVEL.launches == 0
+            assert torch.equal(got, loop), (dtype, n)
+            other = words(8, 3, n)
+            got = PPA.ppa_msb_cuda(*dev[:3], other.to(cuda_device)).cpu()
+            assert torch.equal(got, PPA.ppa_msb(
+                x, y, lamz, other, PPA.and_level_plain)), (dtype, n)
     key = (0x9E3779B9, 0x7F4A7C15)
     for n, counter in [(1, 0), (100352, 0), (1000, 12345)]:
         one = [(key, counter, n, 0)]            # a lone draw: a group of one
         out = torch.empty(n, dtype=torch.int64, device=cuda_device)
         assert torch.equal(PM.prf_mask_group_cuda(one, out).cpu(),
                            PM.prf_mask_group_plain(one, torch.int64)), n
-    # grouped draws: every stream's key derived on the card, shifts, an
-    # empty stream, both word widths
+    # grouped draws, one launch each: every stream's key derived on the
+    # card, shifts, empty and odd streams, more than 8 streams (the joint
+    # adder's 78, MAX_STREAMS), outputs off the 16-byte grid, both widths
     for dtype in (torch.int64, torch.int32):
         ell = torch.iinfo(dtype).bits
+        kinds = [(100352, 0), (5, ell - 1), (0, 0), (1000, 20), (3, 1),
+                 (257, 0), (1, 4), (64, ell - 13), (128, 0), (0, 7)]
         streams = [((0x243F6A88, 0x85A308D3 + j), 2**32 + 7 * j, n, shift)
                    for j, (n, shift) in enumerate(
-                       [(100352, 0), (5, ell - 1), (0, 0), (1000, 20),
-                        (3, 1), (257, 0), (1, 4), (64, ell - 13)])]
-        for count in (1, 3, 8):
+                       kinds[j % len(kinds)] for j in range(PM.MAX_STREAMS))]
+        for count in (1, 3, 8, 9, 78, PM.MAX_STREAMS):
             part = streams[:count]
-            out = torch.empty(sum(s[2] for s in part), dtype=dtype,
-                              device=cuda_device)
-            assert torch.equal(PM.prf_mask_group_cuda(part, out).cpu(),
-                               PM.prf_mask_group_plain(part, dtype)), \
-                (dtype, count)
+            total = sum(s[2] for s in part)
+            want = PM.prf_mask_group_plain(part, dtype)
+            for skew in range(4):
+                buf = torch.empty(total + skew, dtype=dtype,
+                                  device=cuda_device)
+                assert torch.equal(
+                    PM.prf_mask_group_cuda(part, buf[skew:]).cpu(), want), \
+                    (dtype, count, skew)
+            ops.reset_launches()
+            got = ops.lambda_masks_group(
+                [(kd, c, (n,), sh) for kd, c, n, sh in part], dtype,
+                cuda_device, flat=True)
+            assert ops.PRF_MASK.launches == 1, count
+            assert torch.equal(got.cpu(), want), (dtype, count)
     # Pi_DotP's rounds (kernel route K1): one grouped mult_terms launch a
     # round, contracted after, equal to the "torch" backend on the CPU
     rng64 = np.random.RandomState(5)

@@ -181,22 +181,53 @@ def test_lambda_masks_matches_prf_kernel():
                                  counter0)
         assert _same(PM.prf_mask_plain(key64, n, counter0), want), \
             (n, counter0)
-    # the grouped draw (more streams than one launch takes, shifts and an
-    # empty stream included) against the JAX package's per-stream draws
+    # the grouped draw (more streams than the joint adder's 78 -- one
+    # launch on the card --, shifts and empty streams included) against the
+    # JAX package's per-stream draws
     jkey = jax.random.fold_in(jax.random.key(7), 0b1101)
     tkey = ThreefryKey.from_seed(7).fold_in(0b1101)
     for ell, jring in ((64, J64), (32, J32)):
-        draws = [(c, shape, bits) for c, (shape, bits) in enumerate(
-            [((3, 5), None), ((7,), ell - 4), ((0,), None), ((2, 2), 1),
-             ((513,), None), ((4,), 20), ((1,), ell - 1), ((6,), None),
-             ((9,), 13)])]
-        got = ops.lambda_masks_group(
-            [(tkey.data, c, shape, 0 if bits is None else ell - bits)
-             for c, shape, bits in draws], T_DTYPE[ell])
+        kinds = [((3, 5), None), ((7,), ell - 4), ((0,), None), ((2, 2), 1),
+                 ((513,), None), ((4,), 20), ((1,), ell - 1), ((6,), None),
+                 ((9,), 13)]
+        draws = [(c, *kinds[c % len(kinds)]) for c in range(81)]
+        streams = [(tkey.data, c, shape, 0 if bits is None else ell - bits)
+                   for c, shape, bits in draws]
+        got = ops.lambda_masks_group(streams, T_DTYPE[ell], device="cpu")
         for g, (c, shape, bits) in zip(got, draws):
             want = JPRF.prf_bits(jkey, c, shape, jring) if bits is None \
                 else JPRF.prf_bounded(jkey, c, shape, jring, bits)
             assert _same(g, want), (ell, c, shape, bits)
+        # the kernel's descriptor table, and its tiling emulated: each
+        # warp's tile lies in one stream, every word of every stream is
+        # written once, and every full chunk is a 16-byte store
+        sized = [(kd, c, int(np.prod(shape)), sh)
+                 for kd, c, shape, sh in streams]
+        elsize, vec = ell // 8, 16 // (ell // 8)
+        for misalign in range(vec):
+            table, tiles = PM.describe_group(sized, elsize, misalign)
+            raw = bytes(table)
+            count, mis, ntiles, _ = PM._HEADER.unpack_from(raw, 0)
+            assert (count, mis, ntiles) == (len(sized), misalign, tiles)
+            desc = [PM._STREAM.unpack_from(raw, PM._HEADER.size
+                                           + k * PM._STREAM.size)
+                    for k in range(count)]
+            written = []
+            for t in range(tiles):
+                s = max(k for k, d in enumerate(desc) if d[6] <= t)
+                k0, k1, ctr, shift, off, n, first = desc[s]
+                assert ((k0, k1), ctr, n, shift) == sized[s][:2] + (
+                    sized[s][2], sized[s][3])
+                head = (mis + off) % vec
+                for j in range(PM.TILE_WORDS // vec):   # a lane's chunk
+                    i = (t - first) * PM.TILE_WORDS + j * vec - head
+                    if i >= 0 and i + vec <= n:
+                        assert (mis + off + i) % vec == 0
+                    written += [off + i + e for e in range(vec)
+                                if 0 <= i + e < n]
+            assert sorted(written) == list(range(sum(d[5] for d in desc)))
+        with pytest.raises(ValueError, match="1 to 120 streams"):
+            PM.describe_group(sized * 2, elsize, 0)
 
 
 def test_wrappers_route_by_device():
@@ -219,6 +250,8 @@ def test_wrappers_route_by_device():
         lambda t: ops.and_level(t, t, t[:3], t[:3]),
         lambda t: ops.ppa_add(t, t, t.new_zeros((13, 6, 4)), 1),
         lambda t: ops.prefix_or(t, t.new_zeros((6, 3, 4)), -1),
+        lambda t: ops.msb_of_sum_words(t[0], t[1], t.new_zeros((7, 3, 4)),
+                                       t.new_zeros((7, 3, 4))),
     ]
     for call in calls:
         call(torch.ones((4, 4), dtype=torch.int64))
@@ -226,6 +259,7 @@ def test_wrappers_route_by_device():
     # a grouped, fused or and_level call counts as a call on either device
     assert (ops.MULT_TERMS.calls, ops.AND_TERMS.calls) == (2, 2)
     assert (ops.MPC_MATMUL_FUSED.calls, ops.AND_LEVEL.calls) == (1, 3)
+    assert (ops.PRF_MASK.calls, ops.PPA_MSB.calls) == (1, 1)
     meta = torch.empty((4, 4), dtype=torch.int64, device="meta")
     for call in calls:
         with pytest.raises(ValueError, match="CUDA"):
