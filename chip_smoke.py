@@ -98,17 +98,38 @@ from the root of a checkout.  In order, it
      no offline bit); a ``Trainer`` crashed at step 1 and resumed from its
      checkpoint ending on the uninterrupted params; steady step walls, a
      profiled NN step, and each kernel at the training step's new shapes
-     against its plain version, timed beside its bound.
+     against its plain version, timed beside its bound;
+  9. the four parties as four processes over TCP (phase "cluster"): one
+     ``PartyCluster(device="cuda", live_prep=True, net_model=LAN)`` of four
+     daemon processes on the card serves step 4's 2 batches through
+     ``serve_over_sockets`` (batch k at seed SEED + k), each batch's words,
+     ``totals()``, ``per_link()`` and modeled LAN time equal to the
+     in-process runtime's on the card, all four daemons agreeing, no abort,
+     and every daemon's launches of the five runtime kernels a batch (read
+     inside the daemons by ``daemon_stats``, set to 0 before the path)
+     equal to the in-process batch's; on the same cluster 3 NN steps of
+     ``ClusterSGD(prep="live")`` fed by ``attach_live_dealer`` (a dealer
+     process on the card) bit-equal to ``run_step`` in process, with 0
+     offline bits on the mesh; one ``ShardedClusterSGD`` step over the
+     cluster twice (2 shards of 64), the mean of the in-process members;
+     ``serve_over_sockets(prep="live")`` on a cluster of its own (the
+     inline words, 0 offline bits); and a ``run_four_parties`` run with a
+     tampered ``.g2`` in which every daemon aborts.  It prints the boot
+     seconds, each batch's round-trip wall beside the in-process wall, frames
+     and wire bytes a batch, the live step walls, the dealer's lead and
+     each daemon's peak device memory, each beside the card's name and
+     power limit.
 
 Each path (the deal and the online-only run of steps 5 and 8 being two
-each) is driven with the launch counts set to 0 just before it and read
+each; step 9's daemons count in their own processes) is driven with the launch counts set to 0 just before it and read
 just after; the kernel rows report the sum over the paths, and each path
 prints its ``prf_mask`` launches, draw groups and PRF streams per batch or
 step (one launch a group, and on the runtime, joint and training paths as
 many as a CPU run's draw groups).  Any
 failure exits nonzero.  Before the last lines come
 ``{"offline_online": {...}}`` (step 5's times),
-``{"runtime_train": {...}}`` (step 8's) and ``{"kernels": [...]}``, then
+``{"runtime_train": {...}}`` (step 8's), ``{"cluster": {...}}`` (step
+9's) and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -2146,6 +2167,288 @@ def runtime_train_phase(kernels: list) -> dict:
     return out
 
 
+# --- the four parties as four processes over TCP (phase "cluster") ------
+CLUSTER_TIMEOUT = 600.0
+# one gamma piece of P0's outgoing wire corrupted: a receiving daemon's
+# hash check must flip its abort flag
+TAMPER = {"src": 0, "tag": ".g2", "delta": 5}
+CLUSTER_KERNELS = ("prf_mask", "ring_matmul", "mpc_matmul_grid",
+                   "mult_terms", "and_terms")
+
+
+def cluster_predict(rt, X, params=None, net=None):
+    """The daemons' serving program: the NN's secure prediction of batch X
+    over weights encoded on the daemon's device (they travel as float64
+    numpy), as the in-process server's."""
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
+    return mlp_net_predict_runtime(
+        rt, params_from_numpy(params, rt.ring, rt.device), net, X)
+
+
+def cluster_batch(rt, _rank, X=None, params=None, net=None):
+    """``cluster_predict`` as a task of its own (the tampered run)."""
+    return cluster_predict(rt, X, params=params, net=net)
+
+
+def daemon_stats(rt, _rank):
+    """Read inside a daemon: each kernel's launches since the last read
+    (then set to 0), the daemon's peak device memory, and its running
+    totals, in ms, of time blocked in receives (the wait for the peers,
+    then the host-to-device copy of what arrived), in flushes (the batched
+    copy to the host, then the socket writes), and of the copies alone
+    (device to host in flushes, host to device of received messages)."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.obs import get_registry
+    reg = get_registry()
+    out = {"launches": {k.name: k.launches for k in ops.KERNELS},
+           "peak_bytes": torch.cuda.max_memory_allocated(rt.device),
+           "recv_ms": reg.counter("trident_wire_recv_wait_us_total").value
+           / 1e3,
+           **{f"{w}_ms": reg.counter(f"trident_wire_{w}_us_total").value
+              / 1e3 for w in ("flush", "d2h", "h2d")}}
+    ops.reset_launches()
+    return out
+
+
+def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
+    """The port's four-party deployment on the card: four daemon processes
+    over a TCP mesh (``runtime.net.PartyCluster``, the LAN model), a
+    dealer process streaming live prep, each against the in-process
+    runtime on the card; see the module docstring, step 9."""
+    import functools
+
+    import torch
+    from repro_torch.core.ring import RING64, words_to_numpy
+    from repro_torch.kernels import ops
+    from repro_torch.runtime import FourPartyRuntime, LocalTransport
+    from repro_torch.runtime.net import (LAN, NetModelTransport,
+                                         PartyCluster, run_four_parties)
+    from repro_torch.serve.party_server import serve_over_sockets
+    from repro_torch.train import secure_sgd as SGD
+    from repro_torch.train.data import MNISTLike
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
+
+    dev = torch.device("cuda")
+    predict = functools.partial(cluster_predict, params=params, net=net)
+    out = {"card": card}
+
+    # 1. the in-process runtime on the card: batch k at seed SEED + k, its
+    # words, traffic, modeled LAN time, launches and wall
+    enc = params_from_numpy(params, RING64, dev)
+    ref = []
+    for k in range(N_BATCHES):
+        X = queries[k * BATCH:(k + 1) * BATCH]
+        base = LocalTransport()
+        tp = NetModelTransport(base, LAN)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        rt = FourPartyRuntime(RING64, seed=SEED + k, transport=tp,
+                              device=dev)
+        words = mlp_net_predict_runtime(rt, enc, net, X).cpu()
+        abort = rt.abort_flag()
+        wall = time.perf_counter() - t0
+        check(not abort, "cluster: the in-process reference aborted")
+        ref.append({"words": words, "totals": base.totals(),
+                    "per_link": base.per_link(), "wall_s": wall,
+                    "modeled": {p: tp.seconds(p) for p in
+                                ("offline", "online")},
+                    "launches": {c.name: c.launches for c in ops.KERNELS}})
+
+    # 2. boot, then serve the same batches inline through the daemons
+    t0 = time.perf_counter()
+    cluster = PartyCluster(device="cuda", live_prep=True, net_model=LAN,
+                           timeout=CLUSTER_TIMEOUT)
+    out["boot_s"] = time.perf_counter() - t0
+    print(f"cluster [{card}]: four daemons on the card over TCP booted in "
+          f"{out['boot_s']:.2f} s (spawn, torch import, CUDA context, the "
+          f"kernel libraries loaded, mesh)")
+    try:
+        # a fresh daemon's first task loads PyTorch's kernels as it meets
+        # them; one batch first, so the served batches are warm, as the
+        # in-process ones are
+        t0 = time.perf_counter()
+        cluster.submit(functools.partial(cluster_batch, X=queries[:BATCH],
+                                         params=params, net=net),
+                       seed=SEED)
+        out["first_task_s"] = time.perf_counter() - t0
+        print(f"cluster [{card}]: the daemons' first batch (cold) took "
+              f"{out['first_task_s']:.2f} s")
+        before = cluster.submit(daemon_stats)   # every count to 0
+        first = len(cluster.task_walls)
+        preds, rep = serve_over_sockets(
+            predict, queries, batch_size=BATCH, seed=SEED, net_model=LAN,
+            timeout=CLUSTER_TIMEOUT, cluster=cluster, device="cuda")
+        walls = cluster.task_walls[first:first + N_BATCHES]
+        stats = cluster.submit(daemon_stats)
+        check(not rep["aborted"], "cluster: a daemon aborted")
+        want = np.concatenate([words_to_numpy(r["words"]) for r in ref])
+        check(np.array_equal(np.stack(preds), want),
+              "cluster: opened words differ from the in-process runtime's")
+        sum_totals = {p: {k: sum(r["totals"][p][k] for r in ref)
+                          for k in ("rounds", "bits")}
+                      for p in ("offline", "online")}
+        sum_links = {}
+        for r in ref:
+            for link, bits in r["per_link"].items():
+                acc = sum_links.setdefault(link, dict.fromkeys(bits, 0))
+                for p, b in bits.items():
+                    acc[p] += b
+        check(rep["totals"] == sum_totals and rep["per_link"] == sum_links,
+              "cluster: totals() or per_link() differ from the in-process "
+              "runtime's")
+        modeled = {p: sum(r["modeled"][p] for r in ref)
+                   for p in ("offline", "online")}
+        # a daemon's modeled time is the difference of its running clock
+        # across the task, so it agrees to rounding only
+        check(all(abs(rep["modeled_lan_s"][p] - modeled[p])
+                  <= 1e-9 * modeled[p] for p in modeled),
+              "cluster: modeled LAN time differs from the in-process one")
+        per_batch = {n: sum(r["launches"][n] for r in ref) / N_BATCHES
+                     for n in CLUSTER_KERNELS}
+        for r in stats:
+            got = {n: r.result["launches"][n] / N_BATCHES
+                   for n in CLUSTER_KERNELS}
+            check(got == per_batch and all(got.values()),
+                  f"cluster: daemon P{r.rank} launched {got} a batch, the "
+                  f"in-process batch {per_batch}")
+        split = {w: [(b.result[w] - a.result[w]) / N_BATCHES
+                     for a, b in zip(before, stats)]
+                 for w in ("recv_ms", "flush_ms", "d2h_ms", "h2d_ms")}
+        launched = stats[0].result["launches"]
+        for k in kernels:
+            k["launches"] += launched[k["name"]]
+            k.setdefault("launches_by_path", {})["cluster"] = \
+                launched[k["name"]]
+        print(f"cluster [{card}]: {N_BATCHES} batches of {BATCH} served "
+              f"by serve_over_sockets: words, totals(), per_link() and "
+              f"modeled LAN time equal to the in-process runtime's, all "
+              f"four daemons agreeing, no abort; launches a batch in every "
+              f"daemon {per_batch}, equal to the in-process batch's")
+        for k, (w, r) in enumerate(zip(walls, ref)):
+            print(f"cluster [{card}]: batch {k}: round trip {w * 1e3:.1f} "
+                  f"ms (in-process {r['wall_s'] * 1e3:.1f} ms); "
+                  f"{rep['frames_per_batch'][k]} frames, "
+                  f"{rep['wire_bytes_per_batch'][k]} wire bytes (all four "
+                  f"daemons; tallied {sum_totals['offline']['bits'] // 8 // N_BATCHES} "
+                  f"offline + {sum_totals['online']['bits'] // 8 // N_BATCHES} "
+                  f"online bytes)")
+        print(f"cluster [{card}]: a batch, each daemon blocked "
+              f"{[round(v, 1) for v in split['recv_ms']]} ms in receives "
+              f"(the peers, then the host-to-device copy) and "
+              f"{[round(v, 1) for v in split['flush_ms']]} ms in flushes "
+              f"(the copy to the host, the socket writes); the copies "
+              f"alone: {[round(v, 1) for v in split['d2h_ms']]} ms to the "
+              f"host, {[round(v, 1) for v in split['h2d_ms']]} ms to the "
+              f"device")
+        out.update({
+            **{f"{w}_per_batch": v for w, v in split.items()},
+            "serve_task_walls_ms": [w * 1e3 for w in walls],
+            "serve_in_process_walls_ms": [r["wall_s"] * 1e3 for r in ref],
+            "frames_per_batch": rep["frames_per_batch"],
+            "wire_bytes_per_batch": rep["wire_bytes_per_batch"],
+            "tallied_bytes_per_batch": sum(
+                t["bits"] for t in sum_totals.values()) // 8 // N_BATCHES,
+            "launches_per_batch": per_batch,
+            "peak_bytes_after_serving": [r.result["peak_bytes"]
+                                         for r in stats]})
+
+        # 3. live training: 3 NN steps fed by a dealer process on the card
+        task = SGD.nn_task(lr=TRAIN_LR)
+        tparams = task.init_params(seed=0)
+        data = MNISTLike(n=8192, seed=2)
+        batches = [data.batch(step, BATCH)[:2]
+                   for step in range(TRAIN_STEPS)]
+        want_steps = train_steps(task, tparams, batches, device=dev)
+        with SGD.attach_live_dealer(cluster, task, tparams, batches[0],
+                                    base_seed=SEED, ahead=2,
+                                    total=TRAIN_STEPS) as dealer:
+            sgd = SGD.ClusterSGD(cluster, task, base_seed=SEED, prep="live")
+            cluster.submit(daemon_stats)
+            p, got, leads = tparams, [], []
+            for step, batch in enumerate(batches):
+                leads.append(dealer.dealt - step)
+                t0 = time.perf_counter()
+                p, loss, abort = sgd.step_fn(p, step, *batch)
+                got.append((p, loss, None, time.perf_counter() - t0))
+                check(not abort, f"cluster: live step {step} aborted")
+            tstats = cluster.submit(daemon_stats)
+            shipped = list(dealer.shipped)
+        check_trajectory("cluster: live training against run_step in "
+                         "process", got, want_steps)
+        check(sgd.offline_bits_on_mesh() == 0,
+              "cluster: live training moved offline bits on the mesh")
+        tl = {n: tstats[0].result["launches"][n] / TRAIN_STEPS
+              for n in CLUSTER_KERNELS}
+        check(all(r.result["launches"] == tstats[0].result["launches"]
+                  for r in tstats) and tl["prf_mask"] == 0
+              and tl["mpc_matmul_grid"] > 0,
+              f"cluster: online-only step launches {tl} (no PRF draw "
+              "online, the online grids launched, every daemon alike)")
+        waits = [res[0].prep_wait_s for res in sgd.results]
+        out.update({
+            "train_step_walls_ms": [w * 1e3 for w in
+                                    cluster.task_walls[-TRAIN_STEPS - 1:-1]],
+            "train_in_process_walls_ms": [s[3] * 1e3 for s in want_steps],
+            "train_prep_wait_ms": [w * 1e3 for w in waits],
+            "dealer_sessions_ahead_at_submit": leads,
+            "dealer_blob_bytes": [b for _, b, _ in shipped],
+            "train_launches_per_step": tl})
+        print(f"cluster [{card}]: {TRAIN_STEPS} ClusterSGD(prep='live') NN "
+              f"steps bit-equal to run_step in process, 0 offline bits on "
+              f"the mesh; step walls "
+              f"{[round(w, 1) for w in out['train_step_walls_ms']]} ms (in "
+              f"process {[round(w, 1) for w in out['train_in_process_walls_ms']]}"
+              f" ms); the dealer {leads} sessions ahead at each submit, "
+              f"daemons waited {[round(w, 1) for w in out['train_prep_wait_ms']]}"
+              f" ms for prep; sessions of {out['dealer_blob_bytes']} bytes "
+              f"on the control queues; online-only launches a step {tl}")
+
+        # 4. one sharded step over two members (this cluster twice)
+        shards = SGD.shard_batch(batches[0], 2)
+        sh = SGD.ShardedClusterSGD([cluster, cluster], task, base_seed=SEED)
+        mean, _, abort = sh.step_fn(tparams, 0, *batches[0])
+        members = [SGD.run_step(task, tparams, s, step=0, base_seed=SEED,
+                                device=dev) for s in shards]
+        check(not abort and same_params(mean, {
+            k: np.mean([m[0][k] for m in members], axis=0)
+            for k in tparams}),
+            "cluster: the sharded step is not the mean of its members")
+        print(f"cluster [{card}]: ShardedClusterSGD, 2 shards of "
+              f"{BATCH // 2}: the mean of the members' in-process steps")
+        final = cluster.submit(daemon_stats)
+        out["peak_bytes"] = [r.result["peak_bytes"] for r in final]
+        print(f"cluster [{card}]: daemon peak device memory "
+              f"{[round(b / 2**20, 1) for b in out['peak_bytes']]} MiB")
+    finally:
+        cluster.close()
+
+    # 5. live serving: its own cluster and dealer, the inline words
+    lpreds, lrep = serve_over_sockets(
+        predict, queries, batch_size=BATCH, seed=SEED, net_model=LAN,
+        prep="live", timeout=CLUSTER_TIMEOUT, device="cuda")
+    check(np.array_equal(np.stack(lpreds), want) and not lrep["aborted"]
+          and lrep["totals"]["offline"]["bits"] == 0
+          and lrep["totals"]["online"] == rep["totals"]["online"],
+          "cluster: live serving's words or online traffic differ from "
+          "inline serving's")
+    print(f"cluster [{card}]: serve_over_sockets(prep='live'): the inline "
+          f"words, 0 offline bits, party wall {lrep['party_wall_s']:.3f} s")
+
+    # 6. a tampered gamma piece aborts
+    res = run_four_parties(
+        functools.partial(cluster_batch, X=queries[:BATCH], params=params,
+                          net=net),
+        seed=SEED, tampers=[TAMPER], timeout=CLUSTER_TIMEOUT, device="cuda")
+    check(all(r.abort for r in res), "cluster: a tampered .g2 did not abort")
+    print(f"cluster [{card}]: run_four_parties with {TAMPER}: every daemon "
+          f"aborted")
+    out["live_serve_party_wall_s"] = lrep["party_wall_s"]
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2392,9 +2695,14 @@ def main() -> int:
     print("phase runtime-train")
     train = runtime_train_phase(kernels)
 
+    # --- the four parties as four processes over TCP ----------------------
+    print("phase cluster")
+    cluster = cluster_phase(params, net, queries, kernels, card)
+
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
     print(json.dumps({"runtime_train": train}))
+    print(json.dumps({"cluster": cluster}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -63,12 +63,15 @@ def bit_planes(word: torch.Tensor, lo: int, hi: int, dim: int = 0
     return torch.stack(planes, dim=dim)
 
 
-def words_from_numpy(a, device=None) -> torch.Tensor:
-    """uint64/uint32 ndarray -> int64/int32 tensor with the same bits."""
-    a = np.ascontiguousarray(a)
+def words_from_numpy(a, device=None, copy: bool = True) -> torch.Tensor:
+    """uint64/uint32 ndarray -> int64/int32 tensor with the same bits.
+    ``copy=False`` lets a tensor on the CPU share a writable array's
+    memory (a received frame's buffer, which nothing else holds)."""
+    a = np.asarray(a, order="C")        # a 0-d array stays 0-d
     for ell, udt in _NP_UNSIGNED.items():
         if a.dtype == udt:
-            t = torch.from_numpy(a.view(_NP_SIGNED[ell]).copy())
+            a = a.view(_NP_SIGNED[ell])
+            t = torch.from_numpy(a.copy() if copy else a)
             return t if device is None else t.to(device)
     raise TypeError(f"{a.dtype} is not an unsigned ring word type")
 
@@ -77,6 +80,27 @@ def words_to_numpy(t: torch.Tensor) -> np.ndarray:
     """int64/int32 tensor -> uint64/uint32 ndarray with the same bits."""
     ell = width_of(t.dtype)
     return t.detach().cpu().contiguous().numpy().view(_NP_UNSIGNED[ell])
+
+
+def words_to_numpy_batch(tensors) -> list:
+    """``words_to_numpy`` of each tensor (any other dtype keeps its own),
+    with one device-to-host copy per (device, dtype) group, not one per
+    tensor: the arrays are views into the group's one host buffer."""
+    out: list = [None] * len(tensors)
+    groups: dict = {}
+    for i, t in enumerate(tensors):
+        groups.setdefault((t.device, t.dtype), []).append(i)
+    for (_, dtype), idx in groups.items():
+        flat = torch.cat([tensors[i].detach().reshape(-1) for i in idx])
+        host = flat.cpu().numpy()
+        if dtype in _TORCH.values():
+            host = host.view(_NP_UNSIGNED[width_of(dtype)])
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = host[off:off + n].reshape(tuple(tensors[i].shape))
+            off += n
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,11 +1,13 @@
 """The observability surface the runtime imports (``repro/obs``): the
-null tracer, protocol-call counting, and a process metrics registry of
-plain counters.  The recording tracer, exporter and health modules are not
-ported yet."""
+null tracer, protocol-call counting, and the process metrics registry
+(``registry.py``).  The recording tracer, trace merge, exporter and health
+modules come with the port's observability slice."""
 from __future__ import annotations
 
 import functools
-import threading
+
+from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
+                       get_registry, install_registry)
 
 # a receive that blocks at least this long counts as slow
 RECV_SPAN_MIN_S = 1e-3
@@ -29,47 +31,6 @@ def get_tracer() -> NullTracer:
     return NULL_TRACER
 
 
-class Counter:
-    """A monotonic counter."""
-
-    __slots__ = ("_lock", "value")
-
-    def __init__(self, lock: threading.Lock):
-        self._lock = lock
-        self.value = 0
-
-    def inc(self, n=1) -> None:
-        with self._lock:
-            self.value += n
-
-
-class MetricsRegistry:
-    """Counters keyed by (name, labels)."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._counters: dict = {}
-
-    def counter(self, name: str, help: str = "", **labels) -> Counter:
-        key = (name, tuple(sorted(labels.items())))
-        with self._lock:
-            c = self._counters.get(key)
-            if c is None:
-                c = self._counters[key] = Counter(self._lock)
-            return c
-
-
-_process_registry: MetricsRegistry | None = None
-
-
-def get_registry() -> MetricsRegistry:
-    """The process metrics registry, created on first use."""
-    global _process_registry
-    if _process_registry is None:
-        _process_registry = MetricsRegistry()
-    return _process_registry
-
-
 def traced_protocol(name: str):
     """Decorate a runtime protocol entry point ``fn(rt, ...)``: the metrics
     registry counts every call."""
@@ -83,3 +44,10 @@ def traced_protocol(name: str):
             return fn(rt, *args, **kwargs)
         return wrapper
     return deco
+
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
+    "NullTracer", "RECV_SPAN_MIN_S", "get_registry", "get_tracer",
+    "install_registry", "traced_protocol",
+]

@@ -17,7 +17,9 @@ pipelining.
   * ``pipeline`` -- a background dealer streaming sessions into a bounded
                     queue while the online consumer drains them;
   * ``continuous`` -- a background dealer refilling a PrepBank a window
-                    ahead of a training run (session k = step k's prep).
+                    ahead of a training run (session k = step k's prep);
+  * ``live``     -- a dealer process streaming sessions into the running
+                    daemons of a ``runtime.net.PartyCluster``.
 
 Quick tour (on the card; pass ``device="cpu"`` on the CPU):
 
@@ -42,10 +44,12 @@ _LAZY = {
     "Workload": "workload", "OpSpec": "workload",
     "PrepPipeline": "pipeline",
     "ContinuousDealer": "continuous",
+    "DealerDaemon": "live", "LivePrepBank": "live",
 }
 
 __all__ = [
-    "ContinuousDealer", "DealPrep", "DealReport", "OnlinePrep",
+    "ContinuousDealer", "DealPrep", "DealReport", "DealerDaemon",
+    "LivePrepBank", "OnlinePrep",
     "OnlineReport", "OpSpec", "PrepBank", "PrepError", "PrepKindError",
     "PrepMissingError", "PrepPipeline", "PrepReplayError", "PrepStore",
     "Workload", "deal", "deal_sessions", "online_runtime", "run_online",

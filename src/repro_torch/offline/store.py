@@ -37,6 +37,8 @@ import os
 import numpy as np
 import torch
 
+from ..core.ring import words_to_numpy_batch
+
 PARTIES = (0, 1, 2, 3)
 
 _SEP = "|"          # npz key = f"{tag}|{path}"; tags must not contain it
@@ -215,6 +217,45 @@ class PrepStore:
                                         for i in PARTIES])
             out._order.append(tag)
         return out
+
+    # -- crossing a process boundary ---------------------------------------
+    def to_arrays(self) -> dict:
+        """The un-consumed entries as plain data for another process: after
+        the dealer's last write (``ready``), every tensor reaches the host
+        in one batched copy per dtype, ring words as the JAX package's
+        unsigned words.  No tensor crosses: a CUDA tensor would travel by
+        CUDA IPC, or carry its device in its pickle."""
+        if self.ready is not None:
+            self.ready.synchronize()
+        entries, leaves = [], []
+        for tag in self.tags():
+            kind, parts = self._entries[tag]
+            flats = []
+            for rec in parts:
+                flat: dict = {}
+                if rec:                     # {}: another party's stub
+                    _flatten(rec, "", flat)
+                flats.append(flat)
+                leaves.extend(flat.values())
+            entries.append((tag, kind, flats))
+        arrays = iter(words_to_numpy_batch(leaves))
+        for _, _, flats in entries:
+            for flat in flats:
+                for path in flat:
+                    flat[path] = next(arrays)
+        return {"meta": self.meta, "party": self.party, "entries": entries}
+
+    @classmethod
+    def from_arrays(cls, data: dict) -> "PrepStore":
+        """A store from ``to_arrays``'s data, as CPU tensors
+        (``OnlinePrep`` moves them to the consuming device)."""
+        store = cls(meta=data["meta"], party=data["party"])
+        for tag, kind, flats in data["entries"]:
+            store._entries[tag] = (kind, [
+                _unflatten({p: _from_numpy(a) for p, a in flat.items()})
+                for flat in flats])
+            store._order.append(tag)
+        return store
 
     # -- introspection -----------------------------------------------------
     def __len__(self) -> int:

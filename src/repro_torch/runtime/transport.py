@@ -4,8 +4,11 @@
 ``Transport`` is the wire interface: point-to-point ``send`` / ``recv``
 plus a ``round`` scope marking one synchronous communication step.
 ``MeasuredTransport`` keeps the accounting -- per-link / per-phase bits,
-round counting, tamper rules -- and delegates message movement to
-``_put`` / ``_get``; ``LocalTransport`` is the in-memory backend.
+messages per link, round counting, tamper rules -- and delegates message
+movement to ``_put`` / ``_get``; ``LocalTransport`` is the in-memory
+backend, ``runtime.net.SocketTransport`` the TCP one, which flushes its
+coalesced sends in ``_round_flush`` when the outermost round scope of a
+phase closes.
 
 Accounting conventions (the paper's amortized lemmas):
 
@@ -152,6 +155,7 @@ class MeasuredTransport(Transport):
         # (src, dst) -> phase -> bits
         self.link_bits: dict[tuple, dict] = defaultdict(
             lambda: {p: 0 for p in PHASES})
+        self.link_msgs: dict[tuple, int] = defaultdict(int)
         self.rounds = self._frames.total
         self.phase_bits = {p: 0 for p in PHASES}
         self._round_depth = {p: 0 for p in PHASES}
@@ -164,6 +168,8 @@ class MeasuredTransport(Transport):
         # per_link(); counters are cached per label set for the hot path
         self.metrics = get_registry()
         self._m_bits: dict = {}
+        self._m_msgs: dict = {}
+        self._m_rounds: dict = {}
         self._m_recv_wait = self.metrics.counter(
             "trident_wire_recv_wait_us_total",
             "total wall-clock blocked in recv (us)")
@@ -225,9 +231,19 @@ class MeasuredTransport(Transport):
             yield self
         finally:
             self._round_depth[phase] -= 1
-            if self._round_depth[phase] == 0 and self._round_traffic[phase]:
-                self._frames.add(phase, 1)
-                self._round_index[phase] += 1
+            if self._round_depth[phase] == 0:
+                if self._round_traffic[phase]:
+                    self._frames.add(phase, 1)
+                    self._round_index[phase] += 1
+                    c = self._m_rounds.get(phase)
+                    if c is None:
+                        c = self._m_rounds[phase] = self.metrics.counter(
+                            "trident_wire_round_scopes_total",
+                            "traffic-bearing outermost round scopes "
+                            "(parallel-overlapped scopes each count, so "
+                            ">= the analytic round tally)", phase=phase)
+                    c.inc()
+                self._round_flush(phase)
 
     def parallel(self, phases=PHASES):
         return self._frames.parallel(phases)
@@ -257,6 +273,14 @@ class MeasuredTransport(Transport):
                     "measured wire bits (== per_link() exactly)",
                     src=src, dst=dst, phase=phase)
             c.inc(bits)
+        self.link_msgs[(src, dst)] += 1
+        c = self._m_msgs.get((src, dst))
+        if c is None:
+            c = self._m_msgs[(src, dst)] = self.metrics.counter(
+                "trident_wire_msgs_total",
+                "messages sent (zero-bit hash copies included)",
+                src=src, dst=dst)
+        c.inc()
         if self.tracer.enabled:
             self.tracer.wire_send(src, dst, tag, bits, phase,
                                   self._round_index[phase])
@@ -277,6 +301,10 @@ class MeasuredTransport(Transport):
 
     def _get(self, dst: int, src: int, tag: str):
         raise NotImplementedError
+
+    def _round_flush(self, phase: str) -> None:
+        """Called when the outermost round scope of `phase` closes; a
+        backend that coalesces outgoing messages flushes here."""
 
 
 class LocalTransport(MeasuredTransport):

@@ -45,14 +45,23 @@ about a deal plus an online run, each slowed by the other's contention
 (PERF.md, Findings).  Use it where the offline half must leave the
 critical path's wire, not for throughput.
 
-The JAX package serves through its ``ServingGateway`` pool and has a socket
-path; those come with later slices of the port: batches are drained here
-in a plain loop.
+``serve_over_sockets`` is the distributed path: four long-lived party
+daemons (``runtime.net.PartyCluster``) over TCP serve the stream batch by
+batch, batch k at seed ``seed + k``, inline (``prep=None``), from a bank
+dealt ahead and loaded by the daemons at start-up (``prep="ahead"``), or
+from sessions a dealer process streams into the running daemons
+(``prep="live"``); the report carries the wire traffic all four processes
+measured.  The JAX package dispatches those batches through its
+``ServingGateway`` pool; until the port has the gateway, each batch is
+submitted straight to the cluster, one after the other, with the same
+seeds and sessions (the same words and totals).
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import shutil
+import tempfile
 import time
 from typing import Callable
 
@@ -233,3 +242,176 @@ class PartyPredictionServer:
             out["offline_deal_s_per_batch"] = \
                 self.stats.offline_deal_s / nb
         return out
+
+
+# ---------------------------------------------------------------------------
+# Distributed serving: four long-lived party daemons over TCP.
+# ---------------------------------------------------------------------------
+def _serve_batch(rt, _rank, predict_fn=None, X=None):
+    """Party-daemon task: one batch through predict_fn on this runtime."""
+    return predict_fn(rt, X)
+
+
+def _zero_deal_program(predict_fn, X, rt):
+    """Module-level deal twin of ``_serve_batch`` (shapes only)."""
+    predict_fn(rt, np.zeros_like(X))
+
+
+def _serve_program_for_step(step, *, predict_fn, batches):
+    """Picklable ``step -> deal program`` for the live dealer daemon:
+    session k is batch k's offline material (shapes only)."""
+    return functools.partial(_zero_deal_program, predict_fn, batches[step])
+
+
+def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
+                       ring=RING64, seed: int = 0, net_model=None,
+                       timeout: float = 300.0, cluster=None,
+                       prep: str | None = None, prep_dir: str | None = None,
+                       live_ahead: int = 2, device=None):
+    """Serve a query stream across four party processes over TCP.
+
+    ``predict_fn(rt, X_batch)`` is a module-level (picklable: the party
+    processes are spawned) callable returning the batch's predictions on
+    `rt` (its numpy inputs become tensors on ``rt.device`` inside).
+    Returns (predictions, report): one numpy row per query, from party
+    P1's copy (ring words come back as ``uint64``/``uint32`` words), and
+    the per-link wire traffic all four processes agree on.
+
+    Batches run as tasks on a ``PartyCluster`` of long-lived daemons on
+    `device` (CUDA unless the caller asks for the CPU); pass ``cluster=``
+    to reuse one across streams.  ``prep="ahead"`` deals every batch's
+    offline phase up front (on `device`), saves the bank to ``prep_dir``
+    (default: a temporary directory, removed at the end) for the daemons
+    to load at start-up, and runs each batch online-only; ``prep="live"`` starts the daemons
+    with an empty live bank and a ``DealerDaemon`` streams batch k's
+    session while batch k-1 is served (``live_ahead`` sessions ahead at
+    most).  Both modes move zero offline bits on the mesh (forbidden by
+    the daemons' transports) and provision their own cluster.
+    """
+    from ..runtime.net.cluster import PartyCluster
+
+    if prep not in (None, "ahead", "live"):
+        raise ValueError(f"unknown prep mode {prep!r}")
+    queries = [np.asarray(q) for q in queries]
+    batches = [np.stack(queries[i:i + batch_size])
+               for i in range(0, len(queries), batch_size)]
+
+    own_cluster = cluster is None
+    if not own_cluster:
+        # the daemons run under the CLUSTER's configuration: refuse a
+        # conflicting argument instead of mislabeling the results
+        if cluster.ring is not ring:
+            raise ValueError("cluster= was built for a different ring")
+        if net_model is not cluster.net_model:
+            raise ValueError(
+                "net_model mismatch: pass the model to PartyCluster (the "
+                "daemons integrate the clock), not to serve_over_sockets")
+        if prep is not None:
+            raise ValueError(f"prep={prep!r} needs to provision its own "
+                             "cluster (daemons load or stream the bank)")
+    prep_path = None
+    deal_wall = 0.0
+    if prep == "ahead":
+        from ..offline import deal_sessions
+        t0 = time.perf_counter()
+        bank, _ = deal_sessions(
+            [functools.partial(_zero_deal_program, predict_fn, X)
+             for X in batches], ring=ring, base_seed=seed, device=device)
+        prep_path = prep_dir or tempfile.mkdtemp(prefix="prepbank-")
+        bank.save(prep_path)
+        del bank        # the daemons load the saved copy: free the dealt one
+        deal_wall = time.perf_counter() - t0
+    dealer = None
+    try:
+        if own_cluster:
+            cluster = PartyCluster(ring=ring, timeout=timeout,
+                                   net_model=net_model, prep_path=prep_path,
+                                   live_prep=(prep == "live"),
+                                   live_ahead=live_ahead, device=device)
+        if prep == "live":
+            from ..offline.live import DealerDaemon
+            # the dealer is data-independent: it gets SHAPES (zeros), not
+            # the query stream
+            dealer = DealerDaemon(
+                cluster,
+                functools.partial(_serve_program_for_step,
+                                  predict_fn=predict_fn,
+                                  batches=[np.zeros_like(X)
+                                           for X in batches]),
+                ring=ring, base_seed=seed, ahead=live_ahead,
+                total=len(batches))
+        preds: list = []
+        totals = {p: {"rounds": 0, "bits": 0}
+                  for p in ("offline", "online")}
+        link_bits: dict = {}
+        frames, wire_bytes = [], []
+        aborted = False
+        wall = 0.0
+        modeled = None
+        reg = get_registry()
+        for k, X in enumerate(batches):
+            results = cluster.submit(
+                functools.partial(_serve_batch, predict_fn=predict_fn, X=X),
+                seed=seed + k, prep="bank" if prep is not None else None,
+                prep_session=k if prep is not None else None,
+                timeout=timeout)
+            ref = results[0]
+            if any(r.totals != ref.totals or r.per_link != ref.per_link
+                   for r in results[1:]):
+                raise RuntimeError(
+                    "party processes disagree on measured traffic")
+            aborted = aborted or any(r.abort for r in results)
+            preds.extend(np.asarray(results[1].result))
+            for p in totals:
+                for kk in totals[p]:
+                    totals[p][kk] += ref.totals[p][kk]
+            for link, bits in ref.per_link.items():
+                acc = link_bits.setdefault(link, dict.fromkeys(bits, 0))
+                for phase, b in bits.items():
+                    acc[phase] += b
+            frames.append(sum(sum(r.frames_sent.values()) for r in results))
+            wire_bytes.append(sum(sum(r.bytes_sent.values())
+                                  for r in results))
+            wall += max(r.wall_s for r in results)
+            if ref.modeled_s is not None:
+                modeled = modeled or {p: 0.0 for p in ref.modeled_s}
+                for p, sec in ref.modeled_s.items():
+                    modeled[p] += sec
+            reg.counter("trident_serve_queries_total",
+                        "queries served").inc(len(X))
+            reg.counter("trident_serve_batches_total",
+                        "batches served").inc()
+        report = {
+            "queries": len(queries),
+            "batches": len(batches),
+            "aborted": aborted,
+            "totals": totals,
+            "link_online_bits": {f"P{a}->P{b}": bits["online"] for (a, b),
+                                 bits in sorted(link_bits.items())},
+            "per_link": link_bits,
+            # wire frames and bytes all four daemons wrote, a batch
+            "frames_per_batch": frames,
+            "wire_bytes_per_batch": wire_bytes,
+            "party_wall_s": wall,
+            "cluster_tasks": cluster.tasks_run,
+        }
+        if prep is not None:
+            report["online_only"] = True
+            report["prep"] = prep
+            if totals["offline"]["bits"]:
+                raise RuntimeError(
+                    f"an online-only stream moved offline bits: {totals}")
+        if prep == "ahead":
+            report["offline_deal_s"] = deal_wall
+        if prep == "live":
+            report["live_sessions_streamed"] = dealer.dealt
+        if modeled is not None:
+            report[f"modeled_{net_model.name}_s"] = modeled
+        return preds, report
+    finally:
+        if dealer is not None:
+            dealer.close()
+        if own_cluster and cluster is not None:
+            cluster.close()
+        if prep_path is not None and prep_dir is None:
+            shutil.rmtree(prep_path, ignore_errors=True)

@@ -9,7 +9,16 @@ One engine-agnostic training step (the paper's Section VI workloads via
   * ``world="runtime"`` -- RuntimeEngine over a LocalTransport (or any
                            transport you pass), inline or online-only from
                            a PrepStore (``PrepAheadSGD`` over a
-                           ``ContinuousDealer``).
+                           ``ContinuousDealer``);
+  * ``ClusterSGD``      -- each step one ``PartyCluster`` task across the
+                           four socket daemons, inline, from step-indexed
+                           PrepBank sessions (``prep="bank"``), or, with
+                           ``prep="live"`` and ``attach_live_dealer``, from
+                           sessions STREAMED into the running daemons, so
+                           the bank starts empty and training is unbounded;
+                           zero offline bits on the mesh, enforced;
+  * ``ShardedClusterSGD`` -- the global batch sharded over a pool of
+                           clusters, the members' updates averaged.
 
 Determinism contract: step t always runs from
 ``trainer.seed_for_step(base_seed, t)``; the dealer's session t uses the
@@ -22,13 +31,14 @@ decode/encode round trip is exact for trained-weight magnitudes), so the
 ``Trainer`` and its checkpoints drive every world unchanged.  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 
-The socket cluster's step functions (``ClusterSGD``,
-``attach_live_dealer``, ``ShardedClusterSGD``, ``shard_batch``) come with
-the port's socket cluster.
+The cluster steps ship the task, params and batch to spawned daemons as
+plain data (numpy), and the JAX package's ``health()`` of the cluster
+steps comes with the port's observability slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 
@@ -216,3 +226,185 @@ class PrepAheadSGD:
         return new, loss, abort or report.abort
 
     __call__ = step_fn
+
+
+# ---------------------------------------------------------------------------
+# Distributed training: one PartyCluster task per step.
+# ---------------------------------------------------------------------------
+def _cluster_step_program(rt, _rank, task=None, params=None, batch=None):
+    """Module-level (spawn-picklable) per-step program for the daemons."""
+    new, loss, abort = task.run(RuntimeEngine(rt), params, batch)
+    return {"params": new, "loss": loss, "abort": bool(abort)}
+
+
+def _live_deal_program(rt, task=None, params=None, batch=None):
+    """The dealer-daemon twin of ``_cluster_step_program``: the same
+    protocol trace from zeroed inputs (the offline half is
+    data-independent)."""
+    task.run(RuntimeEngine(rt), params, batch)
+
+
+def _live_program_for_step(_step, *, task, params, batch):
+    """Picklable ``step -> program`` for the ContinuousDealer inside the
+    dealer daemon (every step runs the same shapes)."""
+    return functools.partial(_live_deal_program, task=task, params=params,
+                             batch=batch)
+
+
+def attach_live_dealer(cluster, task: SGDTask, params: dict, batch: tuple,
+                       *, base_seed: int = 0, ahead: int = 2,
+                       total: int | None = None):
+    """Start a ``DealerDaemon`` streaming step-indexed prep sessions into a
+    LIVE cluster (``PartyCluster(live_prep=True)``), on the cluster's
+    device: session t is dealt from ``seed_for_step(base_seed, t)``, the
+    seed ``ClusterSGD`` gives the online step t, and shipped to every
+    daemon while earlier steps run online.  ``total=None`` streams for as
+    long as training runs.  Returns the daemon handle (a context
+    manager)."""
+    from ..offline.live import DealerDaemon
+    zp, zb = zero_inputs(task, params, batch)
+    factory = functools.partial(_live_program_for_step, task=task,
+                                params=zp, batch=zb)
+    return DealerDaemon(cluster, factory, ring=cluster.ring,
+                        base_seed=base_seed, ahead=ahead, total=total)
+
+
+def _member_params(results, what: str) -> dict:
+    """The params P0 opened, after checking the other daemons opened the
+    same."""
+    ref = results[0].result
+    for r in results[1:]:
+        for k in ref["params"]:
+            if not np.array_equal(r.result["params"][k], ref["params"][k]):
+                raise RuntimeError(f"cluster divergence at {what}: "
+                                   f"P{r.rank} params[{k!r}] differs from P0")
+    return ref["params"]
+
+
+class ClusterSGD:
+    """Trainer step_fn that drives a ``PartyCluster``: step t is one task
+    across the four daemons, seeded ``seed_for_step(base_seed, t)``, so a
+    checkpoint-restored replay regenerates the same PRF streams in every
+    party process.
+
+    ``prep="bank"``: every step consumes its STEP-INDEXED PrepBank session
+    (the daemons seek to session t, so a resumed run skips spent sessions
+    and a retried step raises PrepReplayError naming it) and runs
+    online-only on the mesh.  ``prep="live"``: the same against a LIVE
+    bank fed by ``attach_live_dealer``; a step whose session has not
+    arrived blocks in the daemons until the dealer catches up (or fails
+    with the dealer's traceback).
+    """
+
+    PREPPED = ("bank", "live")
+
+    def __init__(self, cluster, task: SGDTask, *, base_seed: int = 0,
+                 prep: str | None = None):
+        if prep not in (None, "bank", "live"):
+            raise ValueError(f"unknown prep mode {prep!r}")
+        if prep == "live" and not getattr(cluster, "live_prep", False):
+            raise ValueError("prep='live' needs a cluster built with "
+                             "PartyCluster(live_prep=True)")
+        self.cluster = cluster
+        self.task = task
+        self.base_seed = base_seed
+        self.prep = prep
+        self.results: list = []         # per-step [PartyResult x4]
+
+    def step_fn(self, params, step, *batch):
+        program = functools.partial(
+            _cluster_step_program, task=self.task,
+            params={k: np.asarray(v) for k, v in params.items()},
+            batch=tuple(np.asarray(b) for b in batch))
+        prepped = self.prep in self.PREPPED
+        results = self.cluster.submit(
+            program, seed=seed_for_step(self.base_seed, step),
+            prep="bank" if prepped else None,
+            prep_session=step if prepped else None)
+        new = _member_params(results, f"step {step}")
+        self.results.append(results)
+        ref = results[0].result
+        abort = bool(ref["abort"]) or any(r.abort for r in results)
+        return new, float(ref["loss"]), abort
+
+    __call__ = step_fn
+
+    def offline_bits_on_mesh(self) -> int:
+        """Offline-phase bits the socket mesh carried over the recorded
+        steps (0 with prep -- the acceptance check)."""
+        return sum(res[0].totals["offline"]["bits"] for res in self.results)
+
+
+# ---------------------------------------------------------------------------
+# Data-parallel secure SGD: the global batch sharded across a cluster pool.
+# ---------------------------------------------------------------------------
+def shard_batch(batch: tuple, shards: int) -> list:
+    """Split every batch array into ``shards`` EQUAL row-shards: each
+    member normalizes its gradient by its shard size, so the mean of the
+    members' updates is the full-batch update only for equal shards."""
+    arrays = tuple(np.asarray(b) for b in batch)
+    n = arrays[0].shape[0]
+    if n % shards:
+        raise ValueError(
+            f"global batch of {n} rows does not shard evenly across "
+            f"{shards} pool members")
+    size = n // shards
+    return [tuple(a[i * size:(i + 1) * size] for a in arrays)
+            for i in range(shards)]
+
+
+class ShardedClusterSGD:
+    """Data-parallel ``Trainer`` step_fn over a POOL of party clusters:
+    step t splits the global batch into one equal shard per member, every
+    member runs the step on its shard concurrently (``submit_nowait`` on
+    all, then collect), and the new params are the mean over the members.
+
+    Since each member computes ``params - lr * grad_i`` with ``grad_i``
+    normalized by the (equal) shard size, the mean is ``params - lr *
+    mean_i(grad_i)``: one linear combination of the members' outputs,
+    free on the wire in-protocol.  This step contract opens params at
+    every step boundary (as ``ClusterSGD``'s), so the mean is taken of the
+    opened updates here.  Every member runs from the SAME
+    ``seed_for_step(base_seed, t)``; a cluster may appear more than once
+    (its tasks queue in order).
+    """
+
+    def __init__(self, clusters, task: SGDTask, *, base_seed: int = 0):
+        clusters = list(clusters)
+        if not clusters:
+            raise ValueError("ShardedClusterSGD needs at least one cluster")
+        self.clusters = clusters
+        self.task = task
+        self.base_seed = base_seed
+        self.results: list = []   # per step: [member -> [PartyResult x4]]
+
+    def step_fn(self, params, step, *batch):
+        params_np = {k: np.asarray(v) for k, v in params.items()}
+        shards = shard_batch(tuple(batch), len(self.clusters))
+        seed = seed_for_step(self.base_seed, step)
+        handles = [
+            cluster.submit_nowait(
+                functools.partial(_cluster_step_program, task=self.task,
+                                  params=params_np, batch=shard),
+                seed=seed)
+            for cluster, shard in zip(self.clusters, shards)]
+        per_member = [cluster.collect(h)
+                      for cluster, h in zip(self.clusters, handles)]
+        news, losses, abort = [], [], False
+        for m, results in enumerate(per_member):
+            news.append(_member_params(results, f"step {step}, member {m}"))
+            ref = results[0].result
+            losses.append(float(ref["loss"]))
+            abort = abort or bool(ref["abort"]) \
+                or any(r.abort for r in results)
+        self.results.append(per_member)
+        mean = {k: np.mean([nw[k] for nw in news], axis=0)
+                for k in sorted(news[0])}
+        return mean, float(np.mean(losses)), abort
+
+    __call__ = step_fn
+
+    def offline_bits_on_mesh(self) -> int:
+        """Offline-phase bits across every member's mesh."""
+        return sum(res[0].totals["offline"]["bits"]
+                   for step in self.results for res in step)

@@ -4,13 +4,17 @@ rounds on the "hopper" backend against the "torch" backend's on the CPU;
 the store handoff between two streams under stress; and the pipelined
 server (each batch dealt on the dealer thread's own CUDA stream and
 served online-only on this thread's), every prediction held to the inline
-runtime at that batch's seed.  They need an NVIDIA GPU and skip without
+runtime at that batch's seed; and one task on four party daemons on the
+card over TCP (``runtime.net.PartyCluster``), its words and traffic those
+of the in-process runtime.  They need an NVIDIA GPU and skip without
 one.  This file imports neither jax nor the JAX package, so it runs on a
 machine that has only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 
@@ -18,7 +22,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import offline  # noqa: E402
 from repro_torch.core.algebra import GAMMA_LOCAL, PART_HOLDERS  # noqa: E402
-from repro_torch.core.ring import RING64  # noqa: E402
+from repro_torch.core.ring import RING64, words_to_numpy  # noqa: E402
 from repro_torch.kernels import gamma_parts as GP  # noqa: E402
 from repro_torch.kernels import mpc_matmul_fused as MF  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -28,6 +32,7 @@ from repro_torch.kernels import ring_matmul as RM  # noqa: E402
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
 from repro_torch.runtime.kernel_backend import (  # noqa: E402
     HopperKernels, TorchKernels)
+from repro_torch.runtime.net import PartyCluster  # noqa: E402
 from repro_torch.serve.party_server import PartyPredictionServer  # noqa: E402
 from repro_torch.train.paper_ml import (MLPNet, mlp_net_init,  # noqa: E402
                                         mlp_net_predict_runtime,
@@ -64,6 +69,14 @@ def _descriptor_groups(words, count: int, dev) -> tuple:
             out.append(([(v[2 * t], v[2 * t + 1]) for t in range(T)],
                         tuple(v[2 * T:]), signs))
     return cpu, card
+
+
+def _cluster_task(rt, _rank, X=None, params=None):
+    """A daemon's task (module level: the daemons are spawned): the small
+    NN's prediction over weights encoded on the daemon's device."""
+    return mlp_net_predict_runtime(
+        rt, params_from_numpy(params, RING64, rt.device),
+        MLPNet(16, (8, 8, 4)), X)
 
 
 @pytest.fixture
@@ -361,3 +374,15 @@ def test_kernels_equal_plain_on_card(cuda_device):
         twin = predict(FourPartyRuntime(RING64, seed=3 + k,
                                         device=cuda_device), X[rows]).cpu()
         assert torch.equal(words[rows], twin[:len(words[rows])]), k
+    # the four parties as four daemon processes on the card over TCP: one
+    # task opens the in-process runtime's words and traffic in every daemon
+    raw = mlp_net_init(np.random.RandomState(0), net)
+    with PartyCluster(device=cuda_device) as cluster:
+        res = cluster.submit(functools.partial(_cluster_task, X=queries[:8],
+                                               params=raw), seed=3)
+    rt = FourPartyRuntime(RING64, seed=3, device=cuda_device)
+    want = words_to_numpy(predict(rt, queries[:8]))
+    for r in res:
+        assert np.array_equal(r.result, want) and not r.abort, r.rank
+        assert r.totals == rt.transport.totals(), r.rank
+        assert r.per_link == rt.transport.per_link(), r.rank
