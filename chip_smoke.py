@@ -2363,7 +2363,7 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
                    for step in range(TRAIN_STEPS)]
         want_steps = train_steps(task, tparams, batches, device=dev)
         with SGD.attach_live_dealer(cluster, task, tparams, batches[0],
-                                    base_seed=SEED, ahead=2,
+                                    base_seed=SEED,
                                     total=TRAIN_STEPS) as dealer:
             sgd = SGD.ClusterSGD(cluster, task, base_seed=SEED, prep="live")
             cluster.submit(daemon_stats)

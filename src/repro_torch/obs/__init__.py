@@ -6,8 +6,8 @@ from __future__ import annotations
 
 import functools
 
-from .registry import (Counter, Gauge, Histogram, MetricsRegistry,
-                       get_registry, install_registry)
+from .registry import (Counter, MetricsRegistry, get_registry,
+                       install_registry)
 
 # a receive that blocks at least this long counts as slow
 RECV_SPAN_MIN_S = 1e-3
@@ -47,7 +47,7 @@ def traced_protocol(name: str):
 
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "MetricsRegistry", "NULL_TRACER",
+    "Counter", "MetricsRegistry", "NULL_TRACER",
     "NullTracer", "RECV_SPAN_MIN_S", "get_registry", "get_tracer",
     "install_registry", "traced_protocol",
 ]

@@ -1,155 +1,77 @@
 """Process-local live metrics registry (``repro/obs/registry.py``, the part
 the party daemons install).
 
-The registry is always on and holds running aggregates only: monotonic
-counters, last-value gauges and fixed-edge histograms (the log-spaced
-edges of the JAX package's ``obs/metrics.py``).  A seam pays one cached
-metric object and one locked add per update; nothing feeds back into the
-protocols, so words and wire accounting do not depend on it.
+The registry is always on and holds monotonic counters only.  A seam pays
+one cached counter object and one locked add per update; nothing feeds
+back into the protocols, so words and wire accounting do not depend on it.
 
 One registry per process (``get_registry`` / ``install_registry``).  A
-party daemon and the dealer daemon install a labeled registry before they
-build their transport, because instrumented objects capture the registry
-when they are made (``MeasuredTransport.__init__``).
+party daemon installs a labeled registry before it builds its transport,
+because instrumented objects capture the registry when they are made
+(``MeasuredTransport.__init__``).
 
 ``trident_wire_bits_total{src,dst,phase}`` double-books the wire: it equals
-``MeasuredTransport.per_link()`` exactly.  The Prometheus exposition, the
-snapshot helpers and the HTTP exporter come with the port's observability
-slice.
+``MeasuredTransport.per_link()`` exactly.  Gauges, histograms, update
+times, the Prometheus exposition and the HTTP exporter come with the
+port's observability slice, together with the exporter and health
+documents that read them.
 """
 from __future__ import annotations
 
 import os
 import threading
-import time
-
-# edges (us) of the fixed histograms: a value lands in the first bucket
-# whose edge is strictly above it
-HIST_EDGES_US = (10.0, 100.0, 1_000.0, 10_000.0, 100_000.0)
 
 
 class Counter:
-    """A monotonic counter; ``updated`` is the wall clock of the last
-    increment."""
+    """A monotonic counter."""
 
-    __slots__ = ("_lock", "value", "updated")
+    __slots__ = ("_lock", "value")
 
     def __init__(self, lock: threading.Lock):
         self._lock = lock
         self.value = 0
-        self.updated = 0.0
 
     def inc(self, n=1) -> None:
         with self._lock:
             self.value += n
-            self.updated = time.time()
-
-
-class Gauge:
-    """A last-value gauge (queue depths, watermarks, tasks in flight)."""
-
-    __slots__ = ("_lock", "value", "updated")
-
-    def __init__(self, lock: threading.Lock):
-        self._lock = lock
-        self.value = 0
-        self.updated = 0.0
-
-    def set(self, v) -> None:
-        with self._lock:
-            self.value = v
-            self.updated = time.time()
-
-
-class Histogram:
-    """Fixed-edge histogram: a value on an edge goes to the next bucket."""
-
-    __slots__ = ("_lock", "edges", "buckets", "sum", "count", "updated")
-
-    def __init__(self, lock: threading.Lock, edges=HIST_EDGES_US):
-        self._lock = lock
-        self.edges = tuple(edges)
-        self.buckets = [0] * (len(self.edges) + 1)
-        self.sum = 0.0
-        self.count = 0
-        self.updated = 0.0
-
-    def observe(self, v) -> None:
-        with self._lock:
-            for i, edge in enumerate(self.edges):
-                if v < edge:
-                    self.buckets[i] += 1
-                    break
-            else:
-                self.buckets[-1] += 1
-            self.sum += v
-            self.count += 1
-            self.updated = time.time()
 
 
 class MetricsRegistry:
-    """A process's metric families, ``name -> {labels -> metric}``.
+    """A process's counter families, ``name -> {labels -> Counter}``.
 
-    ``counter`` / ``gauge`` / ``histogram`` get or create a metric; hot
-    paths keep the returned object.  All metrics share one lock, so a
-    snapshot is one consistent reading."""
+    ``counter`` gets or creates a counter; hot paths keep the returned
+    object.  All counters share one lock, so a snapshot is one consistent
+    reading."""
 
     def __init__(self, label: str | None = None, rank: int | None = None):
         self.label = label or f"proc-{os.getpid()}"
         self.rank = rank
-        self.created = time.time()
         self._lock = threading.Lock()
         self._families: dict = {}
 
-    def _metric(self, name: str, mtype: str, help_: str, labels: dict,
-                factory):
+    def counter(self, name: str, help: str = "", **labels) -> Counter:
         key = tuple(sorted((k, str(v)) for k, v in labels.items()))
         with self._lock:
             fam = self._families.get(name)
             if fam is None:
-                fam = self._families[name] = {"type": mtype, "help": help_,
-                                              "samples": {}}
-            elif fam["type"] != mtype:
-                raise ValueError(f"metric {name!r} already registered as "
-                                 f"{fam['type']}, not {mtype}")
-            metric = fam["samples"].get(key)
-            if metric is None:
-                metric = fam["samples"][key] = factory()
-            return metric
-
-    def counter(self, name: str, help: str = "", **labels) -> Counter:
-        return self._metric(name, "counter", help, labels,
-                            lambda: Counter(self._lock))
-
-    def gauge(self, name: str, help: str = "", **labels) -> Gauge:
-        return self._metric(name, "gauge", help, labels,
-                            lambda: Gauge(self._lock))
-
-    def histogram(self, name: str, help: str = "", edges=HIST_EDGES_US,
-                  **labels) -> Histogram:
-        return self._metric(name, "histogram", help, labels,
-                            lambda: Histogram(self._lock, edges))
+                fam = self._families[name] = {"help": help, "samples": {}}
+            c = fam["samples"].get(key)
+            if c is None:
+                c = fam["samples"][key] = Counter(self._lock)
+            return c
 
     def snapshot(self) -> dict:
-        """A plain-data, JSON-clean copy of every metric (the JAX
-        package's snapshot layout)."""
+        """A plain-data, JSON-clean copy of every counter (the JAX
+        package's snapshot layout, counters only)."""
         with self._lock:
-            metrics = {}
-            for name, fam in sorted(self._families.items()):
-                samples = []
-                for key, m in sorted(fam["samples"].items()):
-                    s = {"labels": dict(key), "updated": m.updated}
-                    if isinstance(m, Histogram):
-                        s.update(edges=list(m.edges), buckets=list(m.buckets),
-                                 sum=m.sum, count=m.count)
-                    else:
-                        s["value"] = m.value
-                    samples.append(s)
-                metrics[name] = {"type": fam["type"], "help": fam["help"],
-                                 "samples": samples}
+            metrics = {
+                name: {"type": "counter", "help": fam["help"],
+                       "samples": [{"labels": dict(key), "value": c.value}
+                                   for key, c in sorted(
+                                       fam["samples"].items())]}
+                for name, fam in sorted(self._families.items())}
             return {"label": self.label, "rank": self.rank,
-                    "pid": os.getpid(), "created": self.created,
-                    "ts": time.time(), "metrics": metrics}
+                    "pid": os.getpid(), "metrics": metrics}
 
 
 _process_registry: MetricsRegistry | None = None

@@ -32,22 +32,19 @@ from .store import PrepBank, PrepError
 
 
 class ContinuousDealer:
-    """Background dealer refilling ``bank`` (a fresh PrepBank unless one is
-    given; dealing goes on after its sessions) to ``ahead`` sessions past
-    the consumer.
+    """Background dealer refilling its ``bank`` (a PrepBank of its own) to
+    ``ahead`` sessions past the consumer.
 
     ``program_for_step``: callable ``step -> program`` (the same program
     for every step in the common case: a training step's offline half
     depends on shapes, not data).  ``total`` bounds the number of sessions
     dealt (None: deal until closed).  Sessions are dealt on `device` (CUDA
-    unless the caller asks for the CPU) by runtimes made with
-    ``runtime_kwargs`` (the dealer daemon passes its caller's).
+    unless the caller asks for the CPU).
     """
 
     def __init__(self, program_for_step, *, ring: Ring = RING64,
                  base_seed: int = 0, ahead: int = 2, total: int | None = None,
-                 bank: PrepBank | None = None, device=None,
-                 runtime_kwargs: dict | None = None):
+                 device=None):
         if ahead < 1:
             raise ValueError(f"ahead {ahead} < 1")
         self._program_for_step = program_for_step
@@ -56,13 +53,12 @@ class ContinuousDealer:
         self._ahead = ahead
         self._total = total
         self._device = resolve_device(device)
-        self._runtime_kwargs = runtime_kwargs
         # the dealer's own stream on the card (None on the CPU)
         self._stream = torch.cuda.Stream(self._device) \
             if self._device.type == "cuda" else None
-        self.bank = bank if bank is not None else PrepBank()
+        self.bank = PrepBank()
         self.reports: list = []
-        self._dealt = len(self.bank)
+        self._dealt = 0
         self._error: BaseException | None = None
         self._stop = threading.Event()
         self._cond = threading.Condition()
@@ -74,7 +70,6 @@ class ContinuousDealer:
     def _deal(self, step: int):
         return deal(self._program_for_step(step), ring=self._ring,
                     seed=self._base_seed + step, device=self._device,
-                    runtime_kwargs=self._runtime_kwargs,
                     meta={"step": step})
 
     def _refill(self) -> None:

@@ -42,8 +42,6 @@ import threading
 import time
 import traceback
 
-from ..core.ring import Ring
-from ..obs import MetricsRegistry, install_registry
 from .store import PrepBank, PrepError, PrepMissingError, PrepStore
 
 DEFAULT_AHEAD = 2
@@ -196,30 +194,18 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
     ``cfg["program_for_step"]`` must be picklable (a module-level callable
     or a functools.partial of one)."""
     try:
-        reg = MetricsRegistry("dealer")
-        install_registry(reg)
         from ..runtime.net.cluster import boot_device
         device = boot_device(cfg["device"])
-        c_dealt = reg.counter("trident_dealer_sessions_dealt_total",
-                              "sessions fully dealt by the dealer runtime")
-        c_shipped = reg.counter(
-            "trident_dealer_sessions_shipped_total",
-            "sessions fanned out to every consuming party daemon")
-        g_mark = reg.gauge("trident_dealer_watermark",
-                           "next session the dealer will ship")
 
         from .continuous import ContinuousDealer
 
         with ContinuousDealer(cfg["program_for_step"], ring=cfg["ring"],
                               base_seed=cfg["base_seed"],
-                              ahead=cfg["ahead"], total=cfg["total"],
-                              device=device,
-                              runtime_kwargs=cfg["runtime_kwargs"]
-                              ) as dealer:
+                              ahead=DEFAULT_AHEAD, total=cfg["total"],
+                              device=device) as dealer:
             session = 0
             while cfg["total"] is None or session < cfg["total"]:
                 store = dealer.next_store(timeout=None)
-                c_dealt.inc()
                 # every daemon simulates all four parties, so each gets the
                 # full store: serialized once, the blob fanned out
                 blob = store_to_blob(store)
@@ -228,8 +214,6 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                     # bounded queue: a full window blocks the dealer here
                     q.put(("prep", session, blob))
                 status_q.put(("dealt", session, len(blob)))
-                c_shipped.inc()
-                g_mark.set(session + 1)
                 session += 1
         status_q.put(("done", session))
         for q in ctrl_qs:
@@ -256,9 +240,9 @@ class DealerDaemon:
     ``cluster`` must have been built with ``live_prep=True``.
     ``program_for_step`` is the ``ContinuousDealer`` contract: a picklable
     ``step -> program`` callable; session k is dealt from ``base_seed +
-    k``, so session k IS step k's preprocessing.  ``total=None`` streams
-    until closed.  The dealer runs on `device` (the cluster's unless
-    given) with ``runtime_kwargs`` for its runtimes.
+    k``, so session k IS step k's preprocessing, dealt at most
+    ``DEFAULT_AHEAD`` sessions ahead.  ``total=None`` streams until
+    closed.  The dealer process runs on the cluster's device and ring.
 
     Multi-consumer fan-out: ``cluster`` may be a SEQUENCE of live clusters
     (a pool).  Every consumer receives the full session stream -- each blob
@@ -269,11 +253,8 @@ class DealerDaemon:
     eventually stalls the dealer.
     """
 
-    def __init__(self, cluster, program_for_step, *, ring: Ring | None = None,
-                 base_seed: int = 0, ahead: int = DEFAULT_AHEAD,
-                 total: int | None = None,
-                 runtime_kwargs: dict | None = None, device=None):
-        from ..runtime.net.cluster import prepare_device
+    def __init__(self, cluster, program_for_step, *, base_seed: int = 0,
+                 total: int | None = None):
         clusters = (list(cluster) if isinstance(cluster, (list, tuple))
                     else [cluster])
         if not clusters:
@@ -299,11 +280,8 @@ class DealerDaemon:
         self._status_q = ctx.Queue()
         cfg = {
             "program_for_step": program_for_step,
-            "ring": ring if ring is not None else clusters[0].ring,
-            "base_seed": base_seed, "ahead": ahead, "total": total,
-            "runtime_kwargs": runtime_kwargs,
-            "device": prepare_device(device if device is not None
-                                     else clusters[0].device),
+            "ring": clusters[0].ring, "device": clusters[0].device,
+            "base_seed": base_seed, "total": total,
         }
         self._proc = ctx.Process(target=_dealer_daemon_main,
                                  args=(cfg, list(ctrl_qs), self._status_q),

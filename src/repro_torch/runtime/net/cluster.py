@@ -43,7 +43,9 @@ raises with the daemons' tracebacks, and every later ``submit`` or
 Port allocation probes free ports by binding and releasing them, so another
 process can take a port before the daemon binds it: boot fails fast on the
 first daemon error and retries the whole mesh with fresh ports on
-``EADDRINUSE``, up to ``PORT_RETRIES`` times.
+``EADDRINUSE``, up to ``PORT_RETRIES`` times.  Each boot attempt draws a
+random mesh token that every hello carries, so a listener never takes
+another cluster's dialer, come to its port, for one of its own parties.
 
 ``program`` must be a module-level callable (the processes are spawned, so
 it travels by qualified name) and its arguments plain data (numpy arrays,
@@ -63,6 +65,7 @@ from __future__ import annotations
 import dataclasses
 import logging
 import multiprocessing as mp
+import os
 import queue as _queue
 import socket
 import threading
@@ -73,7 +76,8 @@ import torch
 
 from ...core.context import resolve_device
 from ...core.ring import RING64, Ring, words_to_numpy
-from ...obs import MetricsRegistry, get_registry, install_registry
+from ...obs import MetricsRegistry, install_registry
+from .socket_transport import TOKEN_BYTES
 
 DEFAULT_TIMEOUT = 120.0
 DEFAULT_LIVE_AHEAD = 2
@@ -162,65 +166,42 @@ def _run_task(task, *, ring, device, transport, base, bank, out_q, rank,
     f_before, b_before = dict(base.frames_sent), dict(base.bytes_sent)
     m_before = dict(transport._sec.total) if transport is not base else None
 
-    reg = get_registry()
-    reg.counter("trident_cluster_tasks_total",
-                "tasks served by this party daemon").inc()
-    g_inflight = reg.gauge("trident_cluster_tasks_inflight",
-                           "tasks currently executing (0 or 1)")
-    g_inflight.set(1)
-    t_task0 = time.perf_counter()
     prep = None
     prep_wait_s = 0.0
+    if task.get("prep") == "bank":
+        from ...offline.store import OnlinePrep
+        if bank is None:
+            raise RuntimeError("task wants prep='bank' but the daemon has "
+                               "no PrepBank (load one at startup with "
+                               "prep_path= or stream one with "
+                               "live_prep=True)")
+        session = task.get("prep_session")
+        t_prep0 = time.perf_counter()
+        if getattr(bank, "live", False):
+            # the session may not have arrived yet: block until the
+            # dealer's watermark passes it (a dead dealer raises its
+            # traceback here instead of timing out)
+            bank.wait_for(session if session is not None
+                          else bank.next_session, timeout=prep_wait)
+        if session is not None:
+            # step-indexed consumption: a resumed run skips spent sessions
+            # and a retried step raises PrepReplayError
+            bank.seek(session)
+        store = bank.next()
+        prep_wait_s = time.perf_counter() - t_prep0
+        store.party = rank              # attribute store errors to P{rank}
+        prep = OnlinePrep(store, device)
+        base.forbid_phase("offline")
     try:
-        if task.get("prep") == "bank":
-            from ...offline.store import OnlinePrep
-            if bank is None:
-                raise RuntimeError("task wants prep='bank' but the daemon "
-                                   "has no PrepBank (load one at startup "
-                                   "with prep_path= or stream one with "
-                                   "live_prep=True)")
-            session = task.get("prep_session")
-            t_prep0 = time.perf_counter()
-            if getattr(bank, "live", False):
-                # the session may not have arrived yet: block until the
-                # dealer's watermark passes it (a dead dealer raises its
-                # traceback here instead of timing out)
-                bank.wait_for(session if session is not None
-                              else bank.next_session, timeout=prep_wait)
-            if session is not None:
-                # step-indexed consumption: a resumed run skips spent
-                # sessions and a retried step raises PrepReplayError
-                bank.seek(session)
-            store = bank.next()
-            prep_wait_s = time.perf_counter() - t_prep0
-            reg.counter("trident_prep_sessions_consumed_total",
-                        "PrepStore sessions consumed by tasks").inc()
-            reg.counter("trident_prep_wait_us_total",
-                        "wall-clock blocked acquiring prep material "
-                        "(us)").inc(prep_wait_s * 1e6)
-            reg.gauge("trident_live_bank_depth",
-                      "unconsumed sessions buffered in the prep "
-                      "bank").set(bank.sessions_left)
-            store.party = rank          # attribute store errors to P{rank}
-            prep = OnlinePrep(store, device)
-            base.forbid_phase("offline")
-        try:
-            rt = FourPartyRuntime(ring, seed=task["seed"],
-                                  transport=transport, prep=prep,
-                                  device=device, **task["runtime_kwargs"])
-            t0 = time.perf_counter()
-            # the host copy of the result waits for the device
-            result = _to_np(task["program"](rt, rank))
-            wall = time.perf_counter() - t0
-        finally:
-            if prep is not None:
-                base.allow_phase("offline")
+        rt = FourPartyRuntime(ring, seed=task["seed"], transport=transport,
+                              prep=prep, device=device)
+        t0 = time.perf_counter()
+        # the host copy of the result waits for the device
+        result = _to_np(task["program"](rt, rank))
+        wall = time.perf_counter() - t0
     finally:
-        # a failing task still drops the gauge and records its attempt
-        g_inflight.set(0)
-        reg.histogram("trident_cluster_task_wall_us",
-                      "per-task wall clock (us)").observe(
-            (time.perf_counter() - t_task0) * 1e6)
+        if prep is not None:
+            base.allow_phase("offline")
 
     t_after = base.totals()
     per_link = {}
@@ -250,11 +231,6 @@ def _ctrl_loop(ctrl_q, bank, rank):
     (the backpressure reaching the dealer).  Any failure here poisons the
     bank, so a waiting task raises the cause instead of timing out."""
     from ...offline.live import store_from_blob
-    reg = get_registry()
-    g_depth = reg.gauge("trident_live_bank_depth",
-                        "unconsumed sessions buffered in the prep bank")
-    g_mark = reg.gauge("trident_live_bank_watermark",
-                       "sessions streamed into the live bank so far")
     try:
         while True:
             # bounded wait, so a dealer killed without its sentinel cannot
@@ -271,8 +247,6 @@ def _ctrl_loop(ctrl_q, bank, rank):
                 store = store_from_blob(blob)
                 store.party = rank      # attribute store errors to P{rank}
                 bank.append(session, store)
-                g_depth.set(bank.sessions_left)
-                g_mark.set(bank.watermark)
             elif kind == "dealer_error":
                 bank.fail(item[1])
                 return
@@ -322,7 +296,8 @@ def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
         from .model import NetModelTransport
         from .socket_transport import SocketTransport
 
-        base = SocketTransport(rank, endpoints, device=device,
+        base = SocketTransport(rank, endpoints, token=cfg["token"],
+                               device=device,
                                timeout=cfg["timeout"],
                                connect_timeout=cfg["timeout"])
         for rule in cfg["tampers"]:
@@ -336,7 +311,7 @@ def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
             bank = PrepBank.load(cfg["prep_path"])
         elif cfg["live_prep"]:
             from ...offline.live import LivePrepBank
-            bank = LivePrepBank(ahead=cfg["live_ahead"])
+            bank = LivePrepBank(ahead=DEFAULT_LIVE_AHEAD)
             threading.Thread(target=_ctrl_loop, args=(ctrl_q, bank, rank),
                              daemon=True, name=f"ctrl-P{rank}").start()
         out_q.put(("ready", rank))
@@ -370,8 +345,7 @@ class PartyCluster:
     def __init__(self, *, ring: Ring = RING64,
                  timeout: float = DEFAULT_TIMEOUT, tampers=(),
                  net_model=None, prep_path: str | None = None,
-                 live_prep: bool = False,
-                 live_ahead: int = DEFAULT_LIVE_AHEAD, device=None):
+                 live_prep: bool = False, device=None):
         if live_prep and prep_path is not None:
             raise ValueError(
                 "live_prep streams into an initially empty bank; "
@@ -381,8 +355,7 @@ class PartyCluster:
         cfg = {
             "ring": ring, "timeout": timeout, "tampers": list(tampers),
             "net_model": net_model, "prep_path": prep_path,
-            "live_prep": live_prep, "live_ahead": live_ahead,
-            "device": self.device,
+            "live_prep": live_prep, "device": self.device,
         }
         self.ring = ring
         self.timeout = timeout
@@ -404,10 +377,11 @@ class PartyCluster:
         self._results: dict = {}         # task_id -> [PartyResult...]
         self._errors: dict = {}          # rank -> traceback text
         for attempt in range(1, PORT_RETRIES + 1):
+            cfg["token"] = os.urandom(TOKEN_BYTES)
             self._task_qs = [ctx.Queue() for _ in range(4)]
             # bounded control queues: a dealer running ahead of
             # consumption blocks instead of buffering sessions in flight
-            self.ctrl_queues = ([ctx.Queue(maxsize=2 * live_ahead)
+            self.ctrl_queues = ([ctx.Queue(maxsize=2 * DEFAULT_LIVE_AHEAD)
                                  for _ in range(4)] if live_prep else None)
             self._out_q = ctx.Queue()
             endpoints = [("127.0.0.1", p) for p in _free_ports(4)]
@@ -490,7 +464,6 @@ class PartyCluster:
     def submit_nowait(self, program, *, seed: int = 0,
                       prep: str | None = None,
                       prep_session: int | None = None,
-                      runtime_kwargs: dict | None = None,
                       timeout: float | None = None) -> TaskHandle:
         """Enqueue ``program(rt, rank)`` on all four daemons and return a
         ``TaskHandle`` at once (gather with ``collect``)."""
@@ -500,7 +473,6 @@ class PartyCluster:
             self._task_id += 1
             task = {"program": program, "seed": seed, "prep": prep,
                     "prep_session": prep_session,
-                    "runtime_kwargs": dict(runtime_kwargs or {}),
                     "timeout": timeout or self.timeout,
                     "id": self._task_id}
             with self._res_lock:
@@ -594,7 +566,6 @@ class PartyCluster:
 
     def submit(self, program, *, seed: int = 0, prep: str | None = None,
                prep_session: int | None = None,
-               runtime_kwargs: dict | None = None,
                timeout: float | None = None) -> list:
         """Run ``program(rt, rank)`` as one task across the four daemons;
         returns the per-rank ``PartyResult``s (this task's deltas).
@@ -604,7 +575,6 @@ class PartyCluster:
         fails loudly)."""
         handle = self.submit_nowait(program, seed=seed, prep=prep,
                                     prep_session=prep_session,
-                                    runtime_kwargs=runtime_kwargs,
                                     timeout=timeout)
         return self.collect(handle, timeout=timeout)
 
@@ -645,18 +615,13 @@ class PartyCluster:
         self.close()
 
 
-def run_four_parties(program, *, ring: Ring = RING64, seed: int = 0,
+def run_four_parties(program, *, seed: int = 0,
                      timeout: float = DEFAULT_TIMEOUT, tampers=(),
-                     net_model=None, runtime_kwargs=None,
-                     prep_path: str | None = None, prep: str | None = None,
                      device=None) -> list:
     """One-shot: spawn a cluster on `device`, run ``program(rt, rank)``,
     tear down.  Returns the four ``PartyResult``s ordered by rank.
     ``tampers`` is a sequence of keyword dicts for ``Transport.tamper`` in
-    every process; ``net_model`` fills ``PartyResult.modeled_s``."""
-    with PartyCluster(ring=ring, timeout=timeout, tampers=tampers,
-                      net_model=net_model, prep_path=prep_path,
+    every process."""
+    with PartyCluster(timeout=timeout, tampers=tampers,
                       device=device) as cluster:
-        return cluster.submit(program, seed=seed, prep=prep,
-                              runtime_kwargs=runtime_kwargs,
-                              timeout=timeout)
+        return cluster.submit(program, seed=seed, timeout=timeout)

@@ -8,7 +8,9 @@ One frame is
 with the header carrying, per message, the demultiplexing tag plus the
 dtype and shape that rebuild the array on the far side.  A frame carries
 one message (header = object) or a batch (header = array of objects,
-payload = the bodies concatenated in header order):
+payload = the bodies concatenated in header order).  The port writes
+batches only and reads both kinds (the JAX package's single-message
+``send_frame`` writes the first):
 
     {"tag": "mult#1.p1", "dtype": "<u8", "shape": [2, 3], "nbytes": 48}
     [{...}, {...}, ...]
@@ -73,16 +75,6 @@ def send_frames(sock, items) -> int:
         bodies.append(body)
     header = json.dumps(entries).encode("utf-8")
     frame = _LEN.pack(len(header)) + header + b"".join(bodies)
-    sock.sendall(frame)
-    return len(frame)
-
-
-def send_frame(sock, tag: str, payload) -> int:
-    """Serialize one tagged array message onto a stream socket; returns
-    the bytes written."""
-    header_obj, body = _describe(tag, payload)
-    header = json.dumps(header_obj).encode("utf-8")
-    frame = _LEN.pack(len(header)) + header + body
     sock.sendall(frame)
     return len(frame)
 

@@ -35,7 +35,10 @@ hash copies included.
 
 Mesh bring-up: every rank listens on its own endpoint, dials every lower
 rank (with retry while the peer's listener comes up), then accepts the
-higher ranks.  A one-byte hello carries the dialer's rank.
+higher ranks.  The hello carries the dialer's rank and the mesh's
+``token``, a random value each boot draws: a listener closes and ignores a
+connection whose token is not its own (a dialer of another mesh that took
+the same port, or a stray), and keeps accepting its own peers.
 """
 from __future__ import annotations
 
@@ -55,6 +58,7 @@ from ..transport import MeasuredTransport
 from .framing import FramingError, recv_frame, send_frames
 
 PARTIES = (0, 1, 2, 3)
+TOKEN_BYTES = 8
 
 _log = logging.getLogger(__name__)
 
@@ -79,16 +83,21 @@ class SocketTransport(MeasuredTransport):
     """One party's endpoint of the four-way TCP mesh.
 
     endpoints: list of (host, port) per rank; this process serves
-    ``endpoints[rank]`` and dials the others.  Received payloads land on
-    `device`.
+    ``endpoints[rank]`` and dials the others.  ``token``: the mesh's
+    ``TOKEN_BYTES`` bytes, the same in all four processes.  Received
+    payloads land on `device`.
     """
 
-    def __init__(self, rank: int, endpoints, *, device,
+    def __init__(self, rank: int, endpoints, *, token: bytes, device,
                  timeout: float = 60.0, connect_timeout: float = 30.0):
         super().__init__()
         if rank not in PARTIES or len(endpoints) != len(PARTIES):
             raise ValueError(f"rank {rank} of endpoints {endpoints}")
+        if len(token) != TOKEN_BYTES:
+            raise ValueError(f"mesh token of {len(token)} bytes, not "
+                             f"{TOKEN_BYTES}")
         self.rank = rank
+        self.token = bytes(token)
         self.device = torch.device(device)
         self.timeout = timeout
         self._local: dict[tuple, deque] = defaultdict(deque)
@@ -133,15 +142,38 @@ class SocketTransport(MeasuredTransport):
             expect = {p for p in PARTIES if p > self.rank}
             listener.settimeout(connect_timeout)
             while expect:
-                conn, _ = listener.accept()
-                self._tune(conn)
-                peer = conn.recv(1)[0]
+                conn, addr = listener.accept()
+                peer = self._read_hello(conn, connect_timeout)
+                if peer is None:
+                    _log.warning("P%d refused a connection from %s: not a "
+                                 "hello of this mesh", self.rank, addr)
+                    conn.close()
+                    continue
                 if peer not in expect:
+                    conn.close()
                     raise RuntimeError(f"unexpected hello from rank {peer}")
+                self._tune(conn)
                 expect.discard(peer)
                 self._socks[peer] = conn
         finally:
             listener.close()
+
+    def _read_hello(self, conn: socket.socket, timeout: float) -> int | None:
+        """The dialer's rank, or None unless the hello carries this mesh's
+        token (a short read, a closed or silent connection: None too)."""
+        conn.settimeout(timeout)
+        hello = b""
+        try:
+            while len(hello) < 1 + TOKEN_BYTES:
+                chunk = conn.recv(1 + TOKEN_BYTES - len(hello))
+                if not chunk:
+                    return None
+                hello += chunk
+        except OSError:
+            return None
+        if hello[1:] != self.token:
+            return None
+        return hello[0]
 
     def _dial(self, endpoint, connect_timeout: float) -> socket.socket:
         deadline = time.monotonic() + connect_timeout
@@ -149,7 +181,7 @@ class SocketTransport(MeasuredTransport):
             try:
                 sock = socket.create_connection(endpoint, timeout=2.0)
                 self._tune(sock)
-                sock.sendall(bytes([self.rank]))
+                sock.sendall(bytes([self.rank]) + self.token)
                 return sock
             except OSError as e:
                 if time.monotonic() > deadline:

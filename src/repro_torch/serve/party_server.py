@@ -266,8 +266,7 @@ def _serve_program_for_step(step, *, predict_fn, batches):
 def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
                        ring=RING64, seed: int = 0, net_model=None,
                        timeout: float = 300.0, cluster=None,
-                       prep: str | None = None, prep_dir: str | None = None,
-                       live_ahead: int = 2, device=None):
+                       prep: str | None = None, device=None):
     """Serve a query stream across four party processes over TCP.
 
     ``predict_fn(rt, X_batch)`` is a module-level (picklable: the party
@@ -280,12 +279,11 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
     Batches run as tasks on a ``PartyCluster`` of long-lived daemons on
     `device` (CUDA unless the caller asks for the CPU); pass ``cluster=``
     to reuse one across streams.  ``prep="ahead"`` deals every batch's
-    offline phase up front (on `device`), saves the bank to ``prep_dir``
-    (default: a temporary directory, removed at the end) for the daemons
-    to load at start-up, and runs each batch online-only; ``prep="live"`` starts the daemons
+    offline phase up front (on `device`), saves the bank to a temporary
+    directory (removed at the end) for the daemons to load at start-up,
+    and runs each batch online-only; ``prep="live"`` starts the daemons
     with an empty live bank and a ``DealerDaemon`` streams batch k's
-    session while batch k-1 is served (``live_ahead`` sessions ahead at
-    most).  Both modes move zero offline bits on the mesh (forbidden by
+    session while batch k-1 is served.  Both modes move zero offline bits on the mesh (forbidden by
     the daemons' transports) and provision their own cluster.
     """
     from ..runtime.net.cluster import PartyCluster
@@ -317,7 +315,7 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
         bank, _ = deal_sessions(
             [functools.partial(_zero_deal_program, predict_fn, X)
              for X in batches], ring=ring, base_seed=seed, device=device)
-        prep_path = prep_dir or tempfile.mkdtemp(prefix="prepbank-")
+        prep_path = tempfile.mkdtemp(prefix="prepbank-")
         bank.save(prep_path)
         del bank        # the daemons load the saved copy: free the dealt one
         deal_wall = time.perf_counter() - t0
@@ -326,8 +324,7 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
         if own_cluster:
             cluster = PartyCluster(ring=ring, timeout=timeout,
                                    net_model=net_model, prep_path=prep_path,
-                                   live_prep=(prep == "live"),
-                                   live_ahead=live_ahead, device=device)
+                                   live_prep=(prep == "live"), device=device)
         if prep == "live":
             from ..offline.live import DealerDaemon
             # the dealer is data-independent: it gets SHAPES (zeros), not
@@ -338,8 +335,7 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
                                   predict_fn=predict_fn,
                                   batches=[np.zeros_like(X)
                                            for X in batches]),
-                ring=ring, base_seed=seed, ahead=live_ahead,
-                total=len(batches))
+                base_seed=seed, total=len(batches))
         preds: list = []
         totals = {p: {"rounds": 0, "bits": 0}
                   for p in ("offline", "online")}
@@ -348,7 +344,6 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
         aborted = False
         wall = 0.0
         modeled = None
-        reg = get_registry()
         for k, X in enumerate(batches):
             results = cluster.submit(
                 functools.partial(_serve_batch, predict_fn=predict_fn, X=X),
@@ -377,10 +372,6 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
                 modeled = modeled or {p: 0.0 for p in ref.modeled_s}
                 for p, sec in ref.modeled_s.items():
                     modeled[p] += sec
-            reg.counter("trident_serve_queries_total",
-                        "queries served").inc(len(X))
-            reg.counter("trident_serve_batches_total",
-                        "batches served").inc()
         report = {
             "queries": len(queries),
             "batches": len(batches),
@@ -413,5 +404,5 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
             dealer.close()
         if own_cluster and cluster is not None:
             cluster.close()
-        if prep_path is not None and prep_dir is None:
+        if prep_path is not None:
             shutil.rmtree(prep_path, ignore_errors=True)

@@ -252,8 +252,7 @@ def _live_program_for_step(_step, *, task, params, batch):
 
 
 def attach_live_dealer(cluster, task: SGDTask, params: dict, batch: tuple,
-                       *, base_seed: int = 0, ahead: int = 2,
-                       total: int | None = None):
+                       *, base_seed: int = 0, total: int | None = None):
     """Start a ``DealerDaemon`` streaming step-indexed prep sessions into a
     LIVE cluster (``PartyCluster(live_prep=True)``), on the cluster's
     device: session t is dealt from ``seed_for_step(base_seed, t)``, the
@@ -265,8 +264,7 @@ def attach_live_dealer(cluster, task: SGDTask, params: dict, batch: tuple,
     zp, zb = zero_inputs(task, params, batch)
     factory = functools.partial(_live_program_for_step, task=task,
                                 params=zp, batch=zb)
-    return DealerDaemon(cluster, factory, ring=cluster.ring,
-                        base_seed=base_seed, ahead=ahead, total=total)
+    return DealerDaemon(cluster, factory, base_seed=base_seed, total=total)
 
 
 def _member_params(results, what: str) -> dict:

@@ -4,7 +4,8 @@
 between the packages both ways over a socket pair at both ring widths; a
 cluster of four daemon processes opens the words, ``totals()``,
 ``per_link()`` and abort flags of JAX's in-process runtime on the same
-seed, in at most 3 frames a round per party; a tampered gamma piece
+seed, in at most 3 frames a round per party; a dial carrying another
+mesh's token is refused while the mesh forms; a tampered gamma piece
 aborts; three ``ClusterSGD(prep="live")`` steps fed by a dealer process
 are bit-equal to JAX's joint world with no offline bit on the mesh, and a
 replayed step poisons the cluster; ``serve_over_sockets`` serves the same
@@ -16,6 +17,7 @@ The daemons are spawned and import this module to find its programs, so
 its top level imports neither jax nor the JAX package: the JAX side is
 imported inside the test."""
 import concurrent.futures
+import os
 import socket
 import time
 
@@ -31,8 +33,7 @@ from repro_torch.core.ring import (RING32, RING64,  # noqa: E402
                                    words_from_numpy, words_to_numpy_batch)
 from repro_torch.obs import MetricsRegistry, install_registry  # noqa: E402
 from repro_torch.offline import (ContinuousDealer, LivePrepBank,  # noqa: E402
-                                 PrepBank, PrepError, PrepMissingError,
-                                 deal)
+                                 PrepError, PrepMissingError, deal)
 from repro_torch.offline.live import (store_from_blob,  # noqa: E402
                                       store_to_blob)
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
@@ -40,7 +41,10 @@ from repro_torch.runtime import activations as TRA  # noqa: E402
 from repro_torch.runtime import protocols as TRT  # noqa: E402
 from repro_torch.runtime.net import framing as TF  # noqa: E402
 from repro_torch.runtime.net.cluster import (ClusterPoisoned,  # noqa: E402
-                                             PartyCluster, run_four_parties)
+                                             PartyCluster, _free_ports,
+                                             run_four_parties)
+from repro_torch.runtime.net.socket_transport import (  # noqa: E402
+    TOKEN_BYTES, SocketTransport)
 from repro_torch.serve.party_server import serve_over_sockets  # noqa: E402
 from repro_torch.train import data as TD  # noqa: E402
 from repro_torch.train import secure_sgd as TS  # noqa: E402
@@ -148,7 +152,7 @@ def _check_frames_cross(J) -> None:
         a, b = socket.socketpair()
         with a, b:
             nbytes = TF.send_frames(a, items)
-            TF.send_frame(a, "one", items[0][1])
+            TF.send_frames(a, [("one", items[0][1])])
             J.F.send_frames(a, [(f"j#{i}", x) for i, x in enumerate(arrays)])
             J.F.send_frame(a, "jone", arrays[3])
             got = J.F.recv_frame(b) + J.F.recv_frame(b)
@@ -171,8 +175,9 @@ def _check_frames_cross(J) -> None:
 def _check_registry_and_stores() -> None:
     """The daemons' registry double-books the wire (link_bits ==
     per_link(), messages counted); a dealt store crosses a blob with its
-    words; ContinuousDealer continues a given bank with the given runtime
-    options; LivePrepBank's ordering and watermark errors."""
+    words; ContinuousDealer's session 1, which the dealer daemon streams,
+    is the deal at seed + 1; LivePrepBank's ordering and watermark
+    errors."""
     reg = MetricsRegistry("party-P0", rank=0)
     prev = install_registry(reg)
     try:
@@ -199,16 +204,11 @@ def _check_registry_and_stores() -> None:
     assert back.meta == store.meta and len(back) > 0
     _same_store(back, store)
 
-    first, _ = deal(_deal_program, seed=SEED, device="cpu",
-                    meta={"step": 0})
-    kw = {"kernel_backend": "torch"}
     with ContinuousDealer(lambda _s: _deal_program, base_seed=SEED,
-                          total=2, bank=PrepBank([first]), device="cpu",
-                          runtime_kwargs=kw) as dealer:
-        assert dealer.next_store() is first
+                          total=2, device="cpu") as dealer:
+        assert dealer.next_store().meta["step"] == 0
         second = dealer.next_store()
-    want, _ = deal(_deal_program, seed=SEED + 1, device="cpu",
-                   runtime_kwargs=kw)
+    want, _ = deal(_deal_program, seed=SEED + 1, device="cpu")
     assert second.meta["step"] == 1
     _same_store(second, want)
 
@@ -218,6 +218,45 @@ def _check_registry_and_stores() -> None:
         bank.append(2, back)
     with pytest.raises(PrepMissingError, match="dealer watermark at 1"):
         bank.seek(2)
+
+
+def _check_stray_dial_refused() -> None:
+    """A dial whose hello names a rank of the mesh but carries another
+    token (a cluster that came to the same port) is closed, and the
+    listener goes on to take its own peers."""
+    token = os.urandom(TOKEN_BYTES)
+    endpoints = [("127.0.0.1", p) for p in _free_ports(4)]
+    made = {}
+
+    def boot(rank):
+        made[rank] = SocketTransport(rank, endpoints, token=token,
+                                     device="cpu", timeout=30.0,
+                                     connect_timeout=30.0)
+
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        first = pool.submit(boot, 0)
+        deadline = time.monotonic() + 30.0
+        while True:
+            try:
+                stray = socket.create_connection(endpoints[0], timeout=10.0)
+                break
+            except OSError:
+                assert time.monotonic() < deadline, "P0 never listened"
+                time.sleep(0.05)
+        with stray:
+            stray.sendall(bytes([1]) + bytes(b ^ 0xFF for b in token))
+            assert stray.recv(1) == b"", "a foreign hello was taken"
+        rest = [pool.submit(boot, rank) for rank in (1, 2, 3)]
+        for f in [first, *rest]:
+            f.result(timeout=60)
+    try:
+        for a in range(4):
+            for b in range(a + 1, 4):
+                assert made[a]._socks[b].getpeername() == \
+                    made[b]._socks[a].getsockname(), (a, b)
+    finally:
+        for t in made.values():
+            t.close()
 
 
 def _check_cluster(J, cluster) -> None:
@@ -299,6 +338,7 @@ def test_cluster_matches_jax():
     _check_frames_cross(J)
     # before any other thread runs a runtime: the registry is the process's
     _check_registry_and_stores()
+    _check_stray_dial_refused()
     # the one-shot clusters (two streams that provision their own, the
     # tampered run) boot and run beside the shared cluster: the daemons
     # spend most of their time importing torch
@@ -312,7 +352,7 @@ def test_cluster_matches_jax():
             # the dealer deals while the cluster runs its first tasks
             with TS.attach_live_dealer(cluster, TASK, params0,
                                        DATA.batch(0, BATCH),
-                                       base_seed=TRAIN_SEED, ahead=2,
+                                       base_seed=TRAIN_SEED,
                                        total=STEPS) as dealer:
                 _check_cluster(J, cluster)
                 streams = {None: serve_over_sockets(
