@@ -118,18 +118,57 @@ from the root of a checkout.  In order, it
      seconds, each batch's round-trip wall beside the in-process wall, frames
      and wire bytes a batch, the live step walls, the dealer's lead and
      each daemon's peak device memory, each beside the card's name and
-     power limit.
+     power limit;
+ 10. the observability plane (phase "obs"; tracing is off in every other
+     phase): step 4's batch 0 served untraced and traced in turns (off,
+     on, on, off), each under a fresh metrics registry, the first traced
+     batch a driven path of its own ("obs_runtime"): its words,
+     ``per_link()``, ``totals()`` and launches per kernel equal to step
+     4's batch 0, the tracer's and the registry's link bits equal to
+     ``per_link()``, the ``kernel.*`` spans per kind equal to
+     ``trident_kernel_launches_total`` per kind, every kernel span with a
+     finite ``device_ms`` >= 0 (CUDA events read when the trace is
+     drained), each kernel's summed ``device_ms`` (the stream's window
+     around its calls) at least its device time in step 4's profiled
+     batch, the categories protocol, wire.round, wire.send and kernel
+     present, and ``render_prometheus()`` one sample line for each sample
+     of the snapshot; batch 0 traced through the pipelined server (dealt
+     on the dealer thread's CUDA stream): step 4's words, its spans per
+     kind the registry's launches, and each thread's windows by kernel at
+     least step 5's profiled online-only and deal runs; then one
+     ``PartyCluster(device="cuda", trace=True,
+     metrics=True, live_prep=True, net_model=LAN)``: a warm-up task (its
+     registry bits, tasks 1, inflight 0, ``merged_link_bits`` equal to
+     ``per_link()``), step 4's 2 batches inline through
+     ``serve_over_sockets(metrics=True)`` (the in-process words and
+     traffic, every daemon's launches a batch those of the in-process
+     batch, its batches' kernel spans per kind equal to its scraped
+     launches and its windows by kernel at least twice step 4's profile),
+     the same batches through ``serve_over_sockets(prep="live",
+     metrics=True, cluster=...)`` (the words, no offline bit, and an
+     end-of-stream health document that is healthy with four ranks alive
+     and scraped and the dealer scraped), four scrapes each holding its
+     daemon's ``per_link()`` with no task in flight, the merged timeline
+     saved under TMPDIR with a pid for each rank and the dealer, and a
+     terminated daemon reported as ``rank_down``.  Health documents are
+     taken only between tasks or at a stream's end: the probes are
+     age-gated.  It prints the walls traced and untraced, trace events
+     and chunk bytes a batch, each kernel's summed ``device_ms`` beside
+     step 4's profiled device time, the scrape and health walls and the
+     traced cluster batches beside phase cluster's untraced ones.  The
+     in-process references of the cluster checks are phase cluster's.
 
 Each path (the deal and the online-only run of steps 5 and 8 being two
-each; step 9's daemons count in their own processes) is driven with the launch counts set to 0 just before it and read
+each; step 9's and 10's daemons count in their own processes) is driven with the launch counts set to 0 just before it and read
 just after; the kernel rows report the sum over the paths, and each path
 prints its ``prf_mask`` launches, draw groups and PRF streams per batch or
 step (one launch a group, and on the runtime, joint and training paths as
 many as a CPU run's draw groups).  Any
-failure exits nonzero.  Before the last lines come
+failure exits nonzero.  It prints the wall of each phase; before the
+last lines come
 ``{"offline_online": {...}}`` (step 5's times),
 ``{"runtime_train": {...}}`` (step 8's), ``{"cluster": {...}}`` (step
-9's) and ``{"kernels": [...]}``, then
+9's), ``{"obs": {...}}`` (step 10's) and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -1229,11 +1268,12 @@ def predict_collapsed(device: str, params: dict, net, X) -> tuple:
 
 
 def profile_batch(label: str, run, steady_wall_s: float,
-                  unit: str = "batch") -> tuple:
+                  unit: str = "batch", by_name: dict | None = None) -> tuple:
     """One more batch (`run()`; a training step where `unit` says so)
     under the profiler (CUDA activity): device busy time against the
-    unprofiled steady wall, and device time by kernel name.  Returns (busy
-    ms, device operations)."""
+    unprofiled steady wall, and device time by kernel name (into
+    `by_name`, ms by profiler key, where given).  Returns (busy ms, device
+    operations)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1250,6 +1290,8 @@ def profile_batch(label: str, run, steady_wall_s: float,
     # copies, synchronizations)
     device_ops = sum(e.count for e in evs if e.device_time_total > 0)
     events = sum(e.count for e in evs)
+    if by_name is not None:
+        by_name.update({e.key: e.device_time_total / 1e3 for e in evs})
     print(f"profiled {label} {unit}: device busy {busy_ms:.3f} ms in "
           f"{device_ops} device ops ({events} profiler events with the "
           f"runtime API calls); wall {wall * 1e3:.1f} ms profiled, "
@@ -1653,9 +1695,14 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
         online_s.append(rep.wall_s)
     inline_ms = min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s)
     st = deal_batch()[0]
+    # device ms by profiler key of each profiled run: phase obs holds the
+    # traced pipelined batch's device windows to them
+    by_name = {"online_only": {}, "deal": {}}
     on_busy, on_ops = profile_batch("online-only", lambda: online_batch(st),
-                                    min(online_s))
-    deal_busy, deal_ops = profile_batch("deal", deal_batch, min(deal_s))
+                                    min(online_s),
+                                    by_name=by_name["online_only"])
+    deal_busy, deal_ops = profile_batch("deal", deal_batch, min(deal_s),
+                                        by_name=by_name["deal"])
     times = {"inline_batch_ms": inline_ms * 1e3,
              "deal_ms": [t * 1e3 for t in deal_s],
              "online_only_ms": [t * 1e3 for t in online_s],
@@ -1667,7 +1714,8 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
              "online_only_busy_ms": on_busy, "online_only_device_ops": on_ops,
              "deal_busy_ms": deal_busy, "deal_device_ops": deal_ops,
              "store_bytes": nbytes, "save_s": save_s, "load_s": load_s,
-             "dotp_rounds": rounds, "handoff": handoff}
+             "dotp_rounds": rounds, "handoff": handoff,
+             "profile_by_name": by_name}
     print(f"offline-online times: inline batch {times['inline_batch_ms']:.1f}"
           f" ms; deal {[round(t, 1) for t in times['deal_ms']]} ms; "
           f"online-only {[round(t, 1) for t in times['online_only_ms']]} ms;"
@@ -2212,31 +2260,19 @@ def daemon_stats(rt, _rank):
     return out
 
 
-def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
-    """The port's four-party deployment on the card: four daemon processes
-    over a TCP mesh (``runtime.net.PartyCluster``, the LAN model), a
-    dealer process streaming live prep, each against the in-process
-    runtime on the card; see the module docstring, step 9."""
-    import functools
-
+def socket_references(params, net, queries) -> list:
+    """The in-process runtime on the card, batch k at seed SEED + k as
+    ``serve_over_sockets`` seeds it: its words, traffic, modeled LAN time,
+    launches and wall."""
     import torch
-    from repro_torch.core.ring import RING64, words_to_numpy
+    from repro_torch.core.ring import RING64
     from repro_torch.kernels import ops
     from repro_torch.runtime import FourPartyRuntime, LocalTransport
-    from repro_torch.runtime.net import (LAN, NetModelTransport,
-                                         PartyCluster, run_four_parties)
-    from repro_torch.serve.party_server import serve_over_sockets
-    from repro_torch.train import secure_sgd as SGD
-    from repro_torch.train.data import MNISTLike
+    from repro_torch.runtime.net import LAN, NetModelTransport
     from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
                                             params_from_numpy)
 
     dev = torch.device("cuda")
-    predict = functools.partial(cluster_predict, params=params, net=net)
-    out = {"card": card}
-
-    # 1. the in-process runtime on the card: batch k at seed SEED + k, its
-    # words, traffic, modeled LAN time, launches and wall
     enc = params_from_numpy(params, RING64, dev)
     ref = []
     for k in range(N_BATCHES):
@@ -2250,12 +2286,51 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
         words = mlp_net_predict_runtime(rt, enc, net, X).cpu()
         abort = rt.abort_flag()
         wall = time.perf_counter() - t0
-        check(not abort, "cluster: the in-process reference aborted")
+        check(not abort, "the in-process socket reference aborted")
         ref.append({"words": words, "totals": base.totals(),
                     "per_link": base.per_link(), "wall_s": wall,
                     "modeled": {p: tp.seconds(p) for p in
                                 ("offline", "online")},
                     "launches": {c.name: c.launches for c in ops.KERNELS}})
+    return ref
+
+
+def summed_traffic(ref: list) -> tuple:
+    """(totals(), per_link()) summed over `ref`'s batches, as a
+    ``serve_over_sockets`` report sums them."""
+    totals = {p: {k: sum(r["totals"][p][k] for r in ref)
+                  for k in ("rounds", "bits")}
+              for p in ("offline", "online")}
+    links = {}
+    for r in ref:
+        for link, bits in r["per_link"].items():
+            acc = links.setdefault(link, dict.fromkeys(bits, 0))
+            for p, b in bits.items():
+                acc[p] += b
+    return totals, links
+
+
+def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
+    """The port's four-party deployment on the card: four daemon processes
+    over a TCP mesh (``runtime.net.PartyCluster``, the LAN model), a
+    dealer process streaming live prep, each against the in-process
+    runtime on the card; see the module docstring, step 9.  Returns its
+    numbers and the in-process references (``socket_references``)."""
+    import functools
+
+    import torch
+    from repro_torch.core.ring import words_to_numpy
+    from repro_torch.runtime.net import LAN, PartyCluster, run_four_parties
+    from repro_torch.serve.party_server import serve_over_sockets
+    from repro_torch.train import secure_sgd as SGD
+    from repro_torch.train.data import MNISTLike
+
+    dev = torch.device("cuda")
+    predict = functools.partial(cluster_predict, params=params, net=net)
+    out = {"card": card}
+
+    # 1. the in-process runtime on the card
+    ref = socket_references(params, net, queries)
 
     # 2. boot, then serve the same batches inline through the daemons
     t0 = time.perf_counter()
@@ -2287,15 +2362,7 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
         want = np.concatenate([words_to_numpy(r["words"]) for r in ref])
         check(np.array_equal(np.stack(preds), want),
               "cluster: opened words differ from the in-process runtime's")
-        sum_totals = {p: {k: sum(r["totals"][p][k] for r in ref)
-                          for k in ("rounds", "bits")}
-                      for p in ("offline", "online")}
-        sum_links = {}
-        for r in ref:
-            for link, bits in r["per_link"].items():
-                acc = sum_links.setdefault(link, dict.fromkeys(bits, 0))
-                for p, b in bits.items():
-                    acc[p] += b
+        sum_totals, sum_links = summed_traffic(ref)
         check(rep["totals"] == sum_totals and rep["per_link"] == sum_links,
               "cluster: totals() or per_link() differ from the in-process "
               "runtime's")
@@ -2446,6 +2513,426 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> dict:
     print(f"cluster [{card}]: run_four_parties with {TAMPER}: every daemon "
           f"aborted")
     out["live_serve_party_wall_s"] = lrep["party_wall_s"]
+    return out, ref
+
+
+# --- the observability plane (phase "obs") -------------------------------
+# each kernel-backend kind and the kernel its calls launch; the profiler
+# tells ring_matmul.cu's one kernel apart by name only, not the gamma
+# pieces' ring matmuls from the online grids, and gamma_parts.cu's kernel
+# by its mode (ring: mult_terms, XOR: and_terms)
+OBS_KIND_KERNELS = {
+    "prf_bits": "prf_mask", "prf_bounded": "prf_mask",
+    "gamma.matmul": "ring_matmul + mpc_matmul_grid",
+    "online.matmul": "ring_matmul + mpc_matmul_grid",
+    "gamma.mul": "mult_terms", "online.mul": "mult_terms",
+    "gamma.bool": "and_terms", "online.bool": "and_terms",
+}
+OBS_CATEGORIES = ("protocol", "wire.round", "wire.send", "kernel")
+
+
+def profiled_kernel(key: str) -> str | None:
+    """The kernel of ``OBS_KIND_KERNELS`` a profiler key names, if any."""
+    if "squares_group_kernel" in key:
+        return "prf_mask"
+    if "ring_matmul_kernel" in key:
+        return "ring_matmul + mpc_matmul_grid"
+    if "terms_group_kernel" in key:
+        return "and_terms" if "true" in key else "mult_terms"
+    return None
+
+
+def nonzero_links(per_link: dict) -> dict:
+    """``per_link()``'s cells that moved bits: what the tracer and the
+    registry keep."""
+    out = {}
+    for link, per in per_link.items():
+        cell = {p: b for p, b in per.items() if b}
+        if cell:
+            out[link] = cell
+    return out
+
+
+def span_counts(chunks, tid=None, other_threads: bool = False) -> dict:
+    """kind -> [kernel spans, their summed device ms] over `chunks` (the
+    spans of thread `tid` alone, or with `other_threads` those of every
+    other thread); fails on a span without a finite device time >= 0."""
+    import math
+    out = {}
+    for chunk in chunks:
+        for e in chunk["events"]:
+            if e["cat"] != "kernel" or (
+                    tid is not None and (e["tid"] == tid) == other_threads):
+                continue
+            ms = e["args"].get("device_ms")
+            check(ms is not None and math.isfinite(ms) and ms >= 0,
+                  f"obs: {chunk['label']}: a {e['name']} span without a "
+                  f"device time ({ms})")
+            acc = out.setdefault(e["args"]["kind"], [0, 0.0])
+            acc[0] += 1
+            acc[1] += ms
+    return out
+
+
+def check_windows(what: str, spans: dict, profile: dict,
+                  batches: int = 1) -> dict:
+    """Each kernel's summed ``device_ms`` over `batches` batches against
+    its device time in one profiled batch (`profile`: ms by profiler key).
+    The timing events bracket a call's kernels on the stream that runs
+    them, so the windows hold those kernels: a kernel whose windows sum to
+    less than `batches` times its profiled time had its events recorded on
+    another stream.  Returns (windows, profiled) ms by kernel."""
+    got, floor = {}, {}
+    for kind, (_, ms) in spans.items():
+        name = OBS_KIND_KERNELS[kind]
+        got[name] = got.get(name, 0.0) + ms
+    for key, ms in profile.items():
+        name = profiled_kernel(key)
+        if name is not None:
+            floor[name] = floor.get(name, 0.0) + ms
+    check(floor, f"obs: {what}: the profile holds none of the kernels")
+    for name, ms in sorted(floor.items()):
+        check(got.get(name, 0.0) >= batches * ms,
+              f"obs: {what}: {name}'s device windows sum to "
+              f"{got.get(name, 0.0):.4f} ms, under {batches} x its "
+              f"profiled {ms:.4f} ms")
+    return got, floor
+
+
+def registry_kinds(snap: dict) -> dict:
+    """``trident_kernel_launches_total`` by kind."""
+    fam = snap["metrics"].get("trident_kernel_launches_total")
+    return {s["labels"]["kind"]: s["value"]
+            for s in (fam["samples"] if fam else ())}
+
+
+def daemon_per_link(rt, _rank):
+    """Read inside a daemon: its transport's per_link() over every task."""
+    return rt.transport.per_link()
+
+
+def obs_phase(params, net, queries, kernels: list, step4: dict,
+              cluster_out: dict, ref: list, card: str) -> dict:
+    """The observability plane on the card: a traced in-process batch and
+    a traced pipelined one, then a traced, scraped cluster; see the module
+    docstring, step 10.  ``ref`` is phase cluster's in-process references.
+    Tracing stays off in every other phase."""
+    import functools
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from repro_torch import obs
+    from repro_torch.core.ring import RING64, words_to_numpy
+    from repro_torch.runtime.net import LAN, PartyCluster
+    from repro_torch.serve.party_server import (PartyPredictionServer,
+                                                serve_over_sockets)
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
+
+    out = {"card": card}
+    X0 = queries[:BATCH]
+
+    # 1. in process: step 4's batch 0, untraced and traced in turns (off,
+    # on, on, off), each under a fresh registry; the first traced batch is
+    # a driven path and is checked
+    def batch(traced: bool):
+        tracer = obs.Tracer("obs") if traced else obs.NULL_TRACER
+        reg = obs.MetricsRegistry("obs")
+        prev = obs.install_tracer(tracer), obs.install_registry(reg)
+        try:
+            srv, words = serve("cuda", "hopper", params, net, X0)
+        finally:
+            obs.install_tracer(prev[0])
+            obs.install_registry(prev[1])
+        link_bits = tracer.link_bits() if traced else None
+        t0 = time.perf_counter()
+        chunk = tracer.drain()
+        return {"srv": srv, "words": words, "reg": reg, "chunk": chunk,
+                "link_bits": link_bits,
+                "drain_s": time.perf_counter() - t0}
+
+    walls = {"off": [], "on": []}
+    runs = []
+    for k, traced in enumerate((False, True, True, False)):
+        if k == 1:
+            run, _ = drive("obs_runtime", kernels, CLUSTER_KERNELS,
+                           lambda: batch(True), 1)
+        else:
+            run = batch(traced)
+        runs.append(run)
+        walls["on" if traced else "off"].append(
+            run["srv"].stats.batch_walls_s[0])
+        check(torch.equal(run["words"].cpu(), step4["words"])
+              and run["srv"].batch_traffic[0] == step4["traffic"],
+              f"obs: batch {k} ({'traced' if traced else 'untraced'}): "
+              f"words, per_link() or totals() differ from step 4's batch 0")
+    t = runs[1]
+    per_link = t["srv"].batch_traffic[0][0]
+    check(t["link_bits"] == nonzero_links(per_link),
+          "obs: the tracer's link bits differ from per_link()")
+    check(t["reg"].link_bits() == nonzero_links(per_link),
+          "obs: trident_wire_bits_total differs from per_link()")
+    launched = {k["name"]: k["launches_by_path"]["obs_runtime"]
+                for k in kernels}
+    check(all(launched[n] == step4["launches"][n] for n in CLUSTER_KERNELS),
+          f"obs: traced launches {launched}, untraced batch "
+          f"{step4['launches']}")
+    spans = span_counts([t["chunk"]])
+    kinds = registry_kinds(t["reg"].snapshot())
+    print(f"obs [{card}]: in process, kernel spans per kind "
+          f"{ {k: v[0] for k, v in spans.items()} }; "
+          f"trident_kernel_launches_total {kinds}")
+    check({k: v[0] for k, v in spans.items()} == kinds,
+          "obs: kernel spans per kind differ from the registry's launches")
+    cats = {e["cat"] for e in t["chunk"]["events"]}
+    check(all(c in cats for c in OBS_CATEGORIES),
+          f"obs: categories {sorted(cats)} lack one of {OBS_CATEGORIES}")
+    snap = t["reg"].snapshot()
+    lines = [ln for ln in t["reg"].render_prometheus().splitlines()
+             if not ln.startswith("#")]
+    samples = sum(len(s["edges"]) + 3 if f["type"] == "histogram" else 1
+                  for f in snap["metrics"].values() for s in f["samples"])
+    check(len(lines) == samples, f"obs: {len(lines)} Prometheus sample "
+          f"lines for {samples} of the snapshot")
+    per_kernel, profiled = check_windows("in process", spans,
+                                         step4["profile"])
+    chunk_bytes = len(json.dumps(t["chunk"]))
+    out.update({
+        "in_process_walls_ms": {m: [w * 1e3 for w in v]
+                                for m, v in walls.items()},
+        "drain_ms": [r["drain_s"] * 1e3 for r in runs if r["link_bits"]],
+        "trace_events_per_batch": len(t["chunk"]["events"]),
+        "chunk_bytes_per_batch": chunk_bytes,
+        "kernel_spans": {k: v[0] for k, v in spans.items()},
+        "device_ms_by_kind": {k: v[1] for k, v in spans.items()},
+        "device_ms_by_kernel": per_kernel,
+        "step4_profiled_ms_by_kernel": profiled})
+    print(f"obs [{card}]: batch 0 in process, walls untraced "
+          f"{[round(w * 1e3, 1) for w in walls['off']]} ms, traced "
+          f"{[round(w * 1e3, 1) for w in walls['on']]} ms (drain "
+          f"{[round(v, 2) for v in out['drain_ms']]} ms); "
+          f"{out['trace_events_per_batch']} trace events, {chunk_bytes} "
+          f"chunk bytes (JSON) a batch; words, per_link(), totals() and "
+          f"launches those of step 4's batch 0; tracer and registry bits "
+          f"equal to per_link()")
+    for name in sorted(per_kernel):
+        print(f"obs [{card}]: {name}: kernel spans' device_ms "
+              f"{per_kernel[name]:.4f} ms a batch (the stream's window "
+              f"around the backend calls); step 4's profile "
+              f"{profiled.get(name, 0.0):.4f} ms (the kernels alone)")
+
+    # the pipelined server, traced: batch 0 dealt on the dealer thread's
+    # own CUDA stream and served online-only on this thread's; each
+    # thread's kernel windows against the profiled deal and online-only
+    # runs of step 5
+    tracer, reg = obs.Tracer("obs"), obs.MetricsRegistry("obs")
+    prev = obs.install_tracer(tracer), obs.install_registry(reg)
+    try:
+        enc = params_from_numpy(params, RING64, "cuda")
+        psrv = PartyPredictionServer(
+            lambda rt, Xb: mlp_net_predict_runtime(rt, enc, net, Xb),
+            batch_size=BATCH, seed=SEED, prep="pipelined", device="cuda")
+        for q in X0:
+            psrv.submit(q)
+        pwords = torch.stack(psrv.flush())
+    finally:
+        obs.install_tracer(prev[0])
+        obs.install_registry(prev[1])
+    pchunk = tracer.drain()
+    check(torch.equal(pwords.cpu(), step4["words"]),
+          "obs: the traced pipelined batch's words differ from step 4's "
+          "batch 0")
+    me = threading.get_ident()
+    pspans = span_counts([pchunk])
+    check({k: v[0] for k, v in pspans.items()}
+          == registry_kinds(reg.snapshot()),
+          "obs: the pipelined batch's kernel spans differ from the "
+          "registry's launches")
+    online = span_counts([pchunk], tid=me)
+    dealt = span_counts([pchunk], tid=me, other_threads=True)
+    check(online and dealt, f"obs: pipelined kernel spans on this thread "
+          f"{sorted(online)}, on the dealer thread {sorted(dealt)}")
+    pipe_online = check_windows("pipelined, online-only", online,
+                                step4["profile_split"]["online_only"])
+    pipe_deal = check_windows("pipelined, dealer thread", dealt,
+                              step4["profile_split"]["deal"])
+    out["pipelined_device_ms_by_kernel"] = {
+        "online_only": pipe_online[0], "dealer_thread": pipe_deal[0],
+        "profiled_online_only": pipe_online[1],
+        "profiled_deal": pipe_deal[1]}
+    for what, (got, floor) in (("online-only", pipe_online),
+                               ("dealer thread", pipe_deal)):
+        print(f"obs [{card}]: pipelined batch 0, {what}: device_ms by "
+              f"kernel { {k: round(v, 4) for k, v in got.items()} }; "
+              f"step 5's profile { {k: round(v, 4) for k, v in floor.items()} }")
+
+    # 2. one traced, metered cluster: a warm-up task, an inline stream
+    # (its batches' spans against the daemons' launches), a live stream
+    # (the dealer scraped), scrapes, the merged timeline, a terminated
+    # daemon.  Health documents only between tasks and at a stream's end.
+    want = np.concatenate([words_to_numpy(r["words"]) for r in ref])
+    sum_totals, sum_links = summed_traffic(ref)
+    per_batch = {n: sum(r["launches"][n] for r in ref) / N_BATCHES
+                 for n in CLUSTER_KERNELS}
+    predict = functools.partial(cluster_predict, params=params, net=net)
+    t0 = time.perf_counter()
+    cluster = PartyCluster(device="cuda", trace=True, metrics=True,
+                           live_prep=True, net_model=LAN,
+                           timeout=CLUSTER_TIMEOUT)
+    out["boot_s"] = time.perf_counter() - t0
+    tmp = tempfile.mkdtemp(prefix="obs-trace-")
+    try:
+        check(sorted(cluster.metrics_ports) == [0, 1, 2, 3]
+              and all(cluster.metrics_ports.values()),
+              f"obs: exporter ports {cluster.metrics_ports}")
+        warm = cluster.submit(functools.partial(cluster_batch, X=X0,
+                                                params=params, net=net),
+                              seed=SEED)
+        for r in warm:
+            check(np.array_equal(r.result, words_to_numpy(ref[0]["words"]))
+                  and r.per_link == ref[0]["per_link"] and not r.abort,
+                  f"obs: warm-up task on P{r.rank} differs from the "
+                  f"in-process batch")
+            check(obs.snapshot_link_bits(r.metrics)
+                  == nonzero_links(r.per_link)
+                  and obs.snapshot_value(r.metrics,
+                                         "trident_cluster_tasks_total") == 1
+                  and obs.snapshot_value(
+                      r.metrics, "trident_cluster_tasks_inflight") == 0,
+                  f"obs: P{r.rank}'s task metrics: bits, tasks or inflight")
+        merged_bits = obs.merged_link_bits([r.trace for r in warm])
+        check(merged_bits == {f"{s}->{d}": c for (s, d), c
+                              in nonzero_links(ref[0]["per_link"]).items()},
+              "obs: merged_link_bits of the warm-up task differ from "
+              "per_link()")
+
+        cluster.submit(daemon_stats)            # launch counts to 0
+        before = cluster.scrape()
+        n0 = len(cluster.trace_chunks)        # four chunks a task
+        first = len(cluster.task_walls)
+        preds, rep = serve_over_sockets(
+            predict, queries, batch_size=BATCH, seed=SEED, net_model=LAN,
+            timeout=CLUSTER_TIMEOUT, cluster=cluster, device="cuda",
+            metrics=True)
+        inline_walls = cluster.task_walls[first:first + N_BATCHES]
+        chunks = cluster.trace_chunks[n0:n0 + 4 * N_BATCHES]
+        stats = cluster.submit(daemon_stats)
+        after = cluster.scrape()
+        check(np.array_equal(np.stack(preds), want) and not rep["aborted"]
+              and rep["totals"] == sum_totals
+              and rep["per_link"] == sum_links,
+              "obs: the traced inline stream's words or traffic differ from "
+              "the in-process runtime's")
+        print(f"obs [{card}]: inline stream health {json.dumps(rep['health'])}")
+        check(rep["health"]["healthy"], "obs: the inline stream's health "
+              "document is not healthy")
+        check(sorted(c["rank"] for c in chunks)
+              == sorted(list(range(4)) * N_BATCHES),
+              f"obs: {len(chunks)} daemon chunks for {N_BATCHES} batches")
+        for k in kernels:
+            n = stats[0].result["launches"][k["name"]]
+            k["launches"] += n
+            k["launches_by_path"]["obs_cluster"] = n
+        for r in stats:
+            rank = r.rank
+            got = {n: r.result["launches"][n] / N_BATCHES
+                   for n in CLUSTER_KERNELS}
+            spans = span_counts([c for c in chunks if c["rank"] == rank])
+            delta = {k: v - registry_kinds(before[rank]).get(k, 0)
+                     for k, v in registry_kinds(after[rank]).items()}
+            print(f"obs [{card}]: P{rank}: launches a batch {got}; kernel "
+                  f"spans per kind (2 batches) "
+                  f"{ {k: v[0] for k, v in spans.items()} }; registry "
+                  f"launches {delta}")
+            check(got == per_batch, f"obs: P{rank} launched {got} a batch, "
+                  f"the in-process batch {per_batch}")
+            check({k: v[0] for k, v in spans.items()}
+                  == {k: v for k, v in delta.items() if v},
+                  f"obs: P{rank}'s kernel spans differ from its launches")
+            windows, _ = check_windows(f"P{rank}", spans, step4["profile"],
+                                       batches=N_BATCHES)
+            out.setdefault("daemon_device_ms_by_kernel", {})[rank] = windows
+
+        first = len(cluster.task_walls)
+        lpreds, lrep = serve_over_sockets(
+            predict, queries, batch_size=BATCH, seed=SEED, net_model=LAN,
+            timeout=CLUSTER_TIMEOUT, cluster=cluster, device="cuda",
+            prep="live", metrics=True)
+        live_walls = cluster.task_walls[first:first + N_BATCHES]
+        health = lrep["health"]
+        print(f"obs [{card}]: live stream health {json.dumps(health)}")
+        check(np.array_equal(np.stack(lpreds), want) and not lrep["aborted"]
+              and lrep["totals"]["offline"]["bits"] == 0
+              and lrep["totals"]["online"] == sum_totals["online"],
+              "obs: the live stream's words or traffic differ")
+        check(health["healthy"] and sorted(health["ranks"]) == [0, 1, 2, 3]
+              and all(e["alive"] and e["scrape_ok"]
+                      for e in health["ranks"].values())
+              and health["dealer"] is not None
+              and health["dealer"]["scrape_ok"],
+              "obs: the end-of-stream health document is not healthy with "
+              "four ranks and the dealer scraped")
+
+        links = {r.rank: r.result for r in cluster.submit(daemon_per_link)}
+        t0 = time.perf_counter()
+        snaps = cluster.scrape()
+        scrape_s = time.perf_counter() - t0
+        check(sorted(snaps) == [0, 1, 2, 3] and all(snaps.values()),
+              f"obs: scraped {sorted(k for k, v in snaps.items() if v)}")
+        for rank, snap in snaps.items():
+            check(obs.snapshot_link_bits(snap) == nonzero_links(links[rank])
+                  and obs.snapshot_value(
+                      snap, "trident_cluster_tasks_inflight") == 0,
+                  f"obs: P{rank}'s scrape: bits differ from its per_link() "
+                  f"or a task in flight")
+        t0 = time.perf_counter()
+        doc = cluster.health()
+        health_s = time.perf_counter() - t0
+        check(doc["healthy"], f"obs: health between tasks {doc}")
+
+        dealer_chunks = [c for c in cluster.trace_chunks
+                         if c["label"] == "dealer"]
+        merged = cluster.save_trace(os.path.join(tmp, "cluster.json"))
+        procs = sorted(merged["metadata"]["processes"])
+        check(procs == ["dealer"] + [f"party-P{r}" for r in range(4)]
+              and merged["metadata"]["ranks"] == [0, 1, 2, 3],
+              f"obs: the merged timeline's processes {procs}")
+        trace_bytes = os.path.getsize(os.path.join(tmp, "cluster.json"))
+
+        victim = cluster._procs[3]
+        victim.terminate()
+        victim.join(timeout=30)
+        down = cluster.health()
+        print(f"obs [{card}]: after P3 was terminated: {json.dumps(down)}")
+        check(not down["healthy"] and [
+            (p["probe"], p.get("rank")) for p in down["probes"]]
+            == [("rank_down", 3)],
+            "obs: a terminated daemon is not reported rank_down")
+    finally:
+        cluster.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    untraced = cluster_out["serve_task_walls_ms"]
+    out.update({
+        "cluster_boot_s": out.pop("boot_s"),
+        "cluster_inline_walls_ms": [w * 1e3 for w in inline_walls],
+        "cluster_untraced_inline_walls_ms": untraced,
+        "cluster_live_walls_ms": [w * 1e3 for w in live_walls],
+        "scrape_ms": scrape_s * 1e3, "health_ms": health_s * 1e3,
+        "merged_trace_bytes": trace_bytes,
+        "merged_trace_events": len(merged["traceEvents"]),
+        "dealer_chunks": len(dealer_chunks)})
+    print(f"obs [{card}]: cluster booted traced and metered in "
+          f"{out['cluster_boot_s']:.2f} s; inline batches traced "
+          f"{[round(w, 1) for w in out['cluster_inline_walls_ms']]} ms "
+          f"(phase cluster, untraced: {[round(w, 1) for w in untraced]} "
+          f"ms); live (online-only) batches "
+          f"{[round(w, 1) for w in out['cluster_live_walls_ms']]} ms; "
+          f"scrape of four exporters {scrape_s * 1e3:.2f} ms, health "
+          f"document {health_s * 1e3:.2f} ms; merged timeline "
+          f"{out['merged_trace_events']} events, {trace_bytes} bytes, the "
+          f"four ranks and the dealer ({len(dealer_chunks)} chunks)")
     return out
 
 
@@ -2459,6 +2946,15 @@ def main() -> int:
     from repro_torch.train.paper_ml import MLPNet, mlp_net_init
 
     t_start = time.perf_counter()
+    # the wall of each phase, from the end of the one before it
+    walls = {}
+    t_mark = [t_start]
+
+    def lap(phase: str) -> None:
+        now = time.perf_counter()
+        walls[phase] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     card = gpu_name_and_limit()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2494,8 +2990,10 @@ def main() -> int:
     print(f"prf_mask: {prf_instructions} integer instructions a squares() "
           f"word in the SASS of squares_probe: {prf_sass}")
 
+    lap("build")
     rng = np.random.RandomState(SEED)
     kernels = kernel_phase(rng, ptxas, prf_instructions)
+    lap("kernels")
     for k in kernels:
         print(f"kernel {k['name']}: {k['ms']:.4f} ms on the device, "
               f"{k['call_ms']:.4f} ms per wrapper call (plain "
@@ -2620,17 +3118,23 @@ def main() -> int:
           f"round calls, prf_mask {ops.PRF_MASK.calls} draw groups a batch "
           f"on the CPU")
     check_probs("runtime", words, want)
+    step4 = {"words": words[:BATCH].cpu(), "traffic": srv.batch_traffic[0],
+             "launches": on_card, "profile": {}}
     profile_batch("runtime", lambda: serve("cuda", "hopper", params, net,
                                            queries[:BATCH]),
-                  min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s))
+                  min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s),
+                  by_name=step4["profile"])
 
+    lap("runtime")
     # --- the runtime's offline-online split ------------------------------
     print("phase runtime-offline-online")
     split = offline_online_phase(params, net, queries[:BATCH], kernels, srv,
                                  words)
     next(k for k in kernels if k["name"] == "mult_terms")[
         "dotp_rounds"] = split.pop("dotp_rounds")
+    step4["profile_split"] = split.pop("profile_by_name")
 
+    lap("runtime-offline-online")
     # --- joint path A: faithful joint simulation, served ------------------
     (jsrv, jwords), wall = drive(
         "joint_faithful", kernels, ("prf_mask", "ring_matmul", "and_level"),
@@ -2665,6 +3169,7 @@ def main() -> int:
                                                  queries[:BATCH]),
                   min(jsrv.batch_walls_s[1:] or jsrv.batch_walls_s))
 
+    lap("joint-faithful")
     # --- joint path B: collapsed joint simulation, one batch --------------
     X = queries[:BATCH]
     (ctx, cwords), wall = drive(
@@ -2691,18 +3196,30 @@ def main() -> int:
                                                        X),
                   time.perf_counter() - t0)
 
+    lap("joint-collapsed")
     # --- secure training on the party runtime -----------------------------
     print("phase runtime-train")
     train = runtime_train_phase(kernels)
+    lap("runtime-train")
 
     # --- the four parties as four processes over TCP ----------------------
     print("phase cluster")
-    cluster = cluster_phase(params, net, queries, kernels, card)
+    cluster, cluster_ref = cluster_phase(params, net, queries, kernels,
+                                         card)
+    lap("cluster")
 
+    # --- the observability plane ------------------------------------------
+    print("phase obs")
+    observed = obs_phase(params, net, queries, kernels, step4, cluster,
+                         cluster_ref, card)
+    lap("obs")
+
+    print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
     print(json.dumps({"runtime_train": train}))
     print(json.dumps({"cluster": cluster}))
+    print(json.dumps({"obs": observed}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

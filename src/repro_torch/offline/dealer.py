@@ -23,6 +23,7 @@ import dataclasses
 import time
 
 from ..core.ring import RING64, Ring
+from ..obs import get_tracer
 from .store import DealPrep, PrepBank, PrepError, PrepStore
 
 
@@ -73,11 +74,18 @@ def deal(program, *, ring: Ring = RING64, seed: int = 0, transport=None,
     if aborted:
         raise PrepError("dealer pass aborted: offline-phase consistency "
                         "checks failed")
+    offline_bits = totals["offline"]["bits"] - before["offline"]["bits"]
+    tracer = get_tracer()
+    if tracer.enabled:
+        tracer.raw_span("deal", "prep", t0, wall, seed=seed,
+                        session=store.meta.get("session"),
+                        entries=len(store) - entries_before,
+                        offline_bits=offline_bits)
     return store, DealReport(
         entries=len(store) - entries_before,
         offline_rounds=totals["offline"]["rounds"]
         - before["offline"]["rounds"],
-        offline_bits=totals["offline"]["bits"] - before["offline"]["bits"],
+        offline_bits=offline_bits,
         wall_s=wall,
         abort=False,
         summary=store.summary(),

@@ -31,6 +31,17 @@ A watcher thread in the parent monitors the dealer process: if it dies
 without posting its own error (hard kill, out of memory), the watcher
 poisons the party daemons' banks itself, so a blocked training step still
 fails naming the dealer's death.
+
+Observability follows the cluster's ``trace`` and ``metrics``
+settings: the dealer process traces each session's ``session.deal`` and
+``session.ship`` spans and sends its drained chunk to the parent after
+every session (``trace_chunks``), so a killed dealer still leaves its
+dealt sessions on the merged timeline.  Its registry counts sessions
+dealt and shipped and keeps the watermark and ``trident_dealer_done``;
+with ``metrics`` an HTTP exporter serves it, its port published before
+the first session (``metrics_port``).  A dealer that finished its quota
+keeps serving its exporter until it is closed, so a health document taken
+at the end of a stream reads its final watermark and ``done``.
 """
 from __future__ import annotations
 
@@ -42,6 +53,8 @@ import threading
 import time
 import traceback
 
+from ..obs import (MetricsRegistry, Tracer, get_tracer, install_registry,
+                   install_tracer)
 from .store import PrepBank, PrepError, PrepMissingError, PrepStore
 
 DEFAULT_AHEAD = 2
@@ -132,7 +145,7 @@ class LivePrepBank(PrepBank):
     def wait_for(self, session: int, timeout: float | None = 60.0) -> None:
         """Block until `session` has been streamed into the bank; a block
         longer than ``STALL_LOG_S`` (the consumer outran the dealer) is
-        logged."""
+        logged and traced as a ``prep.stall`` span."""
         t0 = time.perf_counter()
         try:
             self._wait_for(session, timeout)
@@ -143,6 +156,11 @@ class LivePrepBank(PrepBank):
                     "live prep watermark stall: waited %.3fs for session "
                     "%d (watermark %d) -- the dealer is behind the "
                     "consumer", stalled, session, len(self._stores))
+                tracer = get_tracer()
+                if tracer.enabled:
+                    tracer.raw_span("prep.stall", "prep", t0, stalled,
+                                    session=session,
+                                    watermark=len(self._stores))
 
     def _wait_for(self, session: int, timeout: float | None) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
@@ -193,7 +211,30 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
     control queues.  Runs in its own spawned process, so
     ``cfg["program_for_step"]`` must be picklable (a module-level callable
     or a functools.partial of one)."""
+    exporter = None
     try:
+        if cfg["trace"]:
+            install_tracer(Tracer("dealer"))
+        tracer = get_tracer()
+        # the registry is always on; with metrics its exporter's port goes
+        # out BEFORE any session is dealt, so a dealer still warming up can
+        # be scraped
+        reg = MetricsRegistry("dealer")
+        install_registry(reg)
+        if cfg["metrics"]:
+            from ..obs.exporter import MetricsExporter
+            exporter = MetricsExporter(reg)
+            status_q.put(("metrics_port", exporter.port))
+        c_dealt = reg.counter("trident_dealer_sessions_dealt_total",
+                              "sessions fully dealt by the dealer runtime")
+        c_shipped = reg.counter(
+            "trident_dealer_sessions_shipped_total",
+            "sessions fanned out to every consuming party daemon")
+        g_mark = reg.gauge("trident_dealer_watermark",
+                           "next session the dealer will ship")
+        g_done = reg.gauge("trident_dealer_done",
+                           "1 once the dealer finished its quota cleanly")
+
         from ..runtime.net.cluster import boot_device
         device = boot_device(cfg["device"])
 
@@ -205,7 +246,10 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                               device=device) as dealer:
             session = 0
             while cfg["total"] is None or session < cfg["total"]:
+                t0 = time.perf_counter()
                 store = dealer.next_store(timeout=None)
+                t1 = time.perf_counter()
+                c_dealt.inc()
                 # every daemon simulates all four parties, so each gets the
                 # full store: serialized once, the blob fanned out
                 blob = store_to_blob(store)
@@ -214,10 +258,23 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                     # bounded queue: a full window blocks the dealer here
                     q.put(("prep", session, blob))
                 status_q.put(("dealt", session, len(blob)))
+                c_shipped.inc()
+                g_mark.set(session + 1)
+                if tracer.enabled:
+                    now = time.perf_counter()
+                    tracer.raw_span("session.deal", "prep", t0, t1 - t0,
+                                    session=session)
+                    tracer.raw_span("session.ship", "prep", t1, now - t1,
+                                    session=session, bytes=len(blob))
+                    status_q.put(("trace", tracer.drain()))
                 session += 1
+        g_done.set(1)
         status_q.put(("done", session))
         for q in ctrl_qs:
             q.put(("dealer_done", session))
+        if exporter is not None:
+            # the finished dealer stays scrapeable until close() ends it
+            threading.Event().wait()
     except Exception:
         tb = traceback.format_exc()
         # best-effort delivery: OSError/ValueError mean the parent already
@@ -232,6 +289,9 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                 q.put(("dealer_error", tb), timeout=5.0)
             except (_queue.Full, OSError, ValueError):
                 pass
+    finally:
+        if exporter is not None:
+            exporter.close()
 
 
 class DealerDaemon:
@@ -276,12 +336,20 @@ class DealerDaemon:
         self._closed = False
         # (session, blob bytes, perf_counter when the dealer shipped it)
         self.shipped: list = []
+        # the clusters' settings (their flags or the environment), so one
+        # flag covers the deployment; chunks arrive once per dealt
+        # session, the exporter's port before the first
+        self.trace = any(c.trace for c in clusters)
+        self.metrics = any(c.metrics for c in clusters)
+        self.trace_chunks: list = []
+        self.metrics_port: int | None = None
         ctx = mp.get_context("spawn")
         self._status_q = ctx.Queue()
         cfg = {
             "program_for_step": program_for_step,
             "ring": clusters[0].ring, "device": clusters[0].device,
             "base_seed": base_seed, "total": total,
+            "trace": self.trace, "metrics": self.metrics,
         }
         self._proc = ctx.Process(target=_dealer_daemon_main,
                                  args=(cfg, list(ctrl_qs), self._status_q),
@@ -303,6 +371,10 @@ class DealerDaemon:
                 self._dealt = item[1]
             elif kind == "error":
                 self._error = item[1]
+            elif kind == "trace":
+                self.trace_chunks.append(item[1])
+            elif kind == "metrics_port":
+                self.metrics_port = item[1]
 
     def _watch(self) -> None:
         while True:
@@ -355,6 +427,12 @@ class DealerDaemon:
         """Sessions fully streamed to every consuming daemon."""
         with self._slock:
             return self._dealt
+
+    @property
+    def done(self) -> bool:
+        """The dealer dealt and shipped its ``total`` sessions."""
+        with self._slock:
+            return self._done
 
     @property
     def failed(self) -> str | None:

@@ -35,6 +35,8 @@ outputs do not depend on the backend.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
 from ..core import algebra as AL
@@ -320,6 +322,97 @@ class MeteredKernels:
         for _ in requests:
             self._count("online.bool")
         return self._inner.bool_online_parts_round(requests)
+
+
+class TracedKernels:
+    """Tracing proxy over a backend (``MeteredKernels``): every request of
+    a call becomes a ``kernel.{kind}`` span (backend, kind, shape) on the
+    process tracer, so the spans of a kind count what
+    ``trident_kernel_launches_total`` counts.  A round call or a PRF draw
+    group serves several requests at once; its host interval and device
+    time are split evenly over their spans (``group``: the requests of
+    the call).  On the card a pair of CUDA timing events on the current
+    stream brackets the call -- the staging and the launches it queues --
+    and ``Tracer.drain`` reads them into each span's ``device_ms``.
+    ``FourPartyRuntime`` installs the proxy only when tracing is enabled,
+    so the disabled path holds no proxy and records no event."""
+
+    def __init__(self, inner, tracer, device: torch.device):
+        self._inner = inner
+        self._tracer = tracer
+        self.name = inner.name
+        self._device = device if device.type == "cuda" else None
+
+    def __getattr__(self, attr):
+        return getattr(self._inner, attr)
+
+    def _call(self, reqs, fn, *args):
+        """``fn(*args)`` as the spans of ``reqs``, one ``(kind, shape)``
+        per request."""
+        events = stream = None
+        if self._device is not None:
+            stream = torch.cuda.current_stream(self._device)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            dur = time.perf_counter() - t0
+            if events is not None:
+                events[1].record(stream)
+            n = len(reqs)
+            self._tracer.device_spans(
+                [(f"kernel.{kind}", {"backend": self.name, "kind": kind,
+                                     "shape": list(shape), "group": n})
+                 for kind, shape in reqs], "kernel", t0, dur, events)
+
+    def prf_bits_group(self, draws, ring, device):
+        return self._call(
+            [("prf_bits" if bits is None else "prf_bounded", shape)
+             for _, _, shape, bits in draws],
+            self._inner.prf_bits_group, draws, ring, device)
+
+    def gamma_pieces(self, kind, op, lam_x, lam_y, masks, js):
+        return self._call([(f"gamma.{kind}", masks[js[0]].shape)],
+                          self._inner.gamma_pieces, kind, op, lam_x, lam_y,
+                          masks, js)
+
+    def online_parts(self, kind, op, m_x, m_y, lam_x, lam_y, gammas,
+                     lam_zs, js):
+        return self._call([(f"online.{kind}", m_x.shape)],
+                          self._inner.online_parts, kind, op, m_x, m_y,
+                          lam_x, lam_y, gammas, lam_zs, js)
+
+    def bool_gamma_pieces(self, lam_x, lam_y, masks, js):
+        return self._call([("gamma.bool", masks[js[0]].shape)],
+                          self._inner.bool_gamma_pieces, lam_x, lam_y,
+                          masks, js)
+
+    def bool_online_parts(self, m_x, m_y, lam_x, lam_y, gammas, lam_zs, js):
+        return self._call([("online.bool", m_x.shape)],
+                          self._inner.bool_online_parts, m_x, m_y, lam_x,
+                          lam_y, gammas, lam_zs, js)
+
+    # a request: (lam_x, lam_y, masks, js) offline, (m_x, ...) online
+    def gamma_pieces_round(self, kind, op, requests):
+        return self._call([(f"gamma.{kind}", r[2][r[3][0]].shape)
+                           for r in requests],
+                          self._inner.gamma_pieces_round, kind, op, requests)
+
+    def online_parts_round(self, kind, op, requests):
+        return self._call([(f"online.{kind}", r[0].shape) for r in requests],
+                          self._inner.online_parts_round, kind, op, requests)
+
+    def bool_gamma_pieces_round(self, requests):
+        return self._call([("gamma.bool", r[2][r[3][0]].shape)
+                           for r in requests],
+                          self._inner.bool_gamma_pieces_round, requests)
+
+    def bool_online_parts_round(self, requests):
+        return self._call([("online.bool", r[0].shape) for r in requests],
+                          self._inner.bool_online_parts_round, requests)
 
 
 _BACKENDS = {"torch": TorchKernels, "hopper": HopperKernels}

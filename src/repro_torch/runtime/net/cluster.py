@@ -55,10 +55,18 @@ Tamper rules are installed identically in every process: the sender's
 process corrupts the wire copy, and every process mirrors the corruption
 in its local simulation.
 
-The JAX package's cluster also records traces (``trace=``,
-``merged_trace``, ``save_trace``), serves metrics over HTTP (``metrics=``,
-``scrape``) and writes health documents (``health``); those come with the
-port's observability slice.
+Observability.  Every daemon installs a labeled metrics registry before
+its transport exists; ``metrics=True`` (or ``TRIDENT_METRICS=1``) also
+starts an HTTP exporter in each daemon on a port the OS picks, published
+in the daemon's ready ack (``metrics_ports``), and returns each task's
+cumulative registry snapshot in ``PartyResult.metrics``.  ``scrape``
+reads the four exporters, ``health`` folds them (and an attached dealer's)
+into one health document (``obs.health``), ``alive`` and ``inflight``
+feed it.  ``trace=True`` (or ``TRIDENT_TRACE=1``) installs a labeled
+tracer in each daemon; each task's drained chunk returns in
+``PartyResult.trace`` and joins ``trace_chunks``, and ``merged_trace`` /
+``save_trace`` give one Chrome trace-event timeline of the four ranks
+(plus the dealer's chunks, passed as ``extra_chunks``).
 """
 from __future__ import annotations
 
@@ -76,7 +84,9 @@ import torch
 
 from ...core.context import resolve_device
 from ...core.ring import RING64, Ring, words_to_numpy
-from ...obs import MetricsRegistry, install_registry
+from ...obs import (MetricsRegistry, Tracer, get_registry, get_tracer,
+                    install_registry, install_tracer, metrics_enabled,
+                    tracing_enabled)
 from .socket_transport import TOKEN_BYTES
 
 DEFAULT_TIMEOUT = 120.0
@@ -107,6 +117,8 @@ class PartyResult:
     bytes_sent: dict | None = None    # (src, dst) -> bytes written (this task)
     task_id: int | None = None        # correlates results with submissions
     prep_wait_s: float = 0.0          # blocked on prep material (live banks)
+    trace: dict | None = None         # this task's trace chunk (trace=True)
+    metrics: dict | None = None       # daemon registry snapshot (metrics=True)
 
 
 @dataclasses.dataclass
@@ -158,7 +170,7 @@ def _delta(after: dict, before: dict) -> dict:
 
 
 def _run_task(task, *, ring, device, transport, base, bank, out_q, rank,
-              prep_wait: float = DEFAULT_TIMEOUT):
+              prep_wait: float = DEFAULT_TIMEOUT, metrics: bool = False):
     from ..runtime import FourPartyRuntime
 
     t_before = base.totals()
@@ -166,42 +178,81 @@ def _run_task(task, *, ring, device, transport, base, bank, out_q, rank,
     f_before, b_before = dict(base.frames_sent), dict(base.bytes_sent)
     m_before = dict(transport._sec.total) if transport is not base else None
 
+    tracer = get_tracer()
+    reg = get_registry()
+    reg.counter("trident_cluster_tasks_total",
+                "tasks served by this party daemon").inc()
+    g_inflight = reg.gauge("trident_cluster_tasks_inflight",
+                           "tasks currently executing (0 or 1)")
+    g_inflight.set(1)
+    t_task0 = time.perf_counter()
     prep = None
     prep_wait_s = 0.0
-    if task.get("prep") == "bank":
-        from ...offline.store import OnlinePrep
-        if bank is None:
-            raise RuntimeError("task wants prep='bank' but the daemon has "
-                               "no PrepBank (load one at startup with "
-                               "prep_path= or stream one with "
-                               "live_prep=True)")
-        session = task.get("prep_session")
-        t_prep0 = time.perf_counter()
-        if getattr(bank, "live", False):
-            # the session may not have arrived yet: block until the
-            # dealer's watermark passes it (a dead dealer raises its
-            # traceback here instead of timing out)
-            bank.wait_for(session if session is not None
-                          else bank.next_session, timeout=prep_wait)
-        if session is not None:
-            # step-indexed consumption: a resumed run skips spent sessions
-            # and a retried step raises PrepReplayError
-            bank.seek(session)
-        store = bank.next()
-        prep_wait_s = time.perf_counter() - t_prep0
-        store.party = rank              # attribute store errors to P{rank}
-        prep = OnlinePrep(store, device)
-        base.forbid_phase("offline")
     try:
-        rt = FourPartyRuntime(ring, seed=task["seed"], transport=transport,
-                              prep=prep, device=device)
-        t0 = time.perf_counter()
-        # the host copy of the result waits for the device
-        result = _to_np(task["program"](rt, rank))
-        wall = time.perf_counter() - t0
+        if task.get("prep") == "bank":
+            from ...offline.store import OnlinePrep
+            if bank is None:
+                raise RuntimeError("task wants prep='bank' but the daemon "
+                                   "has no PrepBank (load one at startup "
+                                   "with prep_path= or stream one with "
+                                   "live_prep=True)")
+            session = task.get("prep_session")
+            t_prep0 = time.perf_counter()
+            if getattr(bank, "live", False):
+                # the session may not have arrived yet: block until the
+                # dealer's watermark passes it (a dead dealer raises its
+                # traceback here instead of timing out)
+                bank.wait_for(session if session is not None
+                              else bank.next_session, timeout=prep_wait)
+            if session is not None:
+                # step-indexed consumption: a resumed run skips spent
+                # sessions and a retried step raises PrepReplayError
+                bank.seek(session)
+            store = bank.next()
+            prep_wait_s = time.perf_counter() - t_prep0
+            reg.counter("trident_prep_sessions_consumed_total",
+                        "PrepStore sessions consumed by tasks").inc()
+            reg.counter("trident_prep_wait_us_total",
+                        "wall-clock blocked acquiring prep material "
+                        "(us)").inc(prep_wait_s * 1e6)
+            reg.gauge("trident_prep_next_session",
+                      "next prep session this daemon will consume").set(
+                bank.next_session if getattr(bank, "live", False)
+                else bank._next)
+            reg.gauge("trident_live_bank_depth",
+                      "unconsumed sessions buffered in the prep "
+                      "bank").set(bank.sessions_left)
+            if tracer.enabled:
+                tracer.raw_span("prep.acquire", "prep", t_prep0,
+                                prep_wait_s,
+                                session=store.meta.get("session"))
+            store.party = rank          # attribute store errors to P{rank}
+            prep = OnlinePrep(store, device)
+            base.forbid_phase("offline")
+        try:
+            rt = FourPartyRuntime(ring, seed=task["seed"],
+                                  transport=transport, prep=prep,
+                                  device=device)
+            t0 = time.perf_counter()
+            # the host copy of the result waits for the device
+            result = _to_np(task["program"](rt, rank))
+            wall = time.perf_counter() - t0
+        finally:
+            if prep is not None:
+                base.allow_phase("offline")
     finally:
-        if prep is not None:
-            base.allow_phase("offline")
+        # live even for a failing task: the gauge drops back and the
+        # histogram records the attempt, so a scrape never sees a phantom
+        # running task
+        g_inflight.set(0)
+        reg.histogram("trident_cluster_task_wall_us",
+                      "per-task wall clock (us)").observe(
+            (time.perf_counter() - t_task0) * 1e6)
+    if tracer.enabled:
+        tracer.raw_span(f"task#{task['id']}", "cluster.task", t_task0,
+                        time.perf_counter() - t_task0, task_id=task["id"],
+                        seed=task["seed"], prep=task.get("prep"),
+                        session=task.get("prep_session"))
 
     t_after = base.totals()
     per_link = {}
@@ -222,6 +273,11 @@ def _run_task(task, *, ring, device, transport, base, bank, out_q, rank,
         bytes_sent=_delta(base.bytes_sent, b_before),
         task_id=task["id"],
         prep_wait_s=prep_wait_s,
+        # drain() resets the buffer, so each task's chunk stands alone
+        trace=tracer.drain() if tracer.enabled else None,
+        # the snapshot is cumulative (counters never reset): diff two
+        # snapshots, or scrape the exporter, for a task's share
+        metrics=reg.snapshot() if metrics else None,
     ))
 
 
@@ -231,6 +287,12 @@ def _ctrl_loop(ctrl_q, bank, rank):
     (the backpressure reaching the dealer).  Any failure here poisons the
     bank, so a waiting task raises the cause instead of timing out."""
     from ...offline.live import store_from_blob
+    tracer = get_tracer()
+    reg = get_registry()
+    g_depth = reg.gauge("trident_live_bank_depth",
+                        "unconsumed sessions buffered in the prep bank")
+    g_mark = reg.gauge("trident_live_bank_watermark",
+                       "sessions streamed into the live bank so far")
     try:
         while True:
             # bounded wait, so a dealer killed without its sentinel cannot
@@ -246,7 +308,17 @@ def _ctrl_loop(ctrl_q, bank, rank):
                 _, session, blob = item
                 store = store_from_blob(blob)
                 store.party = rank      # attribute store errors to P{rank}
-                bank.append(session, store)
+                if tracer.enabled:
+                    # the append may block on the bounded look-ahead: the
+                    # span is the backpressure wait, the counter the depth
+                    with tracer.span("prep.append", "prep",
+                                     session=session):
+                        bank.append(session, store)
+                    tracer.counter("live_bank_depth", len(bank), "prep")
+                else:
+                    bank.append(session, store)
+                g_depth.set(bank.sessions_left)
+                g_mark.set(bank.watermark)
             elif kind == "dealer_error":
                 bank.fail(item[1])
                 return
@@ -287,10 +359,14 @@ def prepare_device(device) -> str:
 
 
 def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
+    exporter = None
     try:
-        # the labeled registry goes in BEFORE the transport is made, which
-        # captures it
-        install_registry(MetricsRegistry(f"party-P{rank}", rank=rank))
+        # the labeled tracer and registry go in BEFORE the transport is
+        # made, which captures them (cfg["trace"] holds TRIDENT_TRACE=1 too)
+        if cfg["trace"]:
+            install_tracer(Tracer(f"party-P{rank}", rank=rank))
+        reg = MetricsRegistry(f"party-P{rank}", rank=rank)
+        install_registry(reg)
         device = boot_device(cfg["device"])
 
         from .model import NetModelTransport
@@ -314,7 +390,14 @@ def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
             bank = LivePrepBank(ahead=DEFAULT_LIVE_AHEAD)
             threading.Thread(target=_ctrl_loop, args=(ctrl_q, bank, rank),
                              daemon=True, name=f"ctrl-P{rank}").start()
-        out_q.put(("ready", rank))
+        metrics_port = None
+        if cfg["metrics"]:
+            # bound after the mesh formed: port 0 cannot take a port probed
+            # for a listener of this mesh that is not bound yet
+            from ...obs.exporter import MetricsExporter
+            exporter = MetricsExporter(reg)
+            metrics_port = exporter.port
+        out_q.put(("ready", rank, metrics_port))
         while True:
             task = task_q.get()
             if task is None:
@@ -327,7 +410,8 @@ def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
                 _run_task(task, ring=cfg["ring"], device=device,
                           transport=transport, base=base, bank=bank,
                           out_q=out_q, rank=rank,
-                          prep_wait=max(1.0, 0.75 * budget))
+                          prep_wait=max(1.0, 0.75 * budget),
+                          metrics=cfg["metrics"])
             except Exception:
                 # a failed task leaves the lock-step mesh undefined: report
                 # and stop serving (the parent poisons the cluster)
@@ -336,6 +420,9 @@ def _daemon_main(rank, endpoints, cfg, task_q, ctrl_q, out_q):
         base.close()
     except Exception:
         out_q.put(("error", rank, traceback.format_exc()))
+    finally:
+        if exporter is not None:
+            exporter.close()
 
 
 class PartyCluster:
@@ -345,22 +432,32 @@ class PartyCluster:
     def __init__(self, *, ring: Ring = RING64,
                  timeout: float = DEFAULT_TIMEOUT, tampers=(),
                  net_model=None, prep_path: str | None = None,
-                 live_prep: bool = False, device=None):
+                 live_prep: bool = False, device=None,
+                 trace: bool = False, metrics: bool = False):
         if live_prep and prep_path is not None:
             raise ValueError(
                 "live_prep streams into an initially empty bank; "
                 "prep_path loads a frozen one at startup -- pick one")
         self.device = prepare_device(device)
         ctx = mp.get_context("spawn")
+        trace = trace or tracing_enabled()
+        metrics = metrics or metrics_enabled()
         cfg = {
             "ring": ring, "timeout": timeout, "tampers": list(tampers),
             "net_model": net_model, "prep_path": prep_path,
             "live_prep": live_prep, "device": self.device,
+            "trace": trace, "metrics": metrics,
         }
         self.ring = ring
         self.timeout = timeout
         self.net_model = net_model
         self.live_prep = live_prep
+        self.trace = trace
+        self.metrics = metrics
+        # rank -> exporter port (metrics=True; from the ready acks)
+        self.metrics_ports: dict = {}
+        # every task's trace chunks, four a task (trace=True)
+        self.trace_chunks: list = []
         # the parent's wall of every submit -> collect round trip
         # (PartyResult.wall_s is the program alone)
         self.task_walls: list = []
@@ -428,6 +525,7 @@ class PartyCluster:
         """Wait for the four ready acks; raise on the FIRST daemon error
         (the others would keep dialing a dead listener until their
         connect timeout), on a silent death or on timeout."""
+        self.metrics_ports.clear()
         answered: set[int] = set()
         deadline = time.monotonic() + timeout
         while len(answered) < 4:
@@ -449,6 +547,7 @@ class PartyCluster:
                 raise RuntimeError(
                     f"party daemon failures:\n--- P{item[1]} ---\n{item[2]}")
             answered.add(item[1])
+            self.metrics_ports[item[1]] = item[2]
 
     # -- task round trips --------------------------------------------------
     def _check_usable(self) -> None:
@@ -530,10 +629,13 @@ class PartyCluster:
                             "already collected")
                     if len(bucket) == 4:
                         del self._results[tid]
+                        results = sorted(bucket, key=lambda r: r.rank)
                         self.task_walls.append(
                             time.perf_counter() - handle.submitted_at)
                         self.tasks_run += 1
-                        return sorted(bucket, key=lambda r: r.rank)
+                        self.trace_chunks.extend(
+                            r.trace for r in results if r.trace)
+                        return results
                     if self._errors:
                         self._raise_errors()
                 rem = deadline - time.monotonic()
@@ -578,7 +680,53 @@ class PartyCluster:
                                     timeout=timeout)
         return self.collect(handle, timeout=timeout)
 
+    @property
+    def inflight(self) -> int:
+        """Submitted tasks not yet collected."""
+        with self._res_lock:
+            return len(self._results)
+
+    # -- observability -----------------------------------------------------
+    def merged_trace(self, extra_chunks=()) -> dict:
+        """One Chrome trace-event document over every chunk collected so
+        far (all tasks, all four ranks) plus ``extra_chunks`` (e.g. the
+        ``DealerDaemon``'s)."""
+        from ...obs import merge_chunks
+        return merge_chunks([*self.trace_chunks, *extra_chunks])
+
+    def save_trace(self, path, extra_chunks=()) -> dict:
+        """Merge and write the cluster timeline to ``path`` (Perfetto /
+        chrome://tracing); returns the merged document."""
+        from ...obs import write_chrome_trace
+        return write_chrome_trace(path, [*self.trace_chunks, *extra_chunks])
+
+    def alive(self) -> dict:
+        """{rank: the daemon process is alive}: the liveness half of the
+        health probes."""
+        return {rank: p.is_alive() for rank, p in enumerate(self._procs)}
+
+    def scrape(self, timeout: float = 2.0) -> dict:
+        """Every daemon's exporter: {rank: snapshot or None} (None for a
+        daemon that is down, or a cluster built without metrics)."""
+        from ...obs.health import _try_scrape
+        return {rank: _try_scrape(port, timeout)
+                for rank, port in sorted(self.metrics_ports.items())}
+
+    def health(self, dealer=None, **kw) -> dict:
+        """One cluster health document: the four exporters (and the
+        dealer's, when attached) scraped, the liveness, stall and lag
+        probes evaluated (``obs.health.cluster_health``).  Take it between
+        tasks: the probes are age-gated, and a task that closes no online
+        round for ``stall_s`` reads as a stall."""
+        from ...obs.health import cluster_health
+        return cluster_health(self, dealer=dealer, **kw)
+
     # -- lifecycle ---------------------------------------------------------
+    @property
+    def poisoned(self) -> str | None:
+        """The first failure's summary, if a task poisoned the cluster."""
+        return self._poisoned
+
     def close(self) -> None:
         if self._closed:
             return
@@ -621,7 +769,8 @@ def run_four_parties(program, *, seed: int = 0,
     """One-shot: spawn a cluster on `device`, run ``program(rt, rank)``,
     tear down.  Returns the four ``PartyResult``s ordered by rank.
     ``tampers`` is a sequence of keyword dicts for ``Transport.tamper`` in
-    every process."""
+    every process.  With ``TRIDENT_TRACE=1`` each ``PartyResult.trace``
+    holds its rank's chunk (``obs.merge_chunks``)."""
     with PartyCluster(timeout=timeout, tampers=tampers,
                       device=device) as cluster:
         return cluster.submit(program, seed=seed, timeout=timeout)

@@ -128,6 +128,12 @@ class NetModelTransport(Transport):
             if self._depth[phase] == 0 and self._round_links[phase]:
                 modeled = self.model.round_seconds(self._round_links[phase])
                 self._sec.add(phase, modeled)
+                tracer = getattr(self.inner, "tracer", None)
+                if tracer is not None and tracer.enabled:
+                    # the modeled twin of the measured wire.round span
+                    tracer.instant(f"model.round[{phase}]", "net.model",
+                                   phase=phase, model=self.model.name,
+                                   modeled_ms=modeled * 1e3)
 
     @contextlib.contextmanager
     def parallel(self, phases=PHASES):

@@ -16,7 +16,8 @@ from ..core.algebra import PARTIES, CheckLedger, all_ok
 from ..core.context import resolve_device
 from ..core.prf import ThreefryKey
 from ..core.ring import RING64, Ring
-from .kernel_backend import MeteredKernels, make_kernel_backend
+from ..obs import get_tracer
+from .kernel_backend import MeteredKernels, TracedKernels, make_kernel_backend
 from .party import Party, PartyKeys
 from .transport import LocalTransport, Transport
 
@@ -61,6 +62,13 @@ class FourPartyRuntime:
         self.prep = prep if prep is not None else InlinePrep()
         self.kernels = MeteredKernels(
             make_kernel_backend(kernel_backend, self.device))
+        # share the transport's tracer (NetModelTransport forwards it) so
+        # protocol spans and wire events land in one buffer; only a
+        # tracing runtime wraps its kernel calls into spans
+        self.tracer = getattr(self.transport, "tracer", None) or get_tracer()
+        if self.tracer.enabled:
+            self.kernels = TracedKernels(self.kernels, self.tracer,
+                                         self.device)
         self.bitext_guard = bitext_guard
         self.bitext_method = bitext_method
         self.norm_window = norm_window

@@ -163,7 +163,11 @@ class MeasuredTransport(Transport):
         self._round_index = {p: 0 for p in PHASES}
         self._tampers: list[TamperRule] = []
         self._forbidden: set[str] = set()
+        # the process tracer (NULL_TRACER unless enabled); a traced round
+        # scope is timed from its outermost entry, its bits counted
         self.tracer = get_tracer()
+        self._round_t0 = {p: 0.0 for p in PHASES}
+        self._round_bits0 = {p: 0 for p in PHASES}
         # the registry double-books the wire: trident_wire_bits_total equals
         # per_link(); counters are cached per label set for the hot path
         self.metrics = get_registry()
@@ -224,17 +228,21 @@ class MeasuredTransport(Transport):
     def round(self, phase: str):
         if phase not in PHASES:
             raise ValueError(phase)
+        tracing = self.tracer.enabled
         if self._round_depth[phase] == 0:
             self._round_traffic[phase] = False
+            if tracing:
+                self._round_t0[phase] = time.perf_counter()
+                self._round_bits0[phase] = self.phase_bits[phase]
         self._round_depth[phase] += 1
         try:
             yield self
         finally:
             self._round_depth[phase] -= 1
             if self._round_depth[phase] == 0:
-                if self._round_traffic[phase]:
+                traffic = self._round_traffic[phase]
+                if traffic:
                     self._frames.add(phase, 1)
-                    self._round_index[phase] += 1
                     c = self._m_rounds.get(phase)
                     if c is None:
                         c = self._m_rounds[phase] = self.metrics.counter(
@@ -244,6 +252,18 @@ class MeasuredTransport(Transport):
                             ">= the analytic round tally)", phase=phase)
                     c.inc()
                 self._round_flush(phase)
+                if traffic:
+                    if tracing:
+                        # the span covers the whole outermost scope and
+                        # the backend's flush: the measured cost of a round
+                        t0 = self._round_t0[phase]
+                        self.tracer.raw_span(
+                            f"round[{phase}]", "wire.round", t0,
+                            time.perf_counter() - t0, phase=phase,
+                            index=self._round_index[phase],
+                            bits=self.phase_bits[phase]
+                            - self._round_bits0[phase])
+                    self._round_index[phase] += 1
 
     def parallel(self, phases=PHASES):
         return self._frames.parallel(phases)
@@ -293,6 +313,11 @@ class MeasuredTransport(Transport):
         self._m_recv_wait.inc(dt * 1e6)
         if dt >= RECV_SPAN_MIN_S:
             self._m_slow_recv.inc()
+            if self.tracer.enabled:
+                # only blocking receives make the timeline: a recv span is
+                # the wait for the peer (or the network), not the copy
+                self.tracer.raw_span("recv", "wire.recv", t0, dt, dst=dst,
+                                     src=src, tag=tag)
         return payload
 
     # -- backend hooks -----------------------------------------------------

@@ -32,7 +32,6 @@ Example -- the paper's NN at full width, on the card::
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Callable
 
 import numpy as np
@@ -41,6 +40,7 @@ import torch
 from ..core.context import make_context, resolve_device
 from ..core.costs import LAN, WAN, NetworkModel
 from ..core.ring import RING64
+from ..obs import timed
 
 
 @dataclasses.dataclass
@@ -121,11 +121,10 @@ class PredictionServer:
 
     def _run_batch(self, X, n):
         ctx = make_context(self.ring, seed=self.seed, device=self.device)
-        t0 = time.perf_counter()
-        preds = self.predict_fn(ctx, X).cpu()      # waits for the device
-        wall = time.perf_counter() - t0
-        self.stats.compute_s += wall
-        self.batch_walls_s.append(wall)
+        before = self.stats.compute_s
+        with timed(self.stats, "compute_s", span="serve.batch", queries=n):
+            preds = self.predict_fn(ctx, X).cpu()  # waits for the device
+        self.batch_walls_s.append(self.stats.compute_s - before)
         self.stats.batches += 1
         self.stats.queries += n
         self.stats.online_rounds += ctx.tally.online.rounds

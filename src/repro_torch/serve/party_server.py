@@ -55,6 +55,12 @@ measured.  The JAX package dispatches those batches through its
 ``ServingGateway`` pool; until the port has the gateway, each batch is
 submitted straight to the cluster, one after the other, with the same
 seeds and sessions (the same words and totals).
+
+Each batch's compute is an ``obs.timed`` interval: ``stats.compute_s``,
+and with tracing on a ``serve.batch`` span (``serve.batch.online`` from a
+dealt store).  ``serve_over_sockets(metrics=True)`` starts the daemons'
+and the dealer's exporters and puts one health document, scraped at the
+end of the stream, in the report under ``"health"``.
 """
 from __future__ import annotations
 
@@ -70,7 +76,7 @@ import torch
 
 from ..core.costs import LAN, WAN, NetworkModel
 from ..core.ring import RING64
-from ..obs import get_registry
+from ..obs import get_registry, stopwatch, timed
 from ..runtime.runtime import FourPartyRuntime, resolve_device
 from ..runtime.transport import LocalTransport
 from .engine import form_batches
@@ -83,6 +89,7 @@ class PartyServeStats:
     online_rounds: int = 0
     online_bits: int = 0
     offline_bits: int = 0
+    compute_s: float = 0.0             # predict_fn, result on the host
     batch_walls_s: list = dataclasses.field(default_factory=list)
     online_compute_s: float = 0.0      # online-only wall (pipelined)
     offline_deal_s: float = 0.0        # dealer wall (overlapped: pipelined)
@@ -168,7 +175,10 @@ class PartyPredictionServer:
                                   prep=OnlinePrep(store, self.device),
                                   kernel_backend=self.kernel_backend,
                                   device=self.device)
-        preds = self.predict_fn(rt, X)[:n].cpu()   # waits for the device
+        with timed(self.stats, "compute_s", queries=n,
+                   span="serve.batch" if pipe is None
+                   else "serve.batch.online"):
+            preds = self.predict_fn(rt, X)[:n].cpu()   # waits for the device
         aborted = rt.abort_flag()
         wall = time.perf_counter() - t0
         if pipe is not None:
@@ -266,7 +276,8 @@ def _serve_program_for_step(step, *, predict_fn, batches):
 def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
                        ring=RING64, seed: int = 0, net_model=None,
                        timeout: float = 300.0, cluster=None,
-                       prep: str | None = None, device=None):
+                       prep: str | None = None, device=None,
+                       metrics: bool = False):
     """Serve a query stream across four party processes over TCP.
 
     ``predict_fn(rt, X_batch)`` is a module-level (picklable: the party
@@ -283,8 +294,17 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
     directory (removed at the end) for the daemons to load at start-up,
     and runs each batch online-only; ``prep="live"`` starts the daemons
     with an empty live bank and a ``DealerDaemon`` streams batch k's
-    session while batch k-1 is served.  Both modes move zero offline bits on the mesh (forbidden by
-    the daemons' transports) and provision their own cluster.
+    session while batch k-1 is served.  Both modes move zero offline bits
+    on the mesh (forbidden by the daemons' transports).  ``"ahead"``
+    provisions its own cluster; ``"live"`` does too, or streams into a
+    ``cluster=`` built with ``live_prep=True`` whose bank no earlier
+    stream used (its sessions count from 0).
+
+    ``metrics=True`` starts an HTTP exporter in every daemon (and the
+    dealer) and puts one cluster health document, scraped at the end of
+    the stream, in the report under ``"health"``; a ``cluster=`` must have
+    been built with ``metrics=True`` for it.  A dealer's trace chunks
+    join ``cluster.trace_chunks``.
     """
     from ..runtime.net.cluster import PartyCluster
 
@@ -304,27 +324,34 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
             raise ValueError(
                 "net_model mismatch: pass the model to PartyCluster (the "
                 "daemons integrate the clock), not to serve_over_sockets")
-        if prep is not None:
-            raise ValueError(f"prep={prep!r} needs to provision its own "
-                             "cluster (daemons load or stream the bank)")
+        if prep == "ahead" or (prep == "live" and not cluster.live_prep):
+            raise ValueError(f"prep={prep!r} needs a cluster that loads or "
+                             "streams the bank: let serve_over_sockets "
+                             "provision it (or, for 'live', pass one built "
+                             "with live_prep=True)")
+        if metrics and not cluster.metrics:
+            raise ValueError("metrics=True needs a cluster built with "
+                             "PartyCluster(metrics=True)")
     prep_path = None
     deal_wall = 0.0
     if prep == "ahead":
         from ..offline import deal_sessions
-        t0 = time.perf_counter()
-        bank, _ = deal_sessions(
-            [functools.partial(_zero_deal_program, predict_fn, X)
-             for X in batches], ring=ring, base_seed=seed, device=device)
-        prep_path = tempfile.mkdtemp(prefix="prepbank-")
-        bank.save(prep_path)
-        del bank        # the daemons load the saved copy: free the dealt one
-        deal_wall = time.perf_counter() - t0
+        with stopwatch() as sw:
+            bank, _ = deal_sessions(
+                [functools.partial(_zero_deal_program, predict_fn, X)
+                 for X in batches], ring=ring, base_seed=seed,
+                device=device)
+            prep_path = tempfile.mkdtemp(prefix="prepbank-")
+            bank.save(prep_path)
+            del bank    # the daemons load the saved copy: free the dealt one
+        deal_wall = sw.s
     dealer = None
     try:
         if own_cluster:
             cluster = PartyCluster(ring=ring, timeout=timeout,
                                    net_model=net_model, prep_path=prep_path,
-                                   live_prep=(prep == "live"), device=device)
+                                   live_prep=(prep == "live"), device=device,
+                                   metrics=metrics)
         if prep == "live":
             from ..offline.live import DealerDaemon
             # the dealer is data-independent: it gets SHAPES (zeros), not
@@ -398,10 +425,15 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
             report["live_sessions_streamed"] = dealer.dealt
         if modeled is not None:
             report[f"modeled_{net_model.name}_s"] = modeled
+        if metrics:
+            # scraped while the daemons and the dealer are up, between
+            # tasks: the age-gated probes see no task in flight
+            report["health"] = cluster.health(dealer=dealer)
         return preds, report
     finally:
         if dealer is not None:
             dealer.close()
+            cluster.trace_chunks.extend(dealer.trace_chunks)
         if own_cluster and cluster is not None:
             cluster.close()
         if prep_path is not None:

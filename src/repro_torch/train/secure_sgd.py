@@ -297,7 +297,7 @@ class ClusterSGD:
     PREPPED = ("bank", "live")
 
     def __init__(self, cluster, task: SGDTask, *, base_seed: int = 0,
-                 prep: str | None = None):
+                 prep: str | None = None, dealer=None):
         if prep not in (None, "bank", "live"):
             raise ValueError(f"unknown prep mode {prep!r}")
         if prep == "live" and not getattr(cluster, "live_prep", False):
@@ -307,6 +307,8 @@ class ClusterSGD:
         self.task = task
         self.base_seed = base_seed
         self.prep = prep
+        # the attach_live_dealer daemon (prep="live"): health() reads it
+        self.dealer = dealer
         self.results: list = []         # per-step [PartyResult x4]
 
     def step_fn(self, params, step, *batch):
@@ -331,6 +333,12 @@ class ClusterSGD:
         """Offline-phase bits the socket mesh carried over the recorded
         steps (0 with prep -- the acceptance check)."""
         return sum(res[0].totals["offline"]["bits"] for res in self.results)
+
+    def health(self, **kw) -> dict:
+        """One cluster health document between steps: the four party
+        exporters and the attached dealer's (``PartyCluster`` built with
+        ``metrics=True``)."""
+        return self.cluster.health(dealer=self.dealer, **kw)
 
 
 # ---------------------------------------------------------------------------

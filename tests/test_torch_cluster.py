@@ -10,13 +10,20 @@ aborts; three ``ClusterSGD(prep="live")`` steps fed by a dealer process
 are bit-equal to JAX's joint world with no offline bit on the mesh, and a
 replayed step poisons the cluster; ``serve_over_sockets`` serves the same
 words inline, dealt ahead and live; a ``ShardedClusterSGD`` step is the
-mean of its members.  One test item, so the collected count stays where
-the tier-1 split of the slow tests needs it.
+mean of its members.  The shared cluster traces and serves its metrics
+(``trace=True, metrics=True``), so the same words also show that tracing
+changes no word: each daemon's registry and trace hold its ``per_link()``
+bits, the four exporters scrape, the health documents between tasks and
+after training are healthy, the merged timeline covers the four ranks and
+the dealer; a terminated daemon reads as ``rank_down``.  One test item,
+so the collected count stays where the tier-1 split of the slow tests
+needs it.
 
 The daemons are spawned and import this module to find its programs, so
 its top level imports neither jax nor the JAX package: the JAX side is
 imported inside the test."""
 import concurrent.futures
+import json
 import os
 import socket
 import time
@@ -31,6 +38,7 @@ torch.set_num_threads(1)
 
 from repro_torch.core.ring import (RING32, RING64,  # noqa: E402
                                    words_from_numpy, words_to_numpy_batch)
+from repro_torch import obs as TO  # noqa: E402
 from repro_torch.obs import MetricsRegistry, install_registry  # noqa: E402
 from repro_torch.offline import (ContinuousDealer, LivePrepBank,  # noqa: E402
                                  PrepError, PrepMissingError, deal)
@@ -41,8 +49,7 @@ from repro_torch.runtime import activations as TRA  # noqa: E402
 from repro_torch.runtime import protocols as TRT  # noqa: E402
 from repro_torch.runtime.net import framing as TF  # noqa: E402
 from repro_torch.runtime.net.cluster import (ClusterPoisoned,  # noqa: E402
-                                             PartyCluster, _free_ports,
-                                             run_four_parties)
+                                             PartyCluster, _free_ports)
 from repro_torch.runtime.net.socket_transport import (  # noqa: E402
     TOKEN_BYTES, SocketTransport)
 from repro_torch.serve.party_server import serve_over_sockets  # noqa: E402
@@ -81,6 +88,11 @@ def serve_predict(rt, Xb):
     return TRT.reconstruct(rt, TRA.relu(rt, TRT.matmul_tr(rt, xs, w)))[1]
 
 
+def link_totals(rt, rank):
+    """The daemon's per_link() over every task it ran."""
+    return rt.transport.per_link()
+
+
 def _deal_program(rt):
     xs = TRT.share(rt, rt.encode(np.zeros((2, 4))))
     TRT.mult_tr(rt, xs, xs)
@@ -115,6 +127,22 @@ def _jax_serve_words(J, batch: np.ndarray, seed: int) -> np.ndarray:
     w = J.RT.share(rt, J.R64.encode(W1))
     out = J.RA.relu(rt, J.RT.matmul_tr(rt, xs, w))
     return np.asarray(J.RT.reconstruct(rt, out)[1])
+
+
+def _nonzero(per_link: dict) -> dict:
+    out = {}
+    for link, per in per_link.items():
+        cell = {p: b for p, b in per.items() if b}
+        if cell:
+            out[link] = cell
+    return out
+
+
+def _wait(cond, what: str, timeout: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, f"timed out waiting for {what}"
+        time.sleep(0.05)
 
 
 def _same_store(a, b) -> None:
@@ -277,6 +305,55 @@ def _check_cluster(J, cluster) -> None:
         assert 0 < frames <= 3 * rounds + 3, (r.rank, frames, rounds)
         assert set(r.frames_sent) == set(r.bytes_sent)
         assert all(k[0] == r.rank for k in r.frames_sent)
+        # the traced, metered daemons: the first task's registry and trace
+        # chunk hold its bits; every kernel span a launch of the registry
+        assert TO.snapshot_link_bits(r.metrics) == _nonzero(r.per_link)
+        assert TO.snapshot_value(r.metrics, "trident_cluster_tasks_total") \
+            == 1
+        assert TO.snapshot_value(r.metrics,
+                                 "trident_cluster_tasks_inflight") == 0
+        assert r.trace["label"] == f"party-P{r.rank}"
+        kinds = [e["args"]["kind"] for e in r.trace["events"]
+                 if e["cat"] == "kernel"]
+        assert len(kinds) == TO.snapshot_total(
+            r.metrics, "trident_kernel_launches_total") > 0
+    merged = TO.merged_link_bits([r.trace for r in res])
+    assert merged == {f"{s}->{d}": cell for (s, d), cell
+                      in _nonzero(res[0].per_link).items()}
+
+
+def _check_observed(cluster, dealer, tmp_path) -> None:
+    """Between tasks: four scrapes, each holding its daemon's per_link();
+    a healthy document with the dealer scraped; the merged timeline of the
+    four ranks and the dealer."""
+    totals = {r.rank: r.result for r in cluster.submit(link_totals)}
+    assert cluster.inflight == 0 and cluster.poisoned is None
+    snaps = cluster.scrape()
+    assert sorted(snaps) == [0, 1, 2, 3]
+    for rank, snap in snaps.items():
+        assert snap["rank"] == rank and snap["label"] == f"party-P{rank}"
+        assert TO.snapshot_link_bits(snap) == _nonzero(totals[rank]), rank
+        assert TO.snapshot_value(snap, "trident_cluster_tasks_inflight") == 0
+        assert TO.snapshot_value(snap, "trident_cluster_tasks_total") == \
+            cluster.tasks_run
+    _wait(lambda: dealer.metrics_port and dealer.trace_chunks,
+          "the dealer's exporter and first chunk")
+    doc = cluster.health(dealer=dealer)
+    assert doc["healthy"], doc
+    assert all(e["alive"] and e["scrape_ok"] for e in doc["ranks"].values())
+    assert sorted(doc["ranks"]) == [0, 1, 2, 3]
+    assert doc["dealer"]["scrape_ok"] and doc["dealer"]["alive"], doc
+    json.dumps(doc)
+    # the dealer may ship another session meanwhile: one list of its
+    # chunks for both merges
+    dealer_chunks = list(dealer.trace_chunks)
+    merged = cluster.save_trace(tmp_path / "cluster.json",
+                                extra_chunks=dealer_chunks)
+    assert sorted(merged["metadata"]["processes"]) == \
+        ["dealer"] + [f"party-P{r}" for r in range(4)]
+    assert merged["metadata"]["ranks"] == [0, 1, 2, 3]
+    assert json.loads((tmp_path / "cluster.json").read_text()) == merged
+    assert cluster.merged_trace(dealer_chunks) == merged
 
 
 def _check_sharded(J, cluster) -> None:
@@ -299,7 +376,8 @@ def _check_sharded(J, cluster) -> None:
 
 
 def _check_live_training(J, cluster, dealer) -> None:
-    sgd = TS.ClusterSGD(cluster, TASK, base_seed=TRAIN_SEED, prep="live")
+    sgd = TS.ClusterSGD(cluster, TASK, base_seed=TRAIN_SEED, prep="live",
+                        dealer=dealer)
     p = want = TASK.init_params(seed=0)
     for step in range(STEPS):
         batch = DATA.batch(step, BATCH)
@@ -314,6 +392,13 @@ def _check_live_training(J, cluster, dealer) -> None:
             assert r.totals["offline"]["bits"] == 0, r.rank
             assert r.totals["online"]["bits"] > 0, r.rank
     assert dealer.failed is None
+    # between steps, the finished dealer still serving its exporter (its
+    # last session reached the daemons before its "done" reached us)
+    _wait(lambda: dealer.done, "the dealer's done")
+    doc = sgd.health()
+    assert doc["healthy"] and doc["dealer"]["done"], doc
+    assert doc["dealer"]["scrape_ok"] and doc["dealer"]["watermark"] == STEPS
+    assert {e["next_session"] for e in doc["ranks"].values()} == {STEPS}
     # a replayed streamed step fails naming its session and step...
     with pytest.raises(RuntimeError) as replay:
         sgd.step_fn(p, 1, *DATA.batch(1, BATCH))
@@ -325,6 +410,7 @@ def _check_live_training(J, cluster, dealer) -> None:
     with pytest.raises(ClusterPoisoned, match="already consumed"):
         sgd.step_fn(p, 2, *DATA.batch(2, BATCH))
     assert time.monotonic() - t0 < 5.0
+    assert cluster.poisoned is not None
 
 
 def _serve(prep):
@@ -333,7 +419,20 @@ def _serve(prep):
                               device="cpu")
 
 
-def test_cluster_matches_jax():
+def _tampered_then_killed():
+    """The tampered task on a metered cluster; then one daemon is
+    terminated and the health document names it."""
+    with PartyCluster(device="cpu", tampers=[TAMPER], timeout=120,
+                      metrics=True) as cluster:
+        res = cluster.submit(nn_program, seed=SEED)
+        proc = cluster._procs[3]
+        proc.terminate()
+        proc.join(timeout=10)
+        assert not proc.is_alive()
+        return res, cluster.health()
+
+
+def test_cluster_matches_jax(tmp_path):
     J = _jax()
     _check_frames_cross(J)
     # before any other thread runs a runtime: the registry is the process's
@@ -344,11 +443,10 @@ def test_cluster_matches_jax():
     # spend most of their time importing torch
     with concurrent.futures.ThreadPoolExecutor(3) as pool:
         side = {prep: pool.submit(_serve, prep) for prep in ("ahead", "live")}
-        tampered = pool.submit(run_four_parties, nn_program, seed=SEED,
-                               timeout=120, tampers=[TAMPER], device="cpu")
+        tampered = pool.submit(_tampered_then_killed)
         params0 = TASK.init_params(seed=0)
-        with PartyCluster(device="cpu", live_prep=True,
-                          timeout=120) as cluster:
+        with PartyCluster(device="cpu", live_prep=True, timeout=120,
+                          trace=True, metrics=True) as cluster:
             # the dealer deals while the cluster runs its first tasks
             with TS.attach_live_dealer(cluster, TASK, params0,
                                        DATA.batch(0, BATCH),
@@ -359,10 +457,11 @@ def test_cluster_matches_jax():
                     serve_predict, QUERIES, batch_size=4, seed=SERVE_SEED,
                     cluster=cluster, device="cpu")}
                 _check_sharded(J, cluster)
+                _check_observed(cluster, dealer, tmp_path)
                 _check_live_training(J, cluster, dealer)
         streams.update({prep: f.result(timeout=300)
                         for prep, f in side.items()})
-        res = tampered.result(timeout=300)
+        res, killed = tampered.result(timeout=300)
 
     want_words = [_jax_serve_words(J, QUERIES[i:i + 4], SERVE_SEED + k)
                   for k, i in enumerate((0, 4))]
@@ -384,3 +483,6 @@ def test_cluster_matches_jax():
     _jax_nn(J, jrt)
     assert [r.abort for r in res] == [bool(jrt.abort_flag())] * 4 \
         == [True] * 4
+    assert not killed["healthy"] and killed["probes"] == [
+        {"probe": "rank_down", "rank": 3, "alive": False,
+         "scrape_ok": False}], killed

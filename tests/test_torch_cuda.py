@@ -4,9 +4,11 @@ rounds on the "hopper" backend against the "torch" backend's on the CPU;
 the store handoff between two streams under stress; and the pipelined
 server (each batch dealt on the dealer thread's own CUDA stream and
 served online-only on this thread's), every prediction held to the inline
-runtime at that batch's seed; and one task on four party daemons on the
-card over TCP (``runtime.net.PartyCluster``), its words and traffic those
-of the in-process runtime.  They need an NVIDIA GPU and skip without
+runtime at that batch's seed; one traced batch, its words the untraced
+batch's and every kernel span carrying a device time read from CUDA
+events; and one task on four party daemons on the card over TCP
+(``runtime.net.PartyCluster``), its words and traffic those of the
+in-process runtime.  They need an NVIDIA GPU and skip without
 one.  This file imports neither jax nor the JAX package, so it runs on a
 machine that has only PyTorch:
 
@@ -20,7 +22,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import offline  # noqa: E402
+from repro_torch import obs, offline  # noqa: E402
 from repro_torch.core.algebra import GAMMA_LOCAL, PART_HOLDERS  # noqa: E402
 from repro_torch.core.ring import RING64, words_to_numpy  # noqa: E402
 from repro_torch.kernels import gamma_parts as GP  # noqa: E402
@@ -84,6 +86,18 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
     return torch.device("cuda")
+
+
+def _kernel_family(key: str):
+    """The span kinds' family (prf, matmul, mul, bool) whose backend calls
+    launch the profiled kernel `key`, if any."""
+    if "squares_group_kernel" in key:
+        return "prf"
+    if "ring_matmul_kernel" in key:
+        return "matmul"
+    if "terms_group_kernel" in key:
+        return "bool" if "true" in key else "mul"
+    return None
 
 
 @pytest.mark.cuda
@@ -374,6 +388,38 @@ def test_kernels_equal_plain_on_card(cuda_device):
         twin = predict(FourPartyRuntime(RING64, seed=3 + k,
                                         device=cuda_device), X[rows]).cpu()
         assert torch.equal(words[rows], twin[:len(words[rows])]), k
+    # one traced batch, under the profiler: the untraced words, a device
+    # time on every kernel span, and each kernel's summed device windows
+    # at least its kernels' device time in the same run (events recorded
+    # on another stream than the kernels' would read less)
+    from torch.profiler import ProfilerActivity, profile
+    tracer = obs.Tracer("card")
+    prev = obs.install_tracer(tracer)
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            traced = predict(FourPartyRuntime(RING64, seed=3,
+                                              device=cuda_device),
+                             queries[:8])
+            torch.cuda.synchronize()
+    finally:
+        obs.install_tracer(prev)
+    assert torch.equal(traced.cpu(), inline.cpu())
+    spans = [e for e in tracer.drain()["events"] if e["cat"] == "kernel"]
+    assert spans and all(np.isfinite(e["args"]["device_ms"])
+                         and e["args"]["device_ms"] >= 0 for e in spans)
+    windows, kernel_ms = {}, {}
+    for e in spans:
+        kind = e["args"]["kind"]
+        fam = "prf" if kind.startswith("prf") else kind.split(".")[1]
+        windows[fam] = windows.get(fam, 0.0) + e["args"]["device_ms"]
+    for e in prof.key_averages():
+        fam = _kernel_family(e.key)
+        if fam is not None:
+            kernel_ms[fam] = kernel_ms.get(fam, 0.0) + \
+                e.device_time_total / 1e3
+    assert kernel_ms, "the profiler saw none of the runtime's kernels"
+    for fam, ms in kernel_ms.items():
+        assert windows.get(fam, 0.0) >= ms, (fam, windows, kernel_ms)
     # the four parties as four daemon processes on the card over TCP: one
     # task opens the in-process runtime's words and traffic in every daemon
     raw = mlp_net_init(np.random.RandomState(0), net)
