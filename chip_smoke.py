@@ -47,13 +47,15 @@ from the root of a checkout.  In order, it
      words) beside the single level;
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
-     backend, and checks that every kernel of that path was launched while
+     backend (its batches run on the serving gateway's collector thread),
+     and checks that every kernel of that path was launched while
      serving, that no party aborted, that the opened words, ``per_link()``
      and ``totals()`` equal a CPU run of the port with the "torch" backend
      on the same seed, that the probabilities are close to a float64
      numpy forward pass, and that ``mult_terms``/``and_terms`` launched as
      often a batch as the grouped wrappers are called in a CPU batch with
-     the "hopper" backend; then profiles one more batch;
+     the "hopper" backend; then profiles one more batch, whose device
+     operations must number at least its kernel launches;
   5. the runtime's offline-online split (phase "runtime-offline-online"):
      deals batch 0's preprocessing on the card (``repro_torch.offline``;
      its offline rounds and bits those of the inline batch, no online
@@ -133,8 +135,10 @@ from the root of a checkout.  In order, it
      batch, the categories protocol, wire.round, wire.send and kernel
      present, and ``render_prometheus()`` one sample line for each sample
      of the snapshot; batch 0 traced through the pipelined server (dealt
-     on the dealer thread's CUDA stream): step 4's words, its spans per
-     kind the registry's launches, and each thread's windows by kernel at
+     on the dealer thread's CUDA stream, served on the gateway's collector
+     thread, the thread of its ``serve.batch.online`` span): step 4's
+     words, its spans per kind the registry's launches, kernel spans on
+     exactly those two threads, and each thread's windows by kernel at
      least step 5's profiled online-only and deal runs; then one
      ``PartyCluster(device="cuda", trace=True,
      metrics=True, live_prep=True, net_model=LAN)``: a warm-up task (its
@@ -156,10 +160,33 @@ from the root of a checkout.  In order, it
      and chunk bytes a batch, each kernel's summed ``device_ms`` beside
      step 4's profiled device time, the scrape and health walls and the
      traced cluster batches beside phase cluster's untraced ones.  The
-     in-process references of the cluster checks are phase cluster's.
+     in-process references of the cluster checks are phase cluster's;
+ 11. the serving gateway (phase "gateway", tracing off): a
+     ``ServingGateway(pool=2, prep="live", device="cuda", metrics=True)``
+     boots two clusters of four daemons on the card concurrently and one
+     shared dealer process, and serves the paper's NN (``cluster_predict``,
+     step 4's weights) in dynamic batches padded to 128: a burst of 3 x
+     128 queries from 4 threads, then 9 dispatches one at a time (the
+     members take turns; the reference design's scheduler sends them all
+     to one member and the dealer stalls on the other).  Every row equals
+     the in-process runtime on the card for its dispatch's padded batch at
+     seed SEED + session; each session is consumed once across the pool
+     (the daemons' ``trident_prep_sessions_consumed_total``), no offline
+     bit and no abort; every daemon launched a dispatch what the
+     in-process online-only batch of step 5 launches, and the dealer's
+     registry holds its PRF and gamma launches.  Then member 0's daemons
+     are stopped, two batches queued, and the daemons killed once one
+     batch was dispatched to them: that batch is re-dispatched, every
+     query resolves on member 1 to its in-process row, the dealer
+     streams on, and ``health()`` names member 0 evicted and the dealer
+     not failed.  Each step prints a line before it runs.  It prints the
+     pool's boot seconds, each dispatch's wall, queries/s, query latency
+     p50/p95/p99, per-member utilization, the dealer's largest lead and the
+     host bytes it implies, and each daemon's peak device memory.
 
 Each path (the deal and the online-only run of steps 5 and 8 being two
-each; step 9's and 10's daemons count in their own processes) is driven with the launch counts set to 0 just before it and read
+each; step 9's, 10's and 11's daemons count in their own processes) is
+driven with the launch counts set to 0 just before it and read
 just after; the kernel rows report the sum over the paths, and each path
 prints its ``prf_mask`` launches, draw groups and PRF streams per batch or
 step (one launch a group, and on the runtime, joint and training paths as
@@ -168,7 +195,8 @@ failure exits nonzero.  It prints the wall of each phase; before the
 last lines come
 ``{"offline_online": {...}}`` (step 5's times),
 ``{"runtime_train": {...}}`` (step 8's), ``{"cluster": {...}}`` (step
-9's), ``{"obs": {...}}`` (step 10's) and ``{"kernels": [...]}``, then
+9's), ``{"obs": {...}}`` (step 10's), ``{"gateway": {...}}`` (step 11's)
+and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -177,6 +205,7 @@ from __future__ import annotations
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -1231,6 +1260,7 @@ def serve(device: str, backend: str, params: dict, net, queries) -> tuple:
     for q in queries:
         srv.submit(q)
     words = torch.stack(srv.flush())
+    srv.close()
     return srv, words
 
 
@@ -1674,6 +1704,7 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
                   f"pipelined batch {k}: predictions differ from the "
                   f"inline runtime at seed {SEED + k}")
     prep = psrv.report()
+    psrv.close()
     check(prep["batches"] == 6 and not prep["aborted"]
           and prep["offline_bits_per_batch"] == 0,
           f"pipelined: {prep['batches']} batches, aborted "
@@ -2724,7 +2755,7 @@ def obs_phase(params, net, queries, kernels: list, step4: dict,
               f"{profiled.get(name, 0.0):.4f} ms (the kernels alone)")
 
     # the pipelined server, traced: batch 0 dealt on the dealer thread's
-    # own CUDA stream and served online-only on this thread's; each
+    # own CUDA stream and served online-only on the serving thread's; each
     # thread's kernel windows against the profiled deal and online-only
     # runs of step 5
     tracer, reg = obs.Tracer("obs"), obs.MetricsRegistry("obs")
@@ -2737,6 +2768,7 @@ def obs_phase(params, net, queries, kernels: list, step4: dict,
         for q in X0:
             psrv.submit(q)
         pwords = torch.stack(psrv.flush())
+        psrv.close()
     finally:
         obs.install_tracer(prev[0])
         obs.install_registry(prev[1])
@@ -2744,16 +2776,26 @@ def obs_phase(params, net, queries, kernels: list, step4: dict,
     check(torch.equal(pwords.cpu(), step4["words"]),
           "obs: the traced pipelined batch's words differ from step 4's "
           "batch 0")
-    me = threading.get_ident()
     pspans = span_counts([pchunk])
     check({k: v[0] for k, v in pspans.items()}
           == registry_kinds(reg.snapshot()),
           "obs: the pipelined batch's kernel spans differ from the "
           "registry's launches")
-    online = span_counts([pchunk], tid=me)
-    dealt = span_counts([pchunk], tid=me, other_threads=True)
-    check(online and dealt, f"obs: pipelined kernel spans on this thread "
-          f"{sorted(online)}, on the dealer thread {sorted(dealt)}")
+    # the batch runs online-only on the serving thread, the gateway's
+    # collector (the thread of its serve.batch.online span), while the
+    # dealer thread deals it; this thread only waits
+    served = {e["tid"] for e in pchunk["events"]
+              if e["name"] == "serve.batch.online"}
+    check(len(served) == 1 and threading.get_ident() not in served,
+          f"obs: serve.batch.online spans on threads {served}")
+    server = served.pop()
+    online = span_counts([pchunk], tid=server)
+    dealt = span_counts([pchunk], tid=server, other_threads=True)
+    kernel_tids = {e["tid"] for e in pchunk["events"] if e["cat"] == "kernel"}
+    check(online and dealt and len(kernel_tids) == 2,
+          f"obs: pipelined kernel spans on the serving thread "
+          f"{sorted(online)}, on the dealer thread {sorted(dealt)}, on "
+          f"{len(kernel_tids)} threads")
     pipe_online = check_windows("pipelined, online-only", online,
                                 step4["profile_split"]["online_only"])
     pipe_deal = check_windows("pipelined, dealer thread", dealt,
@@ -2933,6 +2975,283 @@ def obs_phase(params, net, queries, kernels: list, step4: dict,
           f"document {health_s * 1e3:.2f} ms; merged timeline "
           f"{out['merged_trace_events']} events, {trace_bytes} bytes, the "
           f"four ranks and the dealer ({len(dealer_chunks)} chunks)")
+    return out
+
+
+# --- the serving gateway (phase "gateway") --------------------------------
+GW_POOL = 2
+# the burst: 3 x 128 queries from 4 threads, coalesced within 50 ms; then
+# the dispatches one at a time of the reference design's stall
+GW_BURST = 3 * BATCH
+GW_THREADS = 4
+GW_WAIT_MS = 50.0
+GW_SINGLES = 9
+# the daemons' online-only kernels; the dealer launches prf_mask and the
+# gamma pieces' ring_matmul
+GW_ONLINE_KERNELS = ("mpc_matmul_grid", "mult_terms", "and_terms")
+
+
+def gateway_phase(params, net, kernels: list, card: str) -> dict:
+    """The serving gateway on the card: a live pool of two clusters behind
+    one dynamic-batching front end and one shared dealer process, then a
+    member killed with batches queued; see the module docstring, step
+    11."""
+    import functools
+    import threading
+
+    import torch
+    from repro_torch.core.ring import RING64, words_to_numpy
+    from repro_torch.obs import snapshot_value
+    from repro_torch.obs.health import scrape
+    from repro_torch.runtime import FourPartyRuntime
+    from repro_torch.serve.gateway import ServingGateway
+    from repro_torch.train.paper_ml import (mlp_net_predict_runtime,
+                                            params_from_numpy)
+
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    predict = functools.partial(cluster_predict, params=params, net=net)
+    queries = np.random.RandomState(SEED + 3).randn(
+        GW_BURST + GW_SINGLES + 2 * BATCH, net.features)
+    online = {n: next(k for k in kernels if k["name"] == n)[
+        "launches_by_path"]["online_only"] for n in CLUSTER_KERNELS}
+
+    def step(text: str) -> None:
+        print(f"gateway [{card}]: {text}", flush=True)
+
+    step(f"booting a live pool of {GW_POOL} clusters (4 daemons each) on "
+         "the card")
+    t0 = time.perf_counter()
+    gw = ServingGateway(predict, pool=GW_POOL, prep="live", device="cuda",
+                        metrics=True, keep_results=True, max_batch=BATCH,
+                        max_wait_ms=GW_WAIT_MS, base_seed=SEED,
+                        timeout=CLUSTER_TIMEOUT)
+    out["boot_s"] = time.perf_counter() - t0
+    step(f"pool booted in {out['boot_s']:.2f} s")
+    clusters = [m.backend.cluster for m in gw._members]
+    leads, sampling = [], threading.Event()
+
+    def sample_lead():
+        # sessions the dealer shipped past the next one to dispatch
+        while not sampling.wait(0.05):
+            if gw.dealer is not None:
+                leads.append(gw.dealer.dealt - gw._session_ctr)
+
+    sampler = threading.Thread(target=sample_lead, daemon=True)
+    try:
+        step("setting every daemon's launch counts to 0")
+        for c in clusters:
+            c.submit(daemon_stats)
+        sampler.start()
+        step(f"burst of {GW_BURST} queries from {GW_THREADS} threads "
+             f"(window {GW_WAIT_MS:g} ms)")
+        t0 = time.perf_counter()
+        futs = [None] * GW_BURST
+
+        def feed(k):
+            for i in range(k, GW_BURST, GW_THREADS):
+                futs[i] = gw.submit(queries[i])
+
+        feeders = [threading.Thread(target=feed, args=(k,))
+                   for k in range(GW_THREADS)]
+        for t in feeders:
+            t.start()
+        for t in feeders:
+            t.join()
+        gw.drain(timeout=CLUSTER_TIMEOUT)
+        out["burst_s"] = time.perf_counter() - t0
+        out["burst_report"] = gw.report()
+        step(f"burst served in {out['burst_s']:.2f} s: "
+             f"{json.dumps(out['burst_report'])}")
+
+        step(f"{GW_SINGLES} dispatches one at a time")
+        single_walls = []
+        for i in range(GW_BURST, GW_BURST + GW_SINGLES):
+            t0 = time.perf_counter()
+            fut = gw.submit(queries[i])
+            gw.flush()
+            fut.result(timeout=CLUSTER_TIMEOUT)
+            single_walls.append(time.perf_counter() - t0)
+            futs.append(fut)
+        out["single_walls_ms"] = [w * 1e3 for w in single_walls]
+        step(f"one-at-a-time walls "
+             f"{[round(w, 1) for w in out['single_walls_ms']]} ms")
+        sampling.set()
+        sampler.join()
+        rep = gw.report()
+        records = [r for m in gw._members for r in m.dispatch_log]
+        sessions = sorted(r["session"] for r in records)
+        check(rep["evictions"] == 0 and rep["pool_size"] == GW_POOL,
+              f"gateway: evictions {rep['evictions']} before the kill")
+        check(sessions == list(range(len(records))),
+              f"gateway: sessions dispatched {sessions}, not each once")
+        singles = [r["member"] for r in sorted(
+            records, key=lambda r: r["session"])[-GW_SINGLES:]]
+        check(all(a != b for a, b in zip(singles, singles[1:])),
+              f"gateway: the one-at-a-time dispatches went to members "
+              f"{singles}, not in turns")
+        step("reading every daemon's launches, consumed sessions and peak "
+             "device memory")
+        stats = [c.submit(daemon_stats) for c in clusters]
+        snaps = [c.scrape() for c in clusters]
+        per_member = {}
+        for m, c, st, snap in zip(gw._members, clusters, stats, snaps):
+            n = len(m.dispatch_log)
+            per_member[m.idx] = n
+            for r in st:
+                got = {k: r.result["launches"][k] / n
+                       for k in CLUSTER_KERNELS}
+                check(got == online,
+                      f"gateway: member {m.idx} P{r.rank} launched {got} "
+                      f"a dispatch, the in-process online-only batch "
+                      f"{online}")
+            for rank, s in snap.items():
+                consumed = snapshot_value(
+                    s, "trident_prep_sessions_consumed_total")
+                check(consumed == n,
+                      f"gateway: member {m.idx} P{rank} consumed {consumed} "
+                      f"sessions for {n} dispatches")
+            for results in m.results_log:
+                check(all(r.totals["offline"]["bits"] == 0 and not r.abort
+                          for r in results),
+                      f"gateway: member {m.idx}: offline bits on the mesh "
+                      "or an abort")
+        launched = {k: sum(st[0].result["launches"][k] for st in stats)
+                    for k in CLUSTER_KERNELS}
+        check(all(launched[k] for k in GW_ONLINE_KERNELS),
+              f"gateway: the pool's launches {launched}")
+        for k in kernels:
+            n = launched.get(k["name"], 0)
+            k["launches"] += n
+            k["launches_by_path"]["gateway"] = n
+        dealer_kinds = registry_kinds(scrape(gw.dealer.metrics_port))
+        check(dealer_kinds.get("prf_bits", 0) > 0
+              and dealer_kinds.get("gamma.matmul", 0) > 0,
+              f"gateway: the dealer's kernel launches by kind {dealer_kinds}")
+        out.update({
+            "dispatches_per_member": per_member,
+            "launches_per_dispatch": online,
+            "dealer_launches_by_kind": dealer_kinds,
+            "peak_bytes": {m.idx: [r.result["peak_bytes"] for r in st]
+                           for m, st in zip(gw._members, stats)},
+            "report": rep})
+        step(f"{len(records)} dispatches, sessions 0-{len(records) - 1} "
+             f"each consumed once ({per_member} a member); every daemon "
+             f"launched {online} a dispatch (the in-process online-only "
+             f"batch's), 0 offline bits, no abort; the dealer's launches by "
+             f"kind {dealer_kinds}")
+
+        # stopped first, so the batch dispatched to member 0 cannot finish
+        # before the kill
+        step(f"stopping member 0's daemons, queueing {2 * BATCH} queries "
+             "and killing the daemons once a batch was dispatched to them")
+        more = queries[GW_BURST + GW_SINGLES:]
+        for p in clusters[0]._procs:
+            os.kill(p.pid, signal.SIGSTOP)
+        kfuts = [gw.submit(q) for q in more]
+        gw.flush()
+        kqids = {f.qid for f in kfuts}
+        deadline = time.monotonic() + 60
+        while not any(kqids & set(r["qids"])
+                      for r in gw._members[0].dispatch_log):
+            check(time.monotonic() < deadline,
+                  "gateway: no queued batch was dispatched to member 0")
+            time.sleep(0.01)
+        dealt_at_kill = gw.dealer.dealt
+        for p in clusters[0]._procs:
+            p.kill()
+        gw.drain(timeout=CLUSTER_TIMEOUT)
+        futs += kfuts
+        deadline = time.monotonic() + 60
+        while gw.dealer.dealt <= dealt_at_kill:
+            check(time.monotonic() < deadline and gw.dealer.failed is None,
+                  f"gateway: the dealer stopped at {gw.dealer.dealt} after "
+                  f"the kill ({gw.dealer.failed})")
+            time.sleep(0.05)
+        health = gw.health()
+        step(f"after the kill: health {json.dumps(health)}")
+        check(health["pool"]["0"].get("evicted")
+              and [e["member"] for e in health["evictions"]] == [0]
+              and health["dealer_failed"] is None
+              and not health["pool"]["1"].get("evicted"),
+              "gateway: health does not name member 0 evicted and the "
+              "dealer alive")
+        lost = {q for r in gw._members[0].dispatch_log
+                for q in r["qids"]} & kqids
+        out["redispatched_queries"] = len(lost)
+        final = gw.report()
+        out["final_report"] = final
+        out["dealt_at_kill"], out["dealt_after"] = \
+            dealt_at_kill, gw.dealer.dealt
+        shipped = list(gw.dealer.shipped)
+        blob = [b for _, b, _ in shipped]
+        # the dealer's pace (a session dealt and fanned out to 8 daemons)
+        # and each dispatch's wait in the daemons for its session
+        out["dealer_ship_intervals_ms"] = [
+            (b[2] - a[2]) * 1e3 for a, b in zip(shipped, shipped[1:])]
+        out["prep_wait_ms"] = {
+            m.idx: [max(r.prep_wait_s for r in res) * 1e3
+                    for res in m.results_log] for m in gw._members}
+    finally:
+        sampling.set()
+        gw.close()
+
+    step(f"checking {len(futs)} rows against the in-process runtime")
+    after_kill = {id(f) for f in kfuts}
+    enc = params_from_numpy(params, RING64, "cuda")
+    records = [r for m in gw._members for r in m.dispatch_log]
+    want = {}
+    for fut, q in zip(futs, queries):
+        rec = [r for r in records if fut.qid in r["qids"]][-1]
+        if id(rec) not in want:
+            rt = FourPartyRuntime(RING64, seed=rec["seed"], device="cuda")
+            want[id(rec)] = words_to_numpy(
+                mlp_net_predict_runtime(rt, enc, net, rec["X"]).cpu())
+            check(not rt.abort_flag(), "gateway: the in-process twin "
+                  "aborted")
+        i = rec["qids"].index(fut.qid)
+        check(np.array_equal(rec["X"][i], q)
+              and np.array_equal(fut.result(), want[id(rec)][i]),
+              f"gateway: query {fut.qid}'s row differs from the in-process "
+              f"runtime at seed {rec['seed']}")
+        if id(fut) in after_kill:
+            check(rec["member"] == 1, f"gateway: query {fut.qid} after the "
+                  f"kill served by member {rec['member']}")
+            lost.discard(fut.qid)
+    check(out["redispatched_queries"] > 0 and not lost,
+          f"gateway: queries {sorted(lost)} of the batch killed on member 0 "
+          "were not served by member 1")
+    lat = {k: final[k] for k in ("p50_ms", "p95_ms", "p99_ms")}
+    out.update({
+        "largest_lead_sessions": max(leads) if leads else None,
+        "session_blob_bytes": max(blob),
+        "lead_host_bytes": max(leads + [0]) * max(blob) * 4 * GW_POOL,
+        "dispatch_walls_ms": [w * 1e3 for w in gw.meter.batch_walls],
+        "achieved_qps": final["achieved_qps"], "latency_ms": lat,
+        "utilization": {i: m["utilization"]
+                        for i, m in final["per_member"].items()}})
+    step(f"every row equal to the in-process runtime at SEED + session; "
+         f"the {2 * BATCH} queries queued at the kill served by member 1, "
+         f"{out['redispatched_queries']} of them re-dispatched from the "
+         "batch killed on member 0")
+    print(f"gateway [{card}]: pool boot {out['boot_s']:.2f} s; dispatch "
+          f"walls {[round(w, 1) for w in out['dispatch_walls_ms']]} ms; "
+          f"{final['queries']} queries in {final['batches']} dispatches, "
+          f"{final['achieved_qps']:.1f} queries/s; query latency p50 "
+          f"{lat['p50_ms']:.1f} p95 {lat['p95_ms']:.1f} p99 "
+          f"{lat['p99_ms']:.1f} ms; utilization {out['utilization']}; the "
+          f"dealer's largest lead {out['largest_lead_sessions']} sessions "
+          f"of {out['session_blob_bytes']} bytes ("
+          f"{out['lead_host_bytes'] / 2**30:.2f} GiB of host memory across "
+          f"{4 * GW_POOL} daemons); daemon peak device memory "
+          f"{ {i: [round(b / 2**20, 1) for b in v] for i, v in out['peak_bytes'].items()} } MiB")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"gateway [{card}]: phase wall {out['phase_s']:.1f} s")
+    print(f"gateway [{card}]: the dealer shipped a session every "
+          f"{[round(w) for w in out['dealer_ship_intervals_ms']]} ms; each "
+          f"dispatch waited for its session "
+          f"{ {i: [round(w) for w in v] for i, v in out['prep_wait_ms'].items()} }"
+          f" ms (a member's, in completion order)")
     return out
 
 
@@ -3120,10 +3439,16 @@ def main() -> int:
     check_probs("runtime", words, want)
     step4 = {"words": words[:BATCH].cpu(), "traffic": srv.batch_traffic[0],
              "launches": on_card, "profile": {}}
-    profile_batch("runtime", lambda: serve("cuda", "hopper", params, net,
-                                           queries[:BATCH]),
-                  min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s),
-                  by_name=step4["profile"])
+    # the batch runs on the gateway's collector thread: the profiler's
+    # CUDA activity must still hold its launches
+    _, profiled_ops = profile_batch(
+        "runtime", lambda: serve("cuda", "hopper", params, net,
+                                 queries[:BATCH]),
+        min(srv.stats.batch_walls_s[1:] or srv.stats.batch_walls_s),
+        by_name=step4["profile"])
+    check(profiled_ops >= sum(on_card.values()),
+          f"runtime: the profiled batch holds {profiled_ops} device ops, "
+          f"fewer than its {sum(on_card.values()):g} kernel launches")
 
     lap("runtime")
     # --- the runtime's offline-online split ------------------------------
@@ -3214,12 +3539,18 @@ def main() -> int:
                          cluster_ref, card)
     lap("obs")
 
+    # --- the serving gateway -----------------------------------------------
+    print("phase gateway")
+    gateway = gateway_phase(params, net, kernels, card)
+    lap("gateway")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
     print(json.dumps({"runtime_train": train}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"obs": observed}))
+    print(json.dumps({"gateway": gateway}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -82,7 +82,8 @@ class LivePrepBank(PrepBank):
     consume.  All mutation goes through one condition variable: ``append``
     (control thread) blocks while the unconsumed window is full,
     ``wait_for`` (task thread) blocks until the dealer's watermark passes
-    the wanted session, and ``fail`` wakes every waiter with the dealer's
+    the wanted session, moving the cursor up to it as the sessions before
+    it arrive, and ``fail`` wakes every waiter with the dealer's
     traceback."""
 
     live = True
@@ -165,7 +166,18 @@ class LivePrepBank(PrepBank):
     def _wait_for(self, session: int, timeout: float | None) -> None:
         deadline = None if timeout is None else time.monotonic() + timeout
         with self._cond:
-            while len(self._stores) <= session:
+            while True:
+                # the sessions below the wanted one can never be used here
+                # (a pool member skips those its peers use): free them as
+                # they arrive, or they fill the bounded window the wanted
+                # one must come through.  A replay (session < cursor) is
+                # left to seek, which raises it.
+                reached = min(session, len(self._stores))
+                if reached > self._next:
+                    PrepBank.seek(self, reached)
+                    self._cond.notify_all()
+                if len(self._stores) > session:
+                    return
                 if self._failure is not None:
                     self._raise_failure(session)
                 if self._finished is not None \
@@ -206,11 +218,22 @@ class LivePrepBank(PrepBank):
 # ---------------------------------------------------------------------------
 # The dealer daemon process.
 # ---------------------------------------------------------------------------
-def _dealer_daemon_main(cfg, ctrl_qs, status_q):
+def _ship(q, i: int, item, dropped) -> None:
+    """Put `item` on consumer `i`'s control queue, blocking while the queue
+    is full, unless the consumer is (or becomes) dropped."""
+    while not dropped[i]:
+        try:
+            q.put(item, timeout=0.25)
+            return
+        except _queue.Full:
+            pass
+
+
+def _dealer_daemon_main(cfg, ctrl_qs, status_q, dropped):
     """Deal sessions continuously and stream them to the party daemons'
-    control queues.  Runs in its own spawned process, so
-    ``cfg["program_for_step"]`` must be picklable (a module-level callable
-    or a functools.partial of one)."""
+    control queues, skipping the consumers flagged in `dropped`.  Runs in
+    its own spawned process, so ``cfg["program_for_step"]`` must be
+    picklable (a module-level callable or a functools.partial of one)."""
     exporter = None
     try:
         if cfg["trace"]:
@@ -254,9 +277,9 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                 # full store: serialized once, the blob fanned out
                 blob = store_to_blob(store)
                 del store               # its device words are on the host
-                for q in ctrl_qs:
+                for i, q in enumerate(ctrl_qs):
                     # bounded queue: a full window blocks the dealer here
-                    q.put(("prep", session, blob))
+                    _ship(q, i, ("prep", session, blob), dropped)
                 status_q.put(("dealt", session, len(blob)))
                 c_shipped.inc()
                 g_mark.set(session + 1)
@@ -270,8 +293,8 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
                 session += 1
         g_done.set(1)
         status_q.put(("done", session))
-        for q in ctrl_qs:
-            q.put(("dealer_done", session))
+        for i, q in enumerate(ctrl_qs):
+            _ship(q, i, ("dealer_done", session), dropped)
         if exporter is not None:
             # the finished dealer stays scrapeable until close() ends it
             threading.Event().wait()
@@ -284,7 +307,9 @@ def _dealer_daemon_main(cfg, ctrl_qs, status_q):
             status_q.put(("error", tb))
         except (OSError, ValueError):
             pass
-        for q in ctrl_qs:
+        for i, q in enumerate(ctrl_qs):
+            if dropped[i]:
+                continue
             try:
                 q.put(("dealer_error", tb), timeout=5.0)
             except (_queue.Full, OSError, ValueError):
@@ -300,17 +325,34 @@ class DealerDaemon:
     ``cluster`` must have been built with ``live_prep=True``.
     ``program_for_step`` is the ``ContinuousDealer`` contract: a picklable
     ``step -> program`` callable; session k is dealt from ``base_seed +
-    k``, so session k IS step k's preprocessing, dealt at most
-    ``DEFAULT_AHEAD`` sessions ahead.  ``total=None`` streams until
-    closed.  The dealer process runs on the cluster's device and ring.
+    k``, so session k IS step k's preprocessing.  ``total=None`` streams
+    until closed.  The dealer process runs on the cluster's device and
+    ring.
+
+    The lead.  The dealer ships session k once every consuming daemon can
+    take it: a daemon whose next session is c holds c and c + 1 in its
+    bank (``cluster.DEFAULT_LIVE_AHEAD``), c + 2 in its control thread's
+    hand (an append blocked on the full bank) and c + 3 to c + 6 on its
+    control queue (``cluster.CTRL_DEPTH``), so ``dealt`` runs at most
+    ``cluster.LIVE_LEAD`` = 7 sessions past the slowest consumer's
+    cursor; inside the dealer process ``ContinuousDealer`` deals
+    ``DEFAULT_AHEAD`` more ahead of what it ships.  For the paper's
+    784-128-128-10 NN at batch 128 a training step's session is
+    117,211,465 bytes of host arrays and a served batch's 53,802,662
+    (``chip_smoke.py`` phases cluster and gateway, on an H100 80GB HBM3 at
+    700 W), so a full lead holds up to 7 x 117 MB = 0.82 GB of host memory
+    a consuming daemon: three sessions in the daemon, four queued in the
+    dealer process.
 
     Multi-consumer fan-out: ``cluster`` may be a SEQUENCE of live clusters
     (a pool).  Every consumer receives the full session stream -- each blob
     serialized once and put on every consuming daemon's control queue --
     and the pool's scheduler assigns each session to exactly ONE member
-    (the others ``seek`` past it), so each session is used once across the
-    pool.  The bounded control queues mean a member that stops consuming
-    eventually stalls the dealer.
+    (the others skip it: ``LivePrepBank.wait_for`` moves their cursors
+    past it), so each session is used once across the pool.  The bounded
+    control queues mean a member that stops consuming stalls the dealer
+    once the stream is ``cluster.LIVE_LEAD`` sessions past its cursor;
+    ``drop`` takes a dead member out of the fan-out.
     """
 
     def __init__(self, cluster, program_for_step, *, base_seed: int = 0,
@@ -328,6 +370,7 @@ class DealerDaemon:
                     "PartyCluster(live_prep=True)")
             ctrl_qs.extend(qs)
         self._ctrl_qs = ctrl_qs
+        self._clusters = clusters
         # the watcher thread writes these while the parent reads them
         self._slock = threading.Lock()
         self._dealt = 0
@@ -345,6 +388,8 @@ class DealerDaemon:
         self.metrics_port: int | None = None
         ctx = mp.get_context("spawn")
         self._status_q = ctx.Queue()
+        # one flag a consuming daemon: 1 = dropped, skipped by the dealer
+        self._dropped = ctx.RawArray("b", len(ctrl_qs))
         cfg = {
             "program_for_step": program_for_step,
             "ring": clusters[0].ring, "device": clusters[0].device,
@@ -352,7 +397,8 @@ class DealerDaemon:
             "trace": self.trace, "metrics": self.metrics,
         }
         self._proc = ctx.Process(target=_dealer_daemon_main,
-                                 args=(cfg, list(ctrl_qs), self._status_q),
+                                 args=(cfg, list(ctrl_qs), self._status_q,
+                                       self._dropped),
                                  daemon=True)
         self._proc.start()
         self._watcher = threading.Thread(target=self._watch, daemon=True,
@@ -407,7 +453,7 @@ class DealerDaemon:
     def _poison_banks(self, msg: str) -> None:
         for rank, q in enumerate(self._ctrl_qs):
             deadline = time.monotonic() + 10.0   # per queue, not shared
-            while not self._closed:
+            while not self._closed and not self._dropped[rank]:
                 try:
                     q.put_nowait(("dealer_error", msg))
                     break
@@ -440,7 +486,22 @@ class DealerDaemon:
         with self._slock:
             return self._error
 
+    def drop(self, cluster) -> None:
+        """Take `cluster` (a pool member that died) out of the fan-out: the
+        dealer skips its daemons' control queues from now on, also in a
+        put it is blocked in, so a dead consumer never stalls the
+        stream."""
+        k = next(i for i, c in enumerate(self._clusters) if c is cluster)
+        for i in range(4 * k, 4 * k + 4):
+            self._dropped[i] = 1
+
     # -- lifecycle ----------------------------------------------------------
+    def kill(self) -> None:
+        """Kill the dealer process hard (death mid-stream); the watcher
+        then poisons the party daemons' banks."""
+        self._proc.kill()
+        self._watcher.join(timeout=15.0)
+
     def close(self) -> None:
         if self._closed:
             return

@@ -91,6 +91,12 @@ from .socket_transport import TOKEN_BYTES
 
 DEFAULT_TIMEOUT = 120.0
 DEFAULT_LIVE_AHEAD = 2
+# a live daemon's control queue holds this many streamed sessions beyond
+# its bank; with the one its control thread holds in an append blocked on
+# the full bank, a dealer ships at most LIVE_LEAD sessions past the
+# cursor of its slowest consumer (offline.live.DealerDaemon)
+CTRL_DEPTH = 2 * DEFAULT_LIVE_AHEAD
+LIVE_LEAD = DEFAULT_LIVE_AHEAD + 1 + CTRL_DEPTH
 PORT_RETRIES = 3
 
 _log = logging.getLogger(__name__)
@@ -478,7 +484,7 @@ class PartyCluster:
             self._task_qs = [ctx.Queue() for _ in range(4)]
             # bounded control queues: a dealer running ahead of
             # consumption blocks instead of buffering sessions in flight
-            self.ctrl_queues = ([ctx.Queue(maxsize=2 * DEFAULT_LIVE_AHEAD)
+            self.ctrl_queues = ([ctx.Queue(maxsize=CTRL_DEPTH)
                                  for _ in range(4)] if live_prep else None)
             self._out_q = ctx.Queue()
             endpoints = [("127.0.0.1", p) for p in _free_ports(4)]
@@ -755,6 +761,11 @@ class PartyCluster:
                              "terminating it", rank)
                 p.terminate()
                 p.join(timeout=2.0)
+        # a daemon that died (killed, or stopped by a failed task) leaves
+        # its queues without a reader: what this process put there is
+        # dropped at its exit instead of holding the exit up
+        for q in (*self._task_qs, *(self.ctrl_queues or ())):
+            q.cancel_join_thread()
 
     def __enter__(self):
         return self

@@ -51,16 +51,18 @@ batch, batch k at seed ``seed + k``, inline (``prep=None``), from a bank
 dealt ahead and loaded by the daemons at start-up (``prep="ahead"``), or
 from sessions a dealer process streams into the running daemons
 (``prep="live"``); the report carries the wire traffic all four processes
-measured.  The JAX package dispatches those batches through its
-``ServingGateway`` pool; until the port has the gateway, each batch is
-submitted straight to the cluster, one after the other, with the same
-seeds and sessions (the same words and totals).
+measured.
 
-Each batch's compute is an ``obs.timed`` interval: ``stats.compute_s``,
-and with tracing on a ``serve.batch`` span (``serve.batch.online`` from a
-dealt store).  ``serve_over_sockets(metrics=True)`` starts the daemons'
-and the dealer's exporters and puts one health document, scraped at the
-end of the stream, in the report under ``"health"``.
+Both servers dispatch through ``serve.gateway.ServingGateway``: the
+in-process server through one ``LocalMember`` (each batch runs on the
+member's collector thread, which the flush waits on), the distributed one
+through a one-cluster pool, batch after batch.  Each batch's compute is an
+``obs.timed`` interval: ``stats.compute_s``, and with tracing on a
+``serve.batch`` span (``serve.batch.online`` from a dealt store); the
+gateway records it once on the registry (``record_serve_metrics``).
+``serve_over_sockets(metrics=True)`` starts the daemons' and the dealer's
+exporters and puts one health document, scraped at the end of the stream,
+in the report under ``"health"``.
 """
 from __future__ import annotations
 
@@ -76,10 +78,11 @@ import torch
 
 from ..core.costs import LAN, WAN, NetworkModel
 from ..core.ring import RING64
-from ..obs import get_registry, stopwatch, timed
+from ..obs import stopwatch, timed
 from ..runtime.runtime import FourPartyRuntime, resolve_device
 from ..runtime.transport import LocalTransport
 from .engine import form_batches
+from .gateway import LocalMember, ServingGateway
 
 
 @dataclasses.dataclass
@@ -121,7 +124,8 @@ class PartyPredictionServer:
     Runs on CUDA unless ``device`` says otherwise; ``kernel_backend`` is
     the runtime's ("hopper" by default).  ``prep="pipelined"`` serves each
     batch online-only from a store a background dealer made for it
-    (``prep_capacity`` stores ahead at most)."""
+    (``prep_capacity`` stores ahead at most).  Batches run on the
+    gateway's collector thread; ``close()`` stops it."""
 
     def __init__(self, predict_fn: Callable, batch_size: int = 32,
                  ring=RING64, seed: int = 0, net_model=None,
@@ -145,9 +149,25 @@ class PartyPredictionServer:
         self._batches_dealt = 0
         # the dealer thread's CUDA stream, one for every flush
         self._deal_stream = None
+        # the flush's PrepPipeline while a pipelined flush runs
+        self._pipe = None
+        self._gw: ServingGateway | None = None
+
+    def _gateway(self) -> ServingGateway:
+        if self._gw is None:
+            self._gw = ServingGateway(
+                members=[LocalMember(self._run_batch)],
+                max_batch=self.batch_size, max_wait_ms=None)
+        return self._gw
 
     def submit(self, x: np.ndarray) -> None:
         self._queue.append(np.asarray(x))
+
+    def close(self) -> None:
+        """Stop the dispatch threads (they idle until then)."""
+        if self._gw is not None:
+            self._gw.close()
+            self._gw = None
 
     def _transport(self):
         base = LocalTransport()
@@ -156,9 +176,11 @@ class PartyPredictionServer:
             return base, NetModelTransport(base, self.net_model)
         return base, base
 
-    def _run_batch(self, X, n, pipe=None):
-        """One batch: inline on a fresh runtime, or (`pipe`) online-only
-        from the next dealt store."""
+    def _run_batch(self, X, n):
+        """One batch (on the gateway's collector thread): inline on a
+        fresh runtime, or, in a pipelined flush, online-only from the next
+        dealt store."""
+        pipe = self._pipe
         base, tp = self._transport()
         t0 = time.perf_counter()
         if pipe is None:
@@ -194,22 +216,30 @@ class PartyPredictionServer:
             for phase in ("offline", "online"):
                 self.stats.modeled_s[phase] += tp.seconds(phase)
         self.stats.aborted = self.stats.aborted or aborted
-        reg = get_registry()
-        reg.counter("trident_serve_queries_total", "queries served").inc(n)
-        reg.counter("trident_serve_batches_total", "batches served").inc()
         return preds
 
     def _deal_program(self, X, rt):
         self.predict_fn(rt, X)
 
+    def _drain(self, batches: list) -> list:
+        """The formed batches through the gateway, in order; one row a
+        query.  A batch that raised raises here, once every batch has
+        run."""
+        gw = self._gateway()
+        futs = [gw.submit_batch(X, n=n) for X, n in batches]
+        try:
+            return [row for fut in futs
+                    for row in torch.unbind(fut.result().preds)]
+        finally:
+            # the batches after a failed one run before the flush returns
+            # (a pipelined flush's dealer serves them)
+            gw.drain()
+
     def flush(self) -> list:
         """Serve every queued query; returns one prediction row each."""
         batches = form_batches(self._queue, self.batch_size)
-        out: list = []
         if self.prep != "pipelined":
-            for X, n in batches:
-                out.extend(torch.unbind(self._run_batch(X, n)))
-            return out
+            return self._drain(batches)
         from ..offline import PrepPipeline
         if self.device.type == "cuda" and self._deal_stream is None:
             self._deal_stream = torch.cuda.Stream(self.device)
@@ -222,9 +252,11 @@ class PartyPredictionServer:
                           stream=self._deal_stream, runtime_kwargs={
                               "kernel_backend": self.kernel_backend}
                           ) as pipe:
-            for X, n in batches:
-                out.extend(torch.unbind(self._run_batch(X, n, pipe)))
-        return out
+            self._pipe = pipe
+            try:
+                return self._drain(batches)
+            finally:
+                self._pipe = None
 
     def report(self) -> dict:
         links = {f"P{a}->P{b}": bits for (a, b), bits
@@ -257,13 +289,9 @@ class PartyPredictionServer:
 # ---------------------------------------------------------------------------
 # Distributed serving: four long-lived party daemons over TCP.
 # ---------------------------------------------------------------------------
-def _serve_batch(rt, _rank, predict_fn=None, X=None):
-    """Party-daemon task: one batch through predict_fn on this runtime."""
-    return predict_fn(rt, X)
-
-
 def _zero_deal_program(predict_fn, X, rt):
-    """Module-level deal twin of ``_serve_batch`` (shapes only)."""
+    """Module-level deal twin of the gateway's ``_predict_batch`` (shapes
+    only)."""
     predict_fn(rt, np.zeros_like(X))
 
 
@@ -288,13 +316,14 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
     the per-link wire traffic all four processes agree on.
 
     Batches run as tasks on a ``PartyCluster`` of long-lived daemons on
-    `device` (CUDA unless the caller asks for the CPU); pass ``cluster=``
-    to reuse one across streams.  ``prep="ahead"`` deals every batch's
-    offline phase up front (on `device`), saves the bank to a temporary
-    directory (removed at the end) for the daemons to load at start-up,
-    and runs each batch online-only; ``prep="live"`` starts the daemons
-    with an empty live bank and a ``DealerDaemon`` streams batch k's
-    session while batch k-1 is served.  Both modes move zero offline bits
+    `device` (CUDA unless the caller asks for the CPU), dispatched one
+    after the other through a one-cluster ``ServingGateway``; pass
+    ``cluster=`` to reuse one across streams.  ``prep="ahead"`` deals
+    every batch's offline phase up front (on `device`), saves the bank to
+    a temporary directory (removed at the end) for the daemons to load at
+    start-up, and runs each batch online-only; ``prep="live"`` starts the
+    daemons with an empty live bank and a ``DealerDaemon`` streams batch
+    k's session while batch k-1 is served.  Both modes move zero offline bits
     on the mesh (forbidden by the daemons' transports).  ``"ahead"``
     provisions its own cluster; ``"live"`` does too, or streams into a
     ``cluster=`` built with ``live_prep=True`` whose bank no earlier
@@ -371,34 +400,39 @@ def serve_over_sockets(predict_fn: Callable, queries, batch_size: int = 32,
         aborted = False
         wall = 0.0
         modeled = None
-        for k, X in enumerate(batches):
-            results = cluster.submit(
-                functools.partial(_serve_batch, predict_fn=predict_fn, X=X),
-                seed=seed + k, prep="bank" if prep is not None else None,
-                prep_session=k if prep is not None else None,
-                timeout=timeout)
-            ref = results[0]
-            if any(r.totals != ref.totals or r.per_link != ref.per_link
-                   for r in results[1:]):
-                raise RuntimeError(
-                    "party processes disagree on measured traffic")
-            aborted = aborted or any(r.abort for r in results)
-            preds.extend(np.asarray(results[1].result))
-            for p in totals:
-                for kk in totals[p]:
-                    totals[p][kk] += ref.totals[p][kk]
-            for link, bits in ref.per_link.items():
-                acc = link_bits.setdefault(link, dict.fromkeys(bits, 0))
-                for phase, b in bits.items():
-                    acc[phase] += b
-            frames.append(sum(sum(r.frames_sent.values()) for r in results))
-            wire_bytes.append(sum(sum(r.bytes_sent.values())
+        # one batch after another, so cluster.task_walls keep their
+        # per-batch round-trip meaning
+        gw = ServingGateway(predict_fn, clusters=[cluster],
+                            max_batch=batch_size, max_wait_ms=None,
+                            base_seed=seed, timeout=timeout)
+        try:
+            for k, X in enumerate(batches):
+                br = gw.submit_batch(
+                    X, seed=seed + k,
+                    prep="bank" if prep is not None else None,
+                    prep_session=k if prep is not None else None,
+                    timeout=timeout).result(timeout=timeout + 60.0)
+                results, ref = br.results, br.results[0]
+                aborted = aborted or br.abort
+                preds.extend(br.preds)
+                for p in totals:
+                    for kk in totals[p]:
+                        totals[p][kk] += ref.totals[p][kk]
+                for link, bits in ref.per_link.items():
+                    acc = link_bits.setdefault(link, dict.fromkeys(bits, 0))
+                    for phase, b in bits.items():
+                        acc[phase] += b
+                frames.append(sum(sum(r.frames_sent.values())
                                   for r in results))
-            wall += max(r.wall_s for r in results)
-            if ref.modeled_s is not None:
-                modeled = modeled or {p: 0.0 for p in ref.modeled_s}
-                for p, sec in ref.modeled_s.items():
-                    modeled[p] += sec
+                wire_bytes.append(sum(sum(r.bytes_sent.values())
+                                      for r in results))
+                wall += max(r.wall_s for r in results)
+                if ref.modeled_s is not None:
+                    modeled = modeled or {p: 0.0 for p in ref.modeled_s}
+                    for p, sec in ref.modeled_s.items():
+                        modeled[p] += sec
+        finally:
+            gw.close()
         report = {
             "queries": len(queries),
             "batches": len(batches),

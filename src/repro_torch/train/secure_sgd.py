@@ -334,11 +334,11 @@ class ClusterSGD:
         steps (0 with prep -- the acceptance check)."""
         return sum(res[0].totals["offline"]["bits"] for res in self.results)
 
-    def health(self, **kw) -> dict:
+    def health(self) -> dict:
         """One cluster health document between steps: the four party
         exporters and the attached dealer's (``PartyCluster`` built with
         ``metrics=True``)."""
-        return self.cluster.health(dealer=self.dealer, **kw)
+        return self.cluster.health(dealer=self.dealer)
 
 
 # ---------------------------------------------------------------------------

@@ -8,14 +8,17 @@ seed, in at most 3 frames a round per party; a dial carrying another
 mesh's token is refused while the mesh forms; a tampered gamma piece
 aborts; three ``ClusterSGD(prep="live")`` steps fed by a dealer process
 are bit-equal to JAX's joint world with no offline bit on the mesh, and a
-replayed step poisons the cluster; ``serve_over_sockets`` serves the same
-words inline, dealt ahead and live; a ``ShardedClusterSGD`` step is the
-mean of its members.  The shared cluster traces and serves its metrics
-(``trace=True, metrics=True``), so the same words also show that tracing
-changes no word: each daemon's registry and trace hold its ``per_link()``
-bits, the four exporters scrape, the health documents between tasks and
-after training are healthy, the merged timeline covers the four ranks and
-the dealer; a terminated daemon reads as ``rank_down``.  One test item,
+replayed step poisons the cluster; a dealer that fails mid-stream (its
+program raises) or dies hard (killed while it deals) fails the blocked
+step within 30 s, naming its traceback or its death;
+``serve_over_sockets`` serves the same words inline, dealt ahead and live;
+a ``ShardedClusterSGD`` step is the mean of its members.  The shared
+cluster traces and serves its metrics (``trace=True, metrics=True``), so
+the same words also show that tracing changes no word: each daemon's
+registry and trace hold its ``per_link()`` bits, the four exporters
+scrape, the health documents between tasks and after training are
+healthy, the merged timeline covers the four ranks and the dealer; a
+terminated daemon reads as ``rank_down``.  One test item,
 so the collected count stays where the tier-1 split of the slow tests
 needs it.
 
@@ -23,9 +26,11 @@ The daemons are spawned and import this module to find its programs, so
 its top level imports neither jax nor the JAX package: the JAX side is
 imported inside the test."""
 import concurrent.futures
+import functools
 import json
 import os
 import socket
+import threading
 import time
 
 import numpy as np
@@ -42,8 +47,8 @@ from repro_torch import obs as TO  # noqa: E402
 from repro_torch.obs import MetricsRegistry, install_registry  # noqa: E402
 from repro_torch.offline import (ContinuousDealer, LivePrepBank,  # noqa: E402
                                  PrepError, PrepMissingError, deal)
-from repro_torch.offline.live import (store_from_blob,  # noqa: E402
-                                      store_to_blob)
+from repro_torch.offline.live import (DealerDaemon,  # noqa: E402
+                                      store_from_blob, store_to_blob)
 from repro_torch.runtime import FourPartyRuntime  # noqa: E402
 from repro_torch.runtime import activations as TRA  # noqa: E402
 from repro_torch.runtime import protocols as TRT  # noqa: E402
@@ -96,6 +101,23 @@ def link_totals(rt, rank):
 def _deal_program(rt):
     xs = TRT.share(rt, rt.encode(np.zeros((2, 4))))
     TRT.mult_tr(rt, xs, xs)
+
+
+def _boom_program(rt):
+    raise ValueError("boom: dealer died mid-stream")
+
+
+def _sleep_program(rt):
+    time.sleep(120)
+
+
+def _dying_program_for_step(step, *, late, task, params, batch):
+    """The dealer's step -> program: step 0 the training step's deal, step
+    1 `late` (it raises, or sleeps until the dealer is killed)."""
+    if step >= 1:
+        return late
+    return functools.partial(TS._live_deal_program, task=task,
+                             params=params, batch=batch)
 
 
 # -- the JAX side ------------------------------------------------------------
@@ -413,6 +435,45 @@ def _check_live_training(J, cluster, dealer) -> None:
     assert cluster.poisoned is not None
 
 
+def _dealer_deaths() -> dict:
+    """Step 0 on its streamed session, then the dealer dies: soft (step
+    1's program raises in the dealer) and hard (the dealer process killed
+    while it deals step 1).  Each on a live cluster of its own, since the
+    blocked step poisons it.  Returns what the checks read."""
+    params = TASK.init_params(seed=0)
+    zp, zb = TS.zero_inputs(TASK, params, DATA.batch(0, BATCH))
+    out = {}
+    for death, late in (("soft", _boom_program), ("hard", _sleep_program)):
+        with PartyCluster(device="cpu", live_prep=True,
+                          timeout=60) as cluster:
+            with DealerDaemon(cluster, functools.partial(
+                    _dying_program_for_step, late=late, task=TASK,
+                    params=zp, batch=zb),
+                    base_seed=TRAIN_SEED, total=STEPS) as dealer:
+                sgd = TS.ClusterSGD(cluster, TASK, base_seed=TRAIN_SEED,
+                                    prep="live")
+                p, _, abort = sgd.step_fn(params, 0, *DATA.batch(0, BATCH))
+                assert not abort, death
+                if death == "hard":
+                    threading.Timer(0.5, dealer.kill).start()
+                t0 = time.monotonic()
+                try:
+                    sgd.step_fn(p, 1, *DATA.batch(1, BATCH))
+                    raise AssertionError(f"{death} death: step 1 ran")
+                except RuntimeError as e:
+                    msg = str(e)
+                took = time.monotonic() - t0
+                failed = dealer.failed
+                try:
+                    sgd.step_fn(p, 2, *DATA.batch(2, BATCH))
+                    poisoned = None
+                except ClusterPoisoned as e:
+                    poisoned = str(e)
+        out[death] = {"msg": msg, "took": took, "failed": failed,
+                      "poisoned": poisoned}
+    return out
+
+
 def _serve(prep):
     return serve_over_sockets(serve_predict, QUERIES, batch_size=4,
                               seed=SERVE_SEED, prep=prep, timeout=120,
@@ -441,9 +502,10 @@ def test_cluster_matches_jax(tmp_path):
     # the one-shot clusters (two streams that provision their own, the
     # tampered run) boot and run beside the shared cluster: the daemons
     # spend most of their time importing torch
-    with concurrent.futures.ThreadPoolExecutor(3) as pool:
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
         side = {prep: pool.submit(_serve, prep) for prep in ("ahead", "live")}
         tampered = pool.submit(_tampered_then_killed)
+        deaths = pool.submit(_dealer_deaths)
         params0 = TASK.init_params(seed=0)
         with PartyCluster(device="cpu", live_prep=True, timeout=120,
                           trace=True, metrics=True) as cluster:
@@ -462,6 +524,15 @@ def test_cluster_matches_jax(tmp_path):
         streams.update({prep: f.result(timeout=300)
                         for prep, f in side.items()})
         res, killed = tampered.result(timeout=300)
+        deaths = deaths.result(timeout=300)
+
+    soft, hard = deaths["soft"], deaths["hard"]
+    assert "boom: dealer died mid-stream" in soft["msg"] \
+        and "will never arrive" in soft["msg"], soft["msg"]
+    assert soft["took"] < 30.0 and "boom" in soft["failed"]
+    assert soft["poisoned"] is not None
+    assert "died hard" in hard["msg"] and hard["took"] < 30.0, hard
+    assert "died hard" in hard["failed"] and hard["poisoned"] is not None
 
     want_words = [_jax_serve_words(J, QUERIES[i:i + 4], SERVE_SEED + k)
                   for k, i in enumerate((0, 4))]
