@@ -44,7 +44,9 @@ from the root of a checkout.  In order, it
      moves.  The ``and_level`` row
      is the joint paths' whole-chain launches (the Sklansky adder and the
      prefix-OR, faithful and collapsed, at n = 128 and 2^20 and on 32-bit
-     words) beside the single level;
+     words) beside the single level and the split twins of the chains (one
+     AND, the adder and the prefix-OR, offline and online, held at the same
+     sizes, the adder and the prefix-OR timed at n = 128);
   4. serves 2 batches of 128 queries of the paper's 784-128-128-10 NN
      through ``PartyPredictionServer`` on the card with the "hopper"
      backend (its batches run on the serving gateway's collector thread),
@@ -83,7 +85,30 @@ from the root of a checkout.  In order, it
      ``mpc_matmul_fused`` route): the kernels launched, the words equal to
      a CPU run and the launches to its wrapper calls, ``totals()`` equal to
      path A's, and the probabilities; then profiles one more batch;
-  8. secure training on the party runtime (phase "runtime-train"): 3
+  8. the joint simulation's offline-online split (phase "joint-split"):
+     batch 0 of path A's program through ``train.trainer.
+     split_offline_online`` on the card, faithful and then collapsed, an
+     offline run and an online run on its materials, each a driven path:
+     the online words equal path A's (faithful) or path B's (collapsed)
+     batch 0 and a CPU run of the split, every material consumed, no
+     abort, the offline run's offline totals and the online run's online
+     totals those of the fused batch, every kernel launched as often in
+     each run as the CPU run called its wrapper, and the split
+     ``and_level`` entries 2 offline and 2 online (A2B's subtractor, smx's
+     prefix-OR); the offline and online walls (driven and again) beside
+     the fused batch's;
+  9. the ABY3 baseline (phase "aby3"): ``core.aby3.matmul_tr`` at (128,
+     784) @ (784, 128) and at linear regression's (128, 784) @ (784, 1)
+     and (784, 128) @ (128, 1), ``mult`` on (128, 128), and Trident's
+     ``activations.argmax_tournament`` on (128, 10), one driven path: words
+     and tallies equal to a CPU run of the port, decoded values within
+     1e-2 of float64, one ``mpc_matmul_grid`` launch an ABY3 matmul and one
+     ``mult_terms`` launch an ABY3 mult; it prints each op's executed
+     per-element rounds and bits beside ``paper_costs``' ABY3 figures (not
+     asserted equal: the truncation pair's offline bits differ from
+     ``dotp_tr_cost``'s) and ABY3's and Trident's ``matmul_tr`` walls on
+     the same shapes;
+ 10. secure training on the party runtime (phase "runtime-train"): 3
      steps of the NN (``secure_sgd.nn_task()``, lr 0.5, weights from
      ``init_params(seed=0)``, ``MNISTLike(n=8192, seed=2)`` batches of
      128) through ``secure_sgd.run_step`` on the card, each step's
@@ -101,7 +126,7 @@ from the root of a checkout.  In order, it
      checkpoint ending on the uninterrupted params; steady step walls, a
      profiled NN step, and each kernel at the training step's new shapes
      against its plain version, timed beside its bound;
-  9. the four parties as four processes over TCP (phase "cluster"): one
+ 11. the four parties as four processes over TCP (phase "cluster"): one
      ``PartyCluster(device="cuda", live_prep=True, net_model=LAN)`` of four
      daemon processes on the card serves step 4's 2 batches through
      ``serve_over_sockets`` (batch k at seed SEED + k), each batch's words,
@@ -121,7 +146,7 @@ from the root of a checkout.  In order, it
      and wire bytes a batch, the live step walls, the dealer's lead and
      each daemon's peak device memory, each beside the card's name and
      power limit;
- 10. the observability plane (phase "obs"; tracing is off in every other
+ 12. the observability plane (phase "obs"; tracing is off in every other
      phase): step 4's batch 0 served untraced and traced in turns (off,
      on, on, off), each under a fresh metrics registry, the first traced
      batch a driven path of its own ("obs_runtime"): its words,
@@ -161,7 +186,7 @@ from the root of a checkout.  In order, it
      step 4's profiled device time, the scrape and health walls and the
      traced cluster batches beside phase cluster's untraced ones.  The
      in-process references of the cluster checks are phase cluster's;
- 11. the serving gateway (phase "gateway", tracing off): a
+ 13. the serving gateway (phase "gateway", tracing off): a
      ``ServingGateway(pool=2, prep="live", device="cuda", metrics=True)``
      boots two clusters of four daemons on the card concurrently and one
      shared dealer process, and serves the paper's NN (``cluster_predict``,
@@ -184,8 +209,9 @@ from the root of a checkout.  In order, it
      p50/p95/p99, per-member utilization, the dealer's largest lead and the
      host bytes it implies, and each daemon's peak device memory.
 
-Each path (the deal and the online-only run of steps 5 and 8 being two
-each; step 9's, 10's and 11's daemons count in their own processes) is
+Each path (the deal and the online-only run of steps 5 and 10 and the
+offline and online runs of step 8 being two each; step 11's, 12's and
+13's daemons count in their own processes) is
 driven with the launch counts set to 0 just before it and read
 just after; the kernel rows report the sum over the paths, and each path
 prints its ``prf_mask`` launches, draw groups and PRF streams per batch or
@@ -194,8 +220,9 @@ many as a CPU run's draw groups).  Any
 failure exits nonzero.  It prints the wall of each phase; before the
 last lines come
 ``{"offline_online": {...}}`` (step 5's times),
-``{"runtime_train": {...}}`` (step 8's), ``{"cluster": {...}}`` (step
-9's), ``{"obs": {...}}`` (step 10's), ``{"gateway": {...}}`` (step 11's)
+``{"joint_split": {...}}`` (step 8's), ``{"aby3": {...}}`` (step 9's),
+``{"runtime_train": {...}}`` (step 10's), ``{"cluster": {...}}`` (step
+11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's)
 and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
@@ -463,13 +490,87 @@ def chain_bound(n: int, streams: int, adder: bool) -> tuple:
     once) against its integer operations (about 30 an AND level, plus the
     masks, shifts, smears and NOTs between levels) at the CUDA-core
     rate."""
+    ands, stacks, ops_ = chain_shape(adder)
+    return bound(8 * n * (4 * stacks + ands * streams), ops_ * n)
+
+
+def chain_shape(adder: bool) -> tuple:
+    """(ANDs, share stacks read and written, integer operations a word) of
+    the adder or the prefix-OR at ell = 64."""
     levels = 6
     if adder:
-        ands, stacks = 2 * levels + 1, 3
-        ops_ = 30 * ands + 32 * levels + 8 * levels * (levels - 1) + 21
-    else:
-        ands, stacks, ops_ = levels, 2, 37 * levels
-    return bound(8 * n * (4 * stacks + ands * streams), ops_ * n)
+        ands = 2 * levels + 1
+        return ands, 3, 30 * ands + 32 * levels + 8 * levels * (levels - 1) \
+            + 21
+    return levels, 2, 37 * levels
+
+
+def split_bound(n: int, streams: int, adder: bool, online: bool) -> tuple:
+    """A split chain's bound at n words: its bytes (the input stacks read
+    once; offline every AND's draws read and its three gammas written
+    once, online its three lambdas and three gammas read once; the output
+    stack written once) against its integer operations (as
+    ``chain_bound``'s)."""
+    ands, stacks, ops_ = chain_shape(adder)
+    planes = 6 if online else streams + 3
+    return bound(8 * n * (4 * stacks + ands * planes), ops_ * n)
+
+
+def split_rows(words, words32) -> dict:
+    """The split twins of the chains (the joint offline and online runs):
+    one AND, the adder (cin = 1) and the prefix-OR, offline and online,
+    faithful and collapsed, held against their plain versions at n = 128
+    (smx's words of (128, 1)) and 2^20 and on 32-bit words; the adder and
+    the prefix-OR timed at n = 128."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ppa_msb as PPA
+    timed = {}
+    for make, ell, sizes in ((words, 64, (BATCH, BIG_N)),
+                             (words32, 32, (5000,))):
+        for S, world in ((6, "faithful"), (3, "collapsed")):
+            for n in sizes:
+                x, y = make(4, n), make(4, n)
+                for kind, arg in (("and", 0), ("add", 1), ("or", -1)):
+                    A = PPA.split_ands(kind, ell)
+                    d, lz, gm = make(A, S, n), make(A, 3, n), make(A, 3, n)
+                    yy = None if kind == "or" else y
+                    got = PPA.and_chain_offline_cuda(kind, x, yy, d, arg)
+                    want = PPA.and_chain_offline_plain(kind, x, yy, d, arg)
+                    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+                          f"and_chain_offline ({kind}) disagrees with its "
+                          f"plain version: {ell}-bit, {world}, n = {n}")
+                    check(torch.equal(
+                        PPA.and_chain_online_cuda(kind, x, yy, lz, gm, arg),
+                        PPA.and_chain_online_plain(kind, x, yy, lz, gm,
+                                                   arg)),
+                          f"and_chain_online ({kind}) disagrees with its "
+                          f"plain version: {ell}-bit, {world}, n = {n}")
+                    if n != BATCH or kind == "and":
+                        continue
+                    for online in (False, True):
+                        if online:
+                            args = (kind, x, yy, lz, gm, arg)
+                            kern, plain = (PPA.and_chain_online_cuda,
+                                           PPA.and_chain_online_plain)
+                            call = ops.and_chain_online
+                        else:
+                            args = (kind, x, yy, d, arg)
+                            kern, plain = (PPA.and_chain_offline_cuda,
+                                           PPA.and_chain_offline_plain)
+                            call = ops.and_chain_offline
+                        phase = "online" if online else "offline"
+                        b_ms, b_by = split_bound(n, S, kind == "add", online)
+                        timed.setdefault(world, {})[f"{phase}_{kind}"] = {
+                            "ms": device_ms(lambda: kern(*args),
+                                            f"and_chain_{phase}_kernel",
+                                            reps=50, warmup=5),
+                            "call_ms": cuda_ms(lambda: call(*args)),
+                            "plain_ms": device_ms(lambda: plain(*args)),
+                            "plain_device_ops": device_ops(
+                                lambda: plain(*args))[1],
+                            "bound_ms": b_ms, "bound_by": b_by}
+    return timed
 
 
 def and_level_rows(words, words32, dev) -> dict:
@@ -518,13 +619,15 @@ def and_level_rows(words, words32, dev) -> dict:
                         "bound_ms": b_ms, "bound_by": b_by}
                 chains[world] = timed
     add = chains["faithful"]["ppa_add"]
+    split = split_rows(words, words32)
     return {ops.AND_LEVEL.name: {
         "name": ops.AND_LEVEL.name, "route": "cuda",
         "source": ops.AND_LEVEL.source, "replaces": ops.AND_LEVEL.replaces,
         "launches": 0, "max_abs_err": 0, "ms": add["ms"],
         "call_ms": add["call_ms"], "plain_ms": add["plain_ms"],
         "bound_ms": add["bound_ms"], "bound_by": add["bound_by"],
-        "library_ms": None, "chains_at_n_128": chains}}
+        "library_ms": None, "chains_at_n_128": chains,
+        "split_at_n_128": split}}
 
 
 def ring_matmul_phases(M: int, N: int, K: int, chunk: int, dev) -> dict:
@@ -1756,6 +1859,293 @@ def offline_online_phase(params, net, X, kernels, srv, words) -> dict:
     return times
 
 
+# the joint simulation's offline-online split (phase joint-split): path A's
+# program on batch 0, an offline run, then an online run on its materials
+SPLIT_WORLDS = ((False, "faithful"), (True, "collapsed"))
+
+
+def split_batch(device: str, params: dict, net, X, collapse: bool,
+                kernels: list | None = None,
+                needed: dict | None = None) -> dict:
+    """Batch 0 through ``split_offline_online`` of path A's program
+    (``mlp_net_predict_joint``, Newton division) on `device`: the online
+    words, both contexts, the materials and each run's wall.  With
+    `kernels` each run is a driven path whose launches go into the kernel
+    rows (`needed`: {mode: {kernel: CPU wrapper calls}}); without, each
+    run's wrapper calls are recorded."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import ops
+    from repro_torch.train.paper_ml import (mlp_net_predict_joint,
+                                            params_from_numpy)
+    from repro_torch.train.trainer import split_offline_online
+
+    enc = params_from_numpy(params, RING64, device)
+    seen = []
+
+    def program(ctx):
+        seen.append(ctx)
+        return mlp_net_predict_joint(ctx, enc, net, X)
+
+    def offline():
+        return split_offline_online(program, seed=SEED, device=device,
+                                    collapse=collapse)
+
+    def online():
+        return online_fn()
+
+    world = "collapsed" if collapse else "faithful"
+    out = {"walls_s": {}, "calls": {}}
+    online_fn = None
+    for mode, run in (("offline", offline), ("online", online)):
+        if kernels is None:
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = run()
+            if device != "cpu":
+                torch.cuda.synchronize()
+            out["walls_s"][mode] = time.perf_counter() - t0
+            out["calls"][mode] = {k.name: k.calls for k in ops.KERNELS}
+        else:
+            res, out["walls_s"][mode] = drive(
+                f"joint_split_{mode}_{world}", kernels,
+                tuple(n for n, c in needed[mode].items() if c), run, 1)
+        if mode == "offline":
+            out["materials"], online_fn = res
+        else:
+            out["words"], out["on_ctx"] = res[0].cpu(), res[1]
+    out["off_ctx"] = seen[0]
+    return out
+
+
+def joint_split_phase(params, net, X, kernels: list, fused: dict,
+                      card: str) -> dict:
+    """Phase joint-split.  `fused`: {world: (words, totals(), steady batch
+    wall s)} of batch 0 on path A (faithful) and path B (collapsed)."""
+    import torch
+    from repro_torch.kernels import ops
+    report = {}
+    for collapse, world in SPLIT_WORLDS:
+        t0 = time.perf_counter()
+        ref = split_batch("cpu", params, net, X, collapse)
+        cpu_s = time.perf_counter() - t0
+        got = split_batch("cuda", params, net, X, collapse, kernels,
+                          ref["calls"])
+        words, totals, fused_wall = fused[world]
+        on_ctx, off_ctx = got["on_ctx"], got["off_ctx"]
+        check(torch.equal(got["words"], words),
+              f"joint-split {world}: the online words differ from the fused "
+              f"path's batch 0")
+        check(torch.equal(got["words"], ref["words"]),
+              f"joint-split {world}: the online words differ from the CPU "
+              f"run's")
+        check(on_ctx._mat_idx == len(got["materials"]) > 0,
+              f"joint-split {world}: {on_ctx._mat_idx} of "
+              f"{len(got['materials'])} materials consumed")
+        check(not on_ctx.abort_flag() and not off_ctx.abort_flag(),
+              f"joint-split {world}: the split aborted")
+        off_t, on_t = off_ctx.tally.totals(), on_ctx.tally.totals()
+        check(off_t["offline"] == totals["offline"]
+              and on_t["online"] == totals["online"],
+              f"joint-split {world}: the offline run's totals {off_t} or the "
+              f"online run's {on_t} differ from the fused run's {totals}")
+        check(off_t == ref["off_ctx"].tally.totals()
+              and on_t == ref["on_ctx"].tally.totals(),
+              f"joint-split {world}: totals() differ from the CPU run's")
+        launches = {}
+        for mode in ("offline", "online"):
+            path = f"joint_split_{mode}_{world}"
+            launches[mode] = {k["name"]: k["launches_by_path"][path]
+                              for k in kernels}
+            for name, n in launches[mode].items():
+                check(n == ref["calls"][mode][name],
+                      f"{path}: {name} {n} launches on the card, "
+                      f"{ref['calls'][mode][name]} wrapper calls on the CPU")
+        check(launches["offline"][ops.AND_LEVEL.name] == 2
+              and launches["online"][ops.AND_LEVEL.name] == 2,
+              f"joint-split {world}: and_level launches {launches}, not 2 "
+              f"offline and 2 online (A2B's subtractor, smx's prefix-OR)")
+        # steady walls: the same split again, undriven
+        again = split_batch("cuda", params, net, X, collapse)
+        check(torch.equal(again["words"], words),
+              f"joint-split {world}: a second split opened other words")
+        r = report[world] = {
+            "offline_ms": [got["walls_s"]["offline"] * 1e3,
+                           again["walls_s"]["offline"] * 1e3],
+            "online_ms": [got["walls_s"]["online"] * 1e3,
+                          again["walls_s"]["online"] * 1e3],
+            "fused_batch_ms": fused_wall * 1e3, "cpu_split_s": cpu_s,
+            "materials": len(got["materials"]), "launches": launches,
+            "offline_totals": off_t["offline"],
+            "online_totals": on_t["online"]}
+        print(f"joint-split {world}: online words equal to the fused path's "
+              f"and to the CPU run's, {r['materials']} materials all "
+              f"consumed, no abort, offline and online totals the fused "
+              f"run's; launches offline "
+              f"{ {n: c for n, c in launches['offline'].items() if c} }, "
+              f"online { {n: c for n, c in launches['online'].items() if c} }"
+              f" (the CPU run's wrapper calls)")
+        print(f"joint-split {world}: offline run "
+              f"{[round(t, 1) for t in r['offline_ms']]} ms, online run "
+              f"{[round(t, 1) for t in r['online_ms']]} ms (driven, steady), "
+              f"beside the fused batch's {r['fused_batch_ms']:.1f} ms; CPU "
+              f"split {cpu_s:.1f} s ({card})")
+    return report
+
+
+# phase aby3: the ABY3 baseline's products at the NN's first layer and at
+# linear regression's two products, one Pi_Mult-sized mult, and Trident's
+# argmax_tournament over the NN's output width
+ABY3_MATMULS = ((BATCH, 784, 128), (BATCH, 784, 1), (784, BATCH, 1))
+ABY3_MULT = (BATCH, 128)
+ARGMAX_SHAPE = (BATCH, 10)
+
+
+def aby3_data() -> dict:
+    rng = np.random.RandomState(SEED + 3)
+    data = {"matmul_tr": [(rng.randn(M, K) * 0.5, rng.randn(K, N) * 0.05)
+                          for M, K, N in ABY3_MATMULS],
+            "mult": (rng.randn(*ABY3_MULT), rng.randn(*ABY3_MULT)),
+            "argmax": rng.randn(*ARGMAX_SHAPE)}
+    return data
+
+
+def aby3_runs(device: str, data: dict) -> list:
+    """Each op of phase aby3 on a fresh context on `device` (RING64, seed
+    SEED): (name, opened words, by_op before the opening, the op's own
+    rounds and bits per phase (the sharing and the opening left out),
+    output elements)."""
+    from repro_torch.core import aby3 as AB
+    from repro_torch.core import activations as ACT
+    from repro_torch.core import protocols as PR
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+
+    runs = []
+
+    def record(name, ctx, op, reveal):
+        before = ctx.tally.totals()
+        out = op()
+        after = ctx.tally.totals()
+        own = {ph: {k: after[ph][k] - before[ph][k] for k in after[ph]}
+               for ph in after}
+        by_op = dict(ctx.tally.by_op)
+        runs.append((name, reveal(ctx, out).cpu(), by_op, own,
+                     int(np.prod(out.shape))))
+
+    for (a, b), shape in zip(data["matmul_tr"], ABY3_MATMULS):
+        ctx = make_context(RING64, SEED, device=device)
+        x, w = AB.share(ctx, ctx.encode(a)), AB.share(ctx, ctx.encode(b))
+        record(f"matmul_tr {'x'.join(map(str, shape))}", ctx,
+               lambda: AB.matmul_tr(ctx, x, w), AB.reveal)
+    ctx = make_context(RING64, SEED, device=device)
+    x, y = (AB.share(ctx, ctx.encode(v)) for v in data["mult"])
+    record(f"mult {'x'.join(map(str, ABY3_MULT))}", ctx,
+           lambda: AB.mult(ctx, x, y), AB.reveal)
+    ctx = make_context(RING64, SEED, device=device)
+    z = PR.share(ctx, ctx.encode(data["argmax"]))
+    record(f"argmax_tournament {'x'.join(map(str, ARGMAX_SHAPE))}", ctx,
+           lambda: ACT.argmax_tournament(ctx, z), PR.reconstruct)
+    return runs
+
+
+def best_wall_ms(fn, reps: int = 3) -> float:
+    import torch
+    best = None
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t = (time.perf_counter() - t0) * 1e3
+        best = t if best is None else min(best, t)
+    return best
+
+
+def aby3_phase(kernels: list, card: str) -> dict:
+    """Phase aby3: the ops on the card (a driven path) against a CPU run
+    of the port, words and tallies; decoded values against float64; one
+    mpc_matmul_grid launch an ABY3 matmul and one mult_terms launch an
+    ABY3 mult; executed per-element bits and rounds beside paper_costs'
+    ABY3 figures; walls beside Trident's matmul_tr on the same shapes."""
+    import torch
+    from repro_torch.core import aby3 as AB
+    from repro_torch.core import paper_costs as PC
+    from repro_torch.core import protocols as PR
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import ops
+
+    data = aby3_data()
+    runs, _ = drive("aby3", kernels, ("prf_mask", "mpc_matmul_grid",
+                                      "mult_terms"),
+                    lambda: aby3_runs("cuda", data), 1)
+    on_card = {k["name"]: k["launches_by_path"]["aby3"] for k in kernels}
+    check(on_card[ops.MPC_MATMUL_GRID.name] == len(ABY3_MATMULS)
+          and on_card[ops.MULT_TERMS.name] == 1,
+          f"aby3: {on_card} launches, not one mpc_matmul_grid an ABY3 "
+          f"matmul ({len(ABY3_MATMULS)}) and one mult_terms an ABY3 mult")
+    ops.reset_launches()
+    ref = aby3_runs("cpu", data)
+    check(ops.MPC_MATMUL_GRID.calls == len(ABY3_MATMULS)
+          and ops.MULT_TERMS.calls == 1,
+          f"aby3: the CPU run made {ops.MPC_MATMUL_GRID.calls} grid and "
+          f"{ops.MULT_TERMS.calls} grouped wrapper calls")
+    want = [a @ b for a, b in data["matmul_tr"]]
+    want += [data["mult"][0] * data["mult"][1],
+             data["argmax"].max(axis=1, keepdims=True)]
+    report = {}
+    scale = float(RING64.scale)
+    for (name, words, by_op, totals, n), (rname, rwords, rby, rtot, _), \
+            w in zip(runs, ref, want):
+        check(name == rname and torch.equal(words, rwords),
+              f"aby3: {name}: words differ from the CPU run's")
+        check(by_op == rby and totals == rtot,
+              f"aby3: {name}: tallies differ from the CPU run's")
+        vals = RING64.decode(words).numpy()
+        if name.startswith("mult"):
+            vals = vals / scale                  # 2f fractional bits
+        err = float(np.abs(vals - w).max())
+        check(np.isfinite(vals).all() and vals.shape == w.shape
+              and err <= 1e-2,
+              f"aby3: {name}: off by {err} from float64 (shape "
+              f"{vals.shape})")
+        r = report[name] = {
+            "max_abs_err": err,
+            "executed_per_element": {
+                "offline_rounds": totals["offline"]["rounds"],
+                "offline_bits": totals["offline"]["bits"] / n,
+                "online_rounds": totals["online"]["rounds"],
+                "online_bits": totals["online"]["bits"] / n}}
+        if name.startswith("matmul_tr"):
+            d = int(name.split()[1].split("x")[1])
+            r["paper_costs_aby3"] = PC.dotp_tr_cost("aby3", RING64.ell, d)
+        elif name.startswith("mult"):
+            r["paper_costs_aby3"] = PC.ABY3["mult"](RING64.ell)
+        print(f"aby3: {name}: words and tallies equal to the CPU run, "
+              f"within {err:.2e} of float64; executed per element "
+              f"{r['executed_per_element']}"
+              + (f"; paper_costs ABY3 (off rounds, off bits, on rounds, on "
+                 f"bits) {r['paper_costs_aby3']}"
+                 if "paper_costs_aby3" in r else ""))
+    # walls: ABY3's matmul_tr beside Trident's (faithful joint) on the same
+    # shares' shapes
+    for (a, b), shape in zip(data["matmul_tr"], ABY3_MATMULS):
+        ctx = make_context(RING64, SEED, device="cuda")
+        x, w = AB.share(ctx, ctx.encode(a)), AB.share(ctx, ctx.encode(b))
+        tx, tw = PR.share(ctx, ctx.encode(a)), PR.share(ctx, ctx.encode(b))
+        key = f"matmul_tr {'x'.join(map(str, shape))}"
+        report[key]["aby3_ms"] = best_wall_ms(
+            lambda: AB.matmul_tr(ctx, x, w))
+        report[key]["trident_ms"] = best_wall_ms(
+            lambda: PR.matmul_tr(ctx, tx, tw))
+        print(f"aby3: {key}: ABY3 {report[key]['aby3_ms']:.3f} ms, Trident "
+              f"{report[key]['trident_ms']:.3f} ms a call, best of 3 "
+              f"({card})")
+    report["launches"] = on_card
+    return report
+
+
 # the training phase (runtime-train): the paper's NN and logistic
 # regression at batch 128, TRAIN_STEPS steps from the step-indexed seeds
 # SEED + step
@@ -2010,7 +2400,7 @@ def runtime_train_phase(kernels: list) -> dict:
     """Secure training on the party runtime at full width (the NN,
     784-128-128-10, and logistic regression on 784 features; batch 128),
     each path driven with the launch counts reset before and read after;
-    see the module docstring, step 8."""
+    see the module docstring, step 10."""
     import tempfile
 
     import torch
@@ -2345,7 +2735,7 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
     """The port's four-party deployment on the card: four daemon processes
     over a TCP mesh (``runtime.net.PartyCluster``, the LAN model), a
     dealer process streaming live prep, each against the in-process
-    runtime on the card; see the module docstring, step 9.  Returns its
+    runtime on the card; see the module docstring, step 11.  Returns its
     numbers and the in-process references (``socket_references``)."""
     import functools
 
@@ -2646,7 +3036,7 @@ def obs_phase(params, net, queries, kernels: list, step4: dict,
               cluster_out: dict, ref: list, card: str) -> dict:
     """The observability plane on the card: a traced in-process batch and
     a traced pipelined one, then a traced, scraped cluster; see the module
-    docstring, step 10.  ``ref`` is phase cluster's in-process references.
+    docstring, step 12.  ``ref`` is phase cluster's in-process references.
     Tracing stays off in every other phase."""
     import functools
     import shutil
@@ -3362,6 +3752,13 @@ def main() -> int:
                       f"plain {r['plain_ms']:.5f} ms in "
                       f"{r['plain_device_ops']:g} device ops, bound "
                       f"{r['bound_ms']:.7f} ms by {r['bound_by']}")
+        for world, entries in k.get("split_at_n_128", {}).items():
+            for name, r in entries.items():
+                print(f"  split {name} ({world}, n = {BATCH}): "
+                      f"{r['ms']:.5f} ms on the device, wrapper call "
+                      f"{r['call_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms "
+                      f"in {r['plain_device_ops']:g} device ops, bound "
+                      f"{r['bound_ms']:.7f} ms by {r['bound_by']}")
         if "single_level" in k:
             r = k["single_level"]
             print(f"  one level (n = {BATCH}): {r['ms']:.5f} ms on the "
@@ -3517,11 +3914,23 @@ def main() -> int:
     t0 = time.perf_counter()
     predict_collapsed("cuda", params, net, X)
     torch.cuda.synchronize()
+    b_wall = time.perf_counter() - t0
     profile_batch("joint B", lambda: predict_collapsed("cuda", params, net,
-                                                       X),
-                  time.perf_counter() - t0)
+                                                       X), b_wall)
 
     lap("joint-collapsed")
+    # --- the joint simulation's offline-online split ----------------------
+    print("phase joint-split")
+    joint_split = joint_split_phase(params, net, X, kernels, {
+        "faithful": (jwords[:BATCH].cpu(), jsrv.batch_totals[0],
+                     min(jsrv.batch_walls_s[1:] or jsrv.batch_walls_s)),
+        "collapsed": (cwords, ctx.tally.totals(), b_wall)}, card)
+    lap("joint-split")
+
+    # --- the ABY3 baseline ------------------------------------------------
+    print("phase aby3")
+    aby3 = aby3_phase(kernels, card)
+    lap("aby3")
     # --- secure training on the party runtime -----------------------------
     print("phase runtime-train")
     train = runtime_train_phase(kernels)
@@ -3547,6 +3956,8 @@ def main() -> int:
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
+    print(json.dumps({"joint_split": joint_split}))
+    print(json.dumps({"aby3": aby3}))
     print(json.dumps({"runtime_train": train}))
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"obs": observed}))

@@ -2,7 +2,7 @@
 Section V and beyond; ``repro/core/activations.py``).
 
 Paper-faithful: relu / drelu (BitExt + BitInj), sigmoid (2 BitExt + AND +
-BitInj + Bit2A), smx softmax (relu / sum(relu), division via the garbled
+BitInj + Bit2A), the max of a row by tournament, smx softmax (relu / sum(relu), division via the garbled
 world).  Beyond-paper: Newton-Raphson reciprocal and rsqrt with an
 in-protocol power-of-two normalization (boolean prefix-OR leading-one
 detection + one-hot Bit2A table lookup), costs tallied through the same
@@ -87,6 +87,23 @@ def select(ctx: TridentContext, b: BShare, x: AShare, y: AShare) -> AShare:
 def maximum(ctx: TridentContext, x: AShare, y: AShare) -> AShare:
     ge = ~CV.bit_extract(ctx, x - y)     # 1 iff x >= y
     return select(ctx, ge, x, y)
+
+
+def argmax_tournament(ctx: TridentContext, x: AShare) -> AShare:
+    """Secure max over the last axis by tournament; returns max values.
+    log2(n) comparison rounds (used by secure top-k routing)."""
+    n = x.shape[-1]
+    cur = x
+    while n > 1:
+        half = n // 2
+        m = maximum(ctx, cur[..., :half], cur[..., half:2 * half])
+        if n % 2:
+            m = AShare(torch.cat([m.data, cur[..., 2 * half:].data], dim=-1))
+            n = half + 1
+        else:
+            n = half
+        cur = m
+    return cur
 
 
 # ---------------------------------------------------------------------------

@@ -22,13 +22,20 @@ Modes:
   online   -- consumes the materials of an offline run of the *same*
               program (identical call order), popped by index.
 
+An online run skips the PRF draws of each protocol's offline branch but
+takes the draws both modes take (``share``'s lambdas, BitExt's ``vsh_bool``
+of the opened bit, ...).  So that those draws use the offline run's
+counters, ``offer`` in offline mode records the counter with each material
+(``Materials.counters``) and ``get_material`` sets the counter back to it:
+the online words equal the fused run's.  (The JAX package's online run
+keeps its own counter and opens other words past the first skipped draw.)
+
 The JAX package's traced-key seam for ``lax.scan`` bodies (``key_override``,
 ``scan_keys``) is not ported: no program of this slice scans.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 
@@ -48,6 +55,15 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device available: pass device='cpu' to "
                            "run the port on the CPU")
     return torch.device("cuda")
+
+
+class Materials(list):
+    """An offline run's materials, one entry per ``offer``, with the PRF
+    counter the run had reached at each (``counters``)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counters: list[int] = []
 
 
 @dataclasses.dataclass
@@ -75,7 +91,7 @@ class TridentContext:
 
     def __post_init__(self):
         self._counter = 0
-        self.materials: list[Any] = []
+        self.materials = Materials()
         self._mat_idx = 0
         self.ledger = CheckLedger()
 
@@ -118,9 +134,13 @@ class TridentContext:
     # --- offline/online material channel ---------------------------------
     def put_material(self, mat) -> None:
         self.materials.append(mat)
+        self.materials.counters.append(self._counter)
 
     def get_material(self):
+        """The next material of the offline run, with the PRF counter set
+        back to where that run recorded it."""
         mat = self.materials[self._mat_idx]
+        self._counter = self.materials.counters[self._mat_idx]
         self._mat_idx += 1
         return mat
 

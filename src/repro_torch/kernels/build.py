@@ -52,6 +52,12 @@ SIGNATURES = {
     # x, y, lamz levels, zero levels, out, n
     "ppa_msb_u64": (_P, _P, _P, _P, _P, _I64, _P),
     "ppa_msb_u32": (_P, _P, _P, _P, _P, _I64, _P),
+    # kind, x, y, draws, streams an AND, arg, gammas, out, n
+    "and_chain_offline_u64": (_I, _P, _P, _P, _I, _U64, _P, _P, _I64, _P),
+    "and_chain_offline_u32": (_I, _P, _P, _P, _I, _U64, _P, _P, _I64, _P),
+    # kind, x, y, lamz, gammas, arg, out, n
+    "and_chain_online_u64": (_I, _P, _P, _P, _P, _U64, _P, _I64, _P),
+    "and_chain_online_u32": (_I, _P, _P, _P, _P, _U64, _P, _I64, _P),
     "mpc_matmul_fused_u64": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "mpc_matmul_fused_u32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

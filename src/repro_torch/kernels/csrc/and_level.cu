@@ -37,6 +37,25 @@
 // f1, f2, f3) faithful, S = 3 (z1, z2, z3) collapsed; the kernel forms
 // Fig. 4's zero shares (f2 ^ f1, f3 ^ f2, f1 ^ f3) itself.
 //
+// The split twins, for the joint simulation's offline and online runs, in
+// which an AND's gamma is a material the offline run hands out and the
+// online run takes in (the fused entries form it inside the launch).  They
+// replace no TPU kernel: the JAX package runs those modes' ANDs as jnp code
+// AND by AND; here each chain is one launch on the same level math.  Each
+// runs a chain of `kind` 0 (one AND: x AND y), 1 (the adder, arg = cin) or
+// 2 (the prefix-OR of x, arg = NOT's mask):
+//   and_chain_offline  x, y, draws (A, S, n) -> gammas (A, 3, n) and the
+//               (4, n) stack the offline run gives: every AND's m word 0
+//               and its lambdas (z1, z2, z3); the linear steps act on the
+//               operands' m words as they are.  Gamma faithful (S = 6):
+//               Fig. 4's split above with the zero shares (g1, g2, g3);
+//               collapsed (S = 3): (l1x ^ l2x ^ l3x) & (l1y ^ l2y ^ l3y),
+//               0, 0.
+//   and_chain_online   x, y, lamz (A, 3, n), gammas (A, 3, n) -> (4, n):
+//               each AND p_i = lix&my ^ mx&liy ^ g_i ^ z_i, m_z = p1 ^ p2
+//               ^ p3 ^ mx&my (the XOR of the collapsed world's three terms
+//               is the same word).
+//
 // Design: one thread per word.  Every shift, smear and mask of the adder
 // works within a word and every AND is bitwise, so a chain is independent
 // per word and its levels need no synchronisation: a thread holds both
@@ -48,8 +67,11 @@
 // Bound on the H100: bytes.  A level moves 18 words an element (144 B at
 // ell = 64) for about 30 integer operations; the adder 2 x 4 input words,
 // 13 x 6 draws and 4 output words (720 B) for about 850; ppa_msb 2 input
-// words, 7 x 6 draws and 1 output word (360 B) for about 450.  At the main
-// path's n = 128 every launch is one near-empty block: launch bound.
+// words, 7 x 6 draws and 1 output word (360 B) for about 450.  The split
+// adder reads as many words and writes 13 x 3 gammas more (offline), or
+// reads 13 x 3 lambdas and 13 x 3 gammas in place of the draws (online).
+// At the main path's n = 128 every launch is one near-empty block: launch
+// bound.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -139,6 +161,67 @@ struct Draws {
   }
 };
 
+// The offline run's ANDs: each writes its gamma words (gammas (A, 3, n))
+// and gives the stack (0, z1, z2, z3).
+template <typename W, int kAnds, int S>
+struct OfflineAnds {
+  Draws<W, kAnds, S> draws;
+  W* __restrict__ gam;
+  int64_t n, i;
+
+  __device__ __forceinline__ OfflineAnds(const W* __restrict__ d,
+                                         W* __restrict__ gammas, int64_t n,
+                                         int64_t i)
+      : draws(d, n, i), gam(gammas), n(n), i(i) {}
+
+  __device__ __forceinline__ Stack<W> and_(int a, const Stack<W>& x,
+                                           const Stack<W>& y) const {
+    const W(&d)[S] = draws.d[a];
+    W g1, g2 = 0, g3 = 0;
+    if (S == 6) {
+      g1 = (x.l1 & y.l1) ^ (x.l1 & y.l2) ^ (x.l2 & y.l1) ^ d[3 % S] ^
+           d[5 % S];
+      g2 = (x.l2 & y.l2) ^ (x.l2 & y.l3) ^ (x.l3 & y.l2) ^ d[4 % S] ^
+           d[3 % S];
+      g3 = (x.l3 & y.l3) ^ (x.l3 & y.l1) ^ (x.l1 & y.l3) ^ d[5 % S] ^
+           d[4 % S];
+    } else {
+      g1 = (x.l1 ^ x.l2 ^ x.l3) & (y.l1 ^ y.l2 ^ y.l3);
+    }
+    gam[3 * a * n + i] = g1;
+    gam[(3 * a + 1) * n + i] = g2;
+    gam[(3 * a + 2) * n + i] = g3;
+    return {W(0), d[0], d[1], d[2]};
+  }
+};
+
+// The online run's ANDs on their lambdas and gammas (A, 3, n) each, all
+// loaded before the first AND as the draws are.
+template <typename W, int kAnds>
+struct OnlineAnds {
+  W z[kAnds][3], g[kAnds][3];
+
+  __device__ __forceinline__ OnlineAnds(const W* __restrict__ lamz,
+                                        const W* __restrict__ gammas,
+                                        int64_t n, int64_t i) {
+#pragma unroll
+    for (int a = 0; a < kAnds; ++a)
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        z[a][c] = lamz[(3 * a + c) * n + i];
+        g[a][c] = gammas[(3 * a + c) * n + i];
+      }
+  }
+
+  __device__ __forceinline__ Stack<W> and_(int a, const Stack<W>& x,
+                                           const Stack<W>& y) const {
+    const W p1 = (x.l1 & y.m) ^ (x.m & y.l1) ^ g[a][0] ^ z[a][0];
+    const W p2 = (x.l2 & y.m) ^ (x.m & y.l2) ^ g[a][1] ^ z[a][1];
+    const W p3 = (x.l3 & y.m) ^ (x.m & y.l3) ^ g[a][2] ^ z[a][2];
+    return {p1 ^ p2 ^ p3 ^ (x.m & y.m), z[a][0], z[a][1], z[a][2]};
+  }
+};
+
 // log2(ell): the adder's levels and the prefix-OR's ANDs.
 template <typename W>
 constexpr int kLog2Ell = sizeof(W) == 8 ? 6 : 5;
@@ -170,17 +253,11 @@ __device__ __forceinline__ Stack<W> smear(Stack<W> v, int width) {
   return v;
 }
 
-template <typename W, int S>
-__global__ void ppa_add_kernel(const W* __restrict__ x,
-                               const W* __restrict__ y,
-                               const W* __restrict__ draws, W cin,
-                               W* __restrict__ out, int64_t n) {
+// The Sklansky adder [[X + Y + cin]] with AND a being d.and_(a, ., .).
+template <typename W, typename Ands>
+__device__ __forceinline__ Stack<W> adder(const Ands& d, const Stack<W>& X,
+                                          const Stack<W>& Y, W cin) {
   constexpr int kLevels = kLog2Ell<W>;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const Draws<W, 2 * kLevels + 1, S> d(draws, n, i);
-  const Stack<W> X = load(x, n, i), Y = load(y, n, i);
   const Stack<W> p0 = X ^ Y;
   // g_0 ^= p_0 AND the public carry-in (cin is 0 or 1)
   Stack<W> g = d.and_(0, X, Y) ^ (p0 & cin);
@@ -201,21 +278,15 @@ __global__ void ppa_add_kernel(const W* __restrict__ x,
   }
   Stack<W> s = p0 ^ (g << 1);            // sum_i = p0_i ^ carry_i
   s.m ^= cin;
-  store(out, n, i, s);
+  return s;
 }
 
-template <typename W, int S>
-__global__ void prefix_or_kernel(const W* __restrict__ x,
-                                 const W* __restrict__ draws, W mask,
-                                 W* __restrict__ out, int64_t n) {
-  constexpr int kAnds = kLog2Ell<W>;
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n) return;
-  const Draws<W, kAnds, S> d(draws, n, i);
-  Stack<W> cur = load(x, n, i);
+// The prefix-OR of `cur` from the msb down with AND a being d.and_(a, ., .).
+template <typename W, typename Ands>
+__device__ __forceinline__ Stack<W> prefix_or_chain(const Ands& d,
+                                                    Stack<W> cur, W mask) {
 #pragma unroll
-  for (int a = 0; a < kAnds; ++a) {
+  for (int a = 0; a < kLog2Ell<W>; ++a) {
     // OR(cur, cur >> j) = NOT(AND(NOT cur, NOT (cur >> j))), NOT being
     // the public XOR of `mask` into m
     Stack<W> sh = cur >> (1 << a);
@@ -225,7 +296,76 @@ __global__ void prefix_or_kernel(const W* __restrict__ x,
     cur = d.and_(a, nc, sh);
     cur.m ^= mask;
   }
-  store(out, n, i, cur);
+  return cur;
+}
+
+template <typename W, int S>
+__global__ void ppa_add_kernel(const W* __restrict__ x,
+                               const W* __restrict__ y,
+                               const W* __restrict__ draws, W cin,
+                               W* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const Draws<W, 2 * kLog2Ell<W> + 1, S> d(draws, n, i);
+  store(out, n, i, adder(d, load(x, n, i), load(y, n, i), cin));
+}
+
+template <typename W, int S>
+__global__ void prefix_or_kernel(const W* __restrict__ x,
+                                 const W* __restrict__ draws, W mask,
+                                 W* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const Draws<W, kLog2Ell<W>, S> d(draws, n, i);
+  store(out, n, i, prefix_or_chain(d, load(x, n, i), mask));
+}
+
+// The split chains: kind 0 one AND, 1 the adder (arg = cin), 2 the
+// prefix-OR (arg = mask; y unused).
+template <typename W, int kKind>
+constexpr int kChainAnds =
+    kKind == 0 ? 1 : (kKind == 1 ? 2 * kLog2Ell<W> + 1 : kLog2Ell<W>);
+
+template <typename W, int kKind, typename Ands>
+__device__ __forceinline__ Stack<W> chain(const Ands& d, const W* x,
+                                          const W* y, W arg, int64_t n,
+                                          int64_t i) {
+  const Stack<W> X = load(x, n, i);
+  if constexpr (kKind == 0) {
+    return d.and_(0, X, load(y, n, i));
+  } else if constexpr (kKind == 1) {
+    return adder(d, X, load(y, n, i), arg);
+  } else {
+    return prefix_or_chain(d, X, arg);
+  }
+}
+
+template <typename W, int kKind, int S>
+__global__ void and_chain_offline_kernel(const W* __restrict__ x,
+                                         const W* __restrict__ y,
+                                         const W* __restrict__ draws, W arg,
+                                         W* __restrict__ gammas,
+                                         W* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const OfflineAnds<W, kChainAnds<W, kKind>, S> d(draws, gammas, n, i);
+  store(out, n, i, chain<W, kKind>(d, x, y, arg, n, i));
+}
+
+template <typename W, int kKind>
+__global__ void and_chain_online_kernel(const W* __restrict__ x,
+                                        const W* __restrict__ y,
+                                        const W* __restrict__ lamz,
+                                        const W* __restrict__ gammas, W arg,
+                                        W* __restrict__ out, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (i >= n) return;
+  const OnlineAnds<W, kChainAnds<W, kKind>> d(lamz, gammas, n, i);
+  store(out, n, i, chain<W, kKind>(d, x, y, arg, n, i));
 }
 
 // msb(x + y) of public words: every AND of the adder on (v, 0, 0, 0)
@@ -337,6 +477,66 @@ int launch_msb(const void* x, const void* y, const void* lamz,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename W, int kKind>
+void offline_kind(int streams, const W* x, const W* y, const W* d, W arg,
+                  W* gam, W* out, int64_t n, cudaStream_t s) {
+  const unsigned blocks = blocks_for(n);
+  if (streams == 6)
+    and_chain_offline_kernel<W, kKind, 6><<<blocks, kThreads, 0, s>>>(
+        x, y, d, arg, gam, out, n);
+  else
+    and_chain_offline_kernel<W, kKind, 3><<<blocks, kThreads, 0, s>>>(
+        x, y, d, arg, gam, out, n);
+}
+
+template <typename W>
+int launch_offline(int kind, const void* x, const void* y, const void* draws,
+                   int streams, uint64_t arg, void* gammas, void* out,
+                   int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  if ((streams != 6 && streams != 3) || kind < 0 || kind > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const W* xs = static_cast<const W*>(x);
+  const W* ys = static_cast<const W*>(y);
+  const W* ds = static_cast<const W*>(draws);
+  W* gam = static_cast<W*>(gammas);
+  W* o = static_cast<W*>(out);
+  const W a = static_cast<W>(arg);
+  if (kind == 0)
+    offline_kind<W, 0>(streams, xs, ys, ds, a, gam, o, n, s);
+  else if (kind == 1)
+    offline_kind<W, 1>(streams, xs, ys, ds, a, gam, o, n, s);
+  else
+    offline_kind<W, 2>(streams, xs, ys, ds, a, gam, o, n, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename W>
+int launch_online(int kind, const void* x, const void* y, const void* lamz,
+                  const void* gammas, uint64_t arg, void* out, int64_t n,
+                  void* stream) {
+  if (n <= 0) return 0;
+  if (kind < 0 || kind > 2) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  const W* xs = static_cast<const W*>(x);
+  const W* ys = static_cast<const W*>(y);
+  const W* lz = static_cast<const W*>(lamz);
+  const W* gam = static_cast<const W*>(gammas);
+  W* o = static_cast<W*>(out);
+  const W a = static_cast<W>(arg);
+  if (kind == 0)
+    and_chain_online_kernel<W, 0><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ys, lz, gam, a, o, n);
+  else if (kind == 1)
+    and_chain_online_kernel<W, 1><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ys, lz, gam, a, o, n);
+  else
+    and_chain_online_kernel<W, 2><<<blocks_for(n), kThreads, 0, s>>>(
+        xs, ys, lz, gam, a, o, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int and_level_u64(const void* x, const void* y, const void* lamz,
@@ -385,4 +585,36 @@ extern "C" int ppa_msb_u32(const void* x, const void* y, const void* lamz,
                            const void* zero, void* out, int64_t n,
                            void* stream) {
   return launch_msb<uint32_t>(x, y, lamz, zero, out, n, stream);
+}
+
+extern "C" int and_chain_offline_u64(int kind, const void* x, const void* y,
+                                     const void* draws, int streams,
+                                     uint64_t arg, void* gammas, void* out,
+                                     int64_t n, void* stream) {
+  return launch_offline<uint64_t>(kind, x, y, draws, streams, arg, gammas,
+                                  out, n, stream);
+}
+
+extern "C" int and_chain_offline_u32(int kind, const void* x, const void* y,
+                                     const void* draws, int streams,
+                                     uint64_t arg, void* gammas, void* out,
+                                     int64_t n, void* stream) {
+  return launch_offline<uint32_t>(kind, x, y, draws, streams, arg, gammas,
+                                  out, n, stream);
+}
+
+extern "C" int and_chain_online_u64(int kind, const void* x, const void* y,
+                                    const void* lamz, const void* gammas,
+                                    uint64_t arg, void* out, int64_t n,
+                                    void* stream) {
+  return launch_online<uint64_t>(kind, x, y, lamz, gammas, arg, out, n,
+                                 stream);
+}
+
+extern "C" int and_chain_online_u32(int kind, const void* x, const void* y,
+                                    const void* lamz, const void* gammas,
+                                    uint64_t arg, void* out, int64_t n,
+                                    void* stream) {
+  return launch_online<uint32_t>(kind, x, y, lamz, gammas, arg, out, n,
+                                 stream);
 }

@@ -19,7 +19,9 @@ from .gamma_parts import (MAX_GROUPS, and_terms_group_plain,
                           mult_terms_group_plain, mult_terms_plain,
                           terms_group_cuda)
 from .mpc_matmul_fused import mpc_matmul_fused_cuda, mpc_matmul_fused_plain
-from .ppa_msb import (and_level_cuda, and_level_plain, ppa_add_cuda,
+from .ppa_msb import (and_chain_offline_cuda, and_chain_offline_plain,
+                      and_chain_online_cuda, and_chain_online_plain,
+                      and_level_cuda, and_level_plain, ppa_add_cuda,
                       ppa_add_plain, ppa_msb, ppa_msb_cuda, prefix_or_cuda,
                       prefix_or_plain)
 from .prf_mask import launch_group as prf_launch_group
@@ -245,6 +247,31 @@ def prefix_or(x, draws, mask: int) -> torch.Tensor:
     if _on_cpu(x):
         return prefix_or_plain(x, draws, mask)
     out = prefix_or_cuda(x, draws, mask)
+    AND_LEVEL.launches += 1
+    return out
+
+
+def and_chain_offline(kind: str, x, y, draws, arg: int = 0) -> tuple:
+    """The joint offline run of a boolean chain (kind "and": x AND y;
+    "add": the adder, arg = cin; "or": the prefix-OR of x, arg = mask) in
+    one ``and_level.cu`` launch: (gammas (A, 3, n), the (4, n) stack);
+    `draws` (A, S, n) its ANDs' PRF draws."""
+    AND_LEVEL.calls += 1
+    if _on_cpu(x):
+        return and_chain_offline_plain(kind, x, y, draws, arg)
+    out = and_chain_offline_cuda(kind, x, y, draws, arg)
+    AND_LEVEL.launches += 1
+    return out
+
+
+def and_chain_online(kind: str, x, y, lamz, gammas, arg: int = 0):
+    """The joint online run of a boolean chain in one ``and_level.cu``
+    launch: the (4, n) stack from its ANDs' lamz and gammas, (A, 3, n)
+    each."""
+    AND_LEVEL.calls += 1
+    if _on_cpu(x):
+        return and_chain_online_plain(kind, x, y, lamz, gammas, arg)
+    out = and_chain_online_cuda(kind, x, y, lamz, gammas, arg)
     AND_LEVEL.launches += 1
     return out
 

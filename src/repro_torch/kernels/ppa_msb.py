@@ -18,6 +18,19 @@ word of the share's valid bits (NOT).  XOR, AND and the shifts are
 bitwise, so each kernel (``csrc/and_level.cu``, one thread a word) equals
 its plain version word for word.
 
+The split twins, for the joint simulation's offline and online runs
+(kind "and": x AND y; "add": the adder, arg = cin; "or": the prefix-OR of
+x, arg = mask):
+
+    and_chain_offline(kind, x, y, draws, arg) -> (gammas (A, 3, n), (4, n))
+    and_chain_online(kind, x, y, lamz, gammas, arg) -> (4, n)
+
+The offline pass forms every AND's gamma -- Fig. 4's split with the zero
+shares faithful, ``[lx_sum & ly_sum, 0, 0]`` collapsed (S = 3) -- and the
+stack the offline run gives (each AND's m word 0, its lambdas from the
+draws; the linear steps act on the m words as they are); the online pass
+takes each AND's lam_z and gamma ((A, 3, n) each) and forms m_z.
+
 ``ppa_msb`` is the Python loop of the whole msb(x + y) over public words:
 log2(ell) + 1 AND levels with the Sklansky smear masks, each level one call
 of the ``and_level`` it is given; with ``and_level_plain`` it is the plain
@@ -38,6 +51,12 @@ _SYMBOL = {torch.int64: "and_level_u64", torch.int32: "and_level_u32"}
 _ADD = {torch.int64: "ppa_add_u64", torch.int32: "ppa_add_u32"}
 _OR = {torch.int64: "prefix_or_u64", torch.int32: "prefix_or_u32"}
 _MSB = {torch.int64: "ppa_msb_u64", torch.int32: "ppa_msb_u32"}
+_OFFLINE = {torch.int64: "and_chain_offline_u64",
+            torch.int32: "and_chain_offline_u32"}
+_ONLINE = {torch.int64: "and_chain_online_u64",
+           torch.int32: "and_chain_online_u32"}
+# the split entries' chain codes
+CHAIN_KINDS = {"and": 0, "add": 1, "or": 2}
 
 
 def chain_ands(ell: int, adder: bool) -> int:
@@ -45,6 +64,11 @@ def chain_ands(ell: int, adder: bool) -> int:
     log2(ell) levels, or the prefix-OR's one per doubling."""
     levels = int(math.log2(ell))
     return 2 * levels + 1 if adder else levels
+
+
+def split_ands(kind: str, ell: int) -> int:
+    """ANDs of a split chain of `kind` ("and", "add" or "or")."""
+    return 1 if kind == "and" else chain_ands(ell, kind == "add")
 
 
 def and_level_plain(x, y, lamz, zero=None) -> torch.Tensor:
@@ -103,13 +127,13 @@ def _smear(v: torch.Tensor, width: int) -> torch.Tensor:
     return v
 
 
-def ppa_add_plain(x, y, draws, cin: int = 0) -> torch.Tensor:
+def _adder(x, y, and_, cin: int) -> torch.Tensor:
     """[[x + y + cin]] of (4, n) stacks by the Sklansky adder on bit-packed
-    words, the levels of ``core.boolean.ppa_add`` with AND a taking
-    draws[a] ((A, S, n), A = 2 log2(ell) + 1)."""
+    words, the levels of ``core.boolean.ppa_add``, AND a being
+    ``and_(a, u, v)``."""
     ell = width_of(x.dtype)
     p0 = x ^ y
-    g = _drawn_and(x, y, draws[0])
+    g = and_(0, x, y)
     p = p0
     if cin:
         g = g ^ (p & 1)
@@ -119,27 +143,85 @@ def ppa_add_plain(x, y, draws, cin: int = 0) -> torch.Tensor:
         gb = _smear((g & bnd) << 1, half)
         pb = _smear((p & bnd) << 1, half)
         pu = p & upper
-        g = g ^ _drawn_and(pu, gb, draws[1 + 2 * k])
-        p = (p & ~upper) ^ _drawn_and(pu, pb, draws[2 + 2 * k])
+        g = g ^ and_(1 + 2 * k, pu, gb)
+        p = (p & ~upper) ^ and_(2 + 2 * k, pu, pb)
     s = p0 ^ (g << 1)
     if cin:
         s[0] ^= 1
     return s
 
 
-def prefix_or_plain(x, draws, mask: int) -> torch.Tensor:
+def _prefix_or(x, and_, mask: int) -> torch.Tensor:
     """[[prefix-OR]] of a (4, n) stack from the msb down, the levels of
     ``core.boolean.prefix_or``: OR(a, b) = NOT(AND(NOT a, NOT b)), NOT the
-    XOR of the public `mask` into m; AND a takes draws[a]."""
+    XOR of the public `mask` into m; AND a being ``and_(a, u, v)``."""
     ell = width_of(x.dtype)
     cur = x
     for a in range(chain_ands(ell, adder=False)):
         nc, sh = cur.clone(), lshr(cur, 1 << a)
         nc[0] ^= mask
         sh[0] ^= mask
-        cur = _drawn_and(nc, sh, draws[a])
+        cur = and_(a, nc, sh)
         cur[0] ^= mask
     return cur
+
+
+def _drawn(draws):
+    return lambda a, u, v: _drawn_and(u, v, draws[a])
+
+
+def ppa_add_plain(x, y, draws, cin: int = 0) -> torch.Tensor:
+    """The adder with AND a taking draws[a] ((A, S, n), A = 2 log2(ell) +
+    1)."""
+    return _adder(x, y, _drawn(draws), cin)
+
+
+def prefix_or_plain(x, draws, mask: int) -> torch.Tensor:
+    """The prefix-OR with AND a taking draws[a] ((log2(ell), S, n))."""
+    return _prefix_or(x, _drawn(draws), mask)
+
+
+def _chain(kind: str, x, y, and_, arg: int) -> torch.Tensor:
+    if kind == "and":
+        return and_(0, x, y)
+    if kind == "add":
+        return _adder(x, y, and_, arg)
+    return _prefix_or(x, and_, arg)
+
+
+def and_chain_offline_plain(kind: str, x, y, draws, arg: int = 0) -> tuple:
+    """The offline run of a chain: (gammas (A, 3, n), the (4, n) stack with
+    each AND's m word 0); AND a draws[a] ((A, S, n))."""
+    gammas = torch.empty((draws.shape[0], 3, draws.shape[2]),
+                         dtype=draws.dtype, device=draws.device)
+
+    def and_(a, u, v):
+        d, lu, lv = draws[a], u[1:], v[1:]
+        if d.shape[0] == 3:
+            gammas[a, 0] = (lu[0] ^ lu[1] ^ lu[2]) & (lv[0] ^ lv[1] ^ lv[2])
+            gammas[a, 1:] = 0
+        else:
+            gammas[a, 0] = (lu[0] & lv[0]) ^ (lu[0] & lv[1]) \
+                ^ (lu[1] & lv[0]) ^ d[3] ^ d[5]
+            gammas[a, 1] = (lu[1] & lv[1]) ^ (lu[1] & lv[2]) \
+                ^ (lu[2] & lv[1]) ^ d[4] ^ d[3]
+            gammas[a, 2] = (lu[2] & lv[2]) ^ (lu[2] & lv[0]) \
+                ^ (lu[0] & lv[2]) ^ d[5] ^ d[4]
+        return torch.cat([torch.zeros_like(d[:1]), d[:3]])
+
+    return gammas, _chain(kind, x, y, and_, arg)
+
+
+def and_chain_online_plain(kind: str, x, y, lamz, gammas,
+                           arg: int = 0) -> torch.Tensor:
+    """The online run of a chain: AND a on lamz[a] and gammas[a] ((A, 3, n)
+    each)."""
+    def and_(a, u, v):
+        z = lamz[a]
+        p = (u[1:] & v[0]) ^ (u[0] & v[1:]) ^ gammas[a] ^ z
+        return torch.cat([(p[0] ^ p[1] ^ p[2] ^ (u[0] & v[0]))[None], z])
+
+    return _chain(kind, x, y, and_, arg)
 
 
 def _chain_operands(name, stacks, draws, adder):
@@ -176,6 +258,65 @@ def prefix_or_cuda(x, draws, mask: int) -> torch.Tensor:
     out = torch.empty_like(x)
     launch("and_level", _OR[x.dtype], x.device, x.data_ptr(),
            draws.data_ptr(), draws.shape[1], mask & (2**64 - 1),
+           out.data_ptr(), n)
+    return out
+
+
+def _split_operands(name, kind, x, y, planes, n_planes):
+    """The split entries' operands, contiguous and checked: x (and y but
+    for "or") (4, n); each of `planes` (A, n_planes[i], n)."""
+    if kind not in CHAIN_KINDS:
+        raise ValueError(f"{name}: kind must be one of {list(CHAIN_KINDS)}, "
+                         f"got {kind!r}")
+    n = x.shape[-1]
+    A = split_ands(kind, width_of(x.dtype))
+    stacks = (x,) if kind == "or" else (x, y)
+    want = [(A, s, n) for s in n_planes]
+    if (any(s.shape != (4, n) for s in stacks)
+            or [tuple(p.shape) for p in planes] != want):
+        raise ValueError(
+            f"{name} ({kind}) takes stacks (4, n) and planes {want}, got "
+            f"{[tuple(s.shape) for s in stacks]}, "
+            f"{[tuple(p.shape) for p in planes]}")
+    ins = [t.contiguous() for t in (*stacks, *planes)]
+    check_operands(*ins)
+    if ins[0].dtype not in _OFFLINE:
+        raise ValueError(f"{name} takes int64/int32 words, got "
+                         f"{ins[0].dtype}")
+    if kind == "or":
+        ins.insert(1, None)
+    return ins, n
+
+
+def and_chain_offline_cuda(kind: str, x, y, draws, arg: int = 0) -> tuple:
+    """The ``and_chain_offline`` kernel: the chain's offline run in one
+    launch."""
+    S = draws.shape[1] if draws.dim() == 3 else 0
+    if S not in (3, 6):
+        raise ValueError(f"and_chain_offline takes draws (A, 3 or 6, n), "
+                         f"got {tuple(draws.shape)}")
+    (x, y, draws), n = _split_operands("and_chain_offline", kind, x, y,
+                                       (draws,), (S,))
+    gammas = torch.empty((draws.shape[0], 3, n), dtype=x.dtype,
+                         device=x.device)
+    out = torch.empty_like(x)
+    launch("and_level", _OFFLINE[x.dtype], x.device, CHAIN_KINDS[kind],
+           x.data_ptr(), None if y is None else y.data_ptr(),
+           draws.data_ptr(), S, arg & (2**64 - 1), gammas.data_ptr(),
+           out.data_ptr(), n)
+    return gammas, out
+
+
+def and_chain_online_cuda(kind: str, x, y, lamz, gammas,
+                          arg: int = 0) -> torch.Tensor:
+    """The ``and_chain_online`` kernel: the chain's online run in one
+    launch."""
+    (x, y, lamz, gammas), n = _split_operands(
+        "and_chain_online", kind, x, y, (lamz, gammas), (3, 3))
+    out = torch.empty_like(x)
+    launch("and_level", _ONLINE[x.dtype], x.device, CHAIN_KINDS[kind],
+           x.data_ptr(), None if y is None else y.data_ptr(),
+           lamz.data_ptr(), gammas.data_ptr(), arg & (2**64 - 1),
            out.data_ptr(), n)
     return out
 

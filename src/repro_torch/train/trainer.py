@@ -9,11 +9,10 @@ function is engine-agnostic and returns ``(new_params, loss, abort)``;
 ``secure_sgd.PrepAheadSGD`` (online-only from a ``ContinuousDealer``)
 plug in unchanged.
 
-The joint simulation's twin-trace helper ``split_offline_online`` is not
-ported: it needs the joint context's ``offline``/``online`` modes' kernel
-routes, which come later.  Nor is the JAX trainer's unused
-offline-material queue (``offline_buffer``): the ``ContinuousDealer``
-keeps the look-ahead window.
+``split_offline_online`` runs a joint-simulation program as an offline
+run, then as an online run on its materials.  The JAX trainer's unused
+offline-material queue (``offline_buffer``) is not ported: the
+``ContinuousDealer`` keeps the look-ahead window.
 """
 from __future__ import annotations
 
@@ -24,6 +23,8 @@ from typing import Callable
 
 import numpy as np
 
+from ..core.context import make_context
+from ..core.ring import RING64
 from . import checkpoint as ckpt_lib
 
 
@@ -99,3 +100,25 @@ class Trainer:
                 self.events.append(f"ckpt@{step}")
             step += 1
         return self.params
+
+
+def split_offline_online(program: Callable, ring=RING64, seed: int = 0,
+                         device=None, collapse: bool = False):
+    """The offline/online split of `program` (a function of a joint
+    ``TridentContext``): its offline run on `device` (CUDA unless given;
+    `collapse` for the component-collapsed world), then ``(materials,
+    online_fn)``, where ``online_fn()`` runs the program online on those
+    materials and returns ``(result, on_ctx)``.  The online run takes the
+    offline run's PRF counters, so its words are the fused run's."""
+    off_ctx = make_context(ring, seed=seed, mode="offline", device=device,
+                           collapse=collapse)
+    program(off_ctx)
+    materials = off_ctx.materials
+
+    def online_fn():
+        on_ctx = make_context(ring, seed=seed, mode="online",
+                              device=off_ctx.device, collapse=collapse)
+        on_ctx.materials = materials
+        return program(on_ctx), on_ctx
+
+    return materials, online_fn

@@ -225,6 +225,28 @@ def test_kernels_equal_plain_on_card(cuda_device):
                                              mask)
                     assert torch.equal(got.cpu(), PPA.prefix_or_plain(
                         x, or_d, mask)), (dtype, n, S, mask)
+                # the split twins (the joint offline and online runs): one
+                # AND, the adder and the prefix-OR, gammas and stacks (at
+                # n = 2^20 in chip_smoke.py)
+                for kind, arg in (("and", 0), ("add", 0), ("add", 1),
+                                  ("or", -1), ("or", (1 << (ell - 3)) - 1)):
+                    if n == 1 << 20:
+                        break
+                    A = PPA.split_ands(kind, ell)
+                    d = words(A, S, n)
+                    yy = None if kind == "or" else y
+                    dy = None if yy is None else dev[1]
+                    gam, out = PPA.and_chain_offline_cuda(
+                        kind, dev[0], dy, d.to(cuda_device), arg)
+                    want = PPA.and_chain_offline_plain(kind, x, yy, d, arg)
+                    assert torch.equal(gam.cpu(), want[0]), (kind, S, n)
+                    assert torch.equal(out.cpu(), want[1]), (kind, S, n)
+                    lz, gm = words(A, 3, n), words(A, 3, n)
+                    got = PPA.and_chain_online_cuda(
+                        kind, dev[0], dy, lz.to(cuda_device),
+                        gm.to(cuda_device), arg)
+                    assert torch.equal(got.cpu(), PPA.and_chain_online_plain(
+                        kind, x, yy, lz, gm, arg)), (dtype, kind, S, n)
         # msb(x + y): the loop over the and_level kernel, and the ppa_msb
         # kernel (the whole loop in one launch) on zero shares that XOR to
         # 0 and on shares that do not, at n = 4096 and an odd n

@@ -149,7 +149,12 @@ def _check_protocols(jr, tr, collapse):
     assert tc.abort_flag() is bool(jc.abort_flag()) is False
 
     # the offline/online split: an offline run records the material, an
-    # online run of the same program consumes it (the plain code path)
+    # online run of the same program consumes it (the split and_level
+    # entries for the boolean chains).  The offline run's words, materials
+    # and totals() are JAX's offline run's; the online run's totals() are
+    # JAX's online run's, but its words are JAX's *fused* run's: the port's
+    # online run takes the offline run's PRF counters (ROADMAP F4), while
+    # JAX's opens other words past the first skipped draw.
     def program(share, matmul_tr, relu, a2b, ctx, enc):
         xs, ws = share(ctx, enc(a)), share(ctx, enc(b))
         z = matmul_tr(ctx, xs, ws)
@@ -157,6 +162,8 @@ def _check_protocols(jr, tr, collapse):
 
     jfns = (JP.share, JP.matmul_tr, JA.relu, JC.a2b)
     tfns = (TP.share, TP.matmul_tr, TA.relu, TC.a2b)
+    fused = program(*jfns, jmake(jr, seed=SEED, collapse=collapse),
+                    jr.encode)
     materials = None
     for mode in ("offline", "online"):
         jm = jmake(jr, seed=SEED, collapse=collapse, mode=mode)
@@ -164,11 +171,21 @@ def _check_protocols(jr, tr, collapse):
                    device="cpu")
         if materials is not None:
             jm.materials, tm.materials = materials
-        for j, t in zip(program(*jfns, jm, jr.encode),
-                        program(*tfns, tm, tm.encode)):
+        TK.reset_launches()
+        jouts = program(*jfns, jm, jr.encode)
+        touts = program(*tfns, tm, tm.encode)
+        # A2B's subtractor: one split-chain call (relu's BitExt and BitInj
+        # have no AND)
+        assert TK.AND_LEVEL.calls == 1, (mode, TK.AND_LEVEL.calls)
+        for j, t in zip(fused if mode == "online" else jouts, touts):
             _assert_same(j, t, f"{mode} run RING{tr.ell}")
         assert tm.tally.totals() == jm.tally.totals()
         materials = jm.materials, tm.materials
+    assert len(materials[0]) == len(materials[1]) == tm._mat_idx
+    for i, (jmat, tmat) in enumerate(zip(*materials)):
+        assert sorted(jmat) == sorted(tmat), i
+        for key in jmat:
+            _assert_same(jmat[key], tmat[key], f"material {i} {key}")
     assert tm.abort_flag() is bool(jm.abort_flag()) is False
 
 
