@@ -207,7 +207,33 @@ from the root of a checkout.  In order, it
      not failed.  Each step prints a line before it runs.  It prints the
      pool's boot seconds, each dispatch's wall, queries/s, query latency
      p50/p95/p99, per-member utilization, the dealer's largest lead and the
-     host bytes it implies, and each daemon's peak device memory.
+     host bytes it implies, and each daemon's peak device memory;
+ 14. the LM stack's serving path (phase "lm"): (a) with the kernel rows
+     of step 3, the batched ring matmul (kernel route K2) held against
+     ``torch.matmul`` of the same words on the CPU at the full-width
+     qwen3 serve's products (a query chunk's scores and probs @ v, a
+     decode step's scores, an expert product), a broadcast batch, K past
+     one chunk and 32-bit words, each timed beside its bound; (b) the
+     SMOKE configs of qwen3-1.7b, mixtral-8x7b, whisper-tiny and
+     phi-3-vision at 2 layers and qwen3 at d_model 256 (128 ids, two
+     query chunks) served (``serve_prefill`` and decode) on the card and
+     on the CPU, faithful and collapsed: equal logits and cache words,
+     equal ``totals()``, no abort, the card's launches each run's CPU
+     wrapper calls; (c) the main path: qwen3-1.7b's CONFIG (d_model 2048,
+     16 heads and 8 KV heads of 128, d_ff 6144, vocab 151,936, qk_norm,
+     q_chunk 512) cut to 2 of 28 layers, random weights from a seed,
+     shared on the card, a prefill of 1,024 ids (two query chunks) and 3
+     decode steps, batch 1, faithful, the embedding table at scale 0.5:
+     words exact at the main path's largest sizes (``prf_mask`` of a group
+     of three 311 M-word streams against its plain version, the shared
+     embedding and ``lm_head`` opened equal to their encoded weights, the
+     ring matmul at the ``lm_head`` product equal to ``torch.matmul`` on
+     the CPU), no abort, the KV cache's shape, the logits against
+     ``PlainEngine`` in float64 on the card within the bounds of the CPU
+     rehearsal (``tools/torch_lm_rehearsal.py``), which all-zero or
+     shuffled logits fail.  It prints the sharing time, the prefill and
+     decode walls, launches per kernel per prefill and per decode step,
+     and the peak device memory.
 
 Each path (the deal and the online-only run of steps 5 and 10 and the
 offline and online runs of step 8 being two each; step 11's, 12's and
@@ -222,14 +248,15 @@ last lines come
 ``{"offline_online": {...}}`` (step 5's times),
 ``{"joint_split": {...}}`` (step 8's), ``{"aby3": {...}}`` (step 9's),
 ``{"runtime_train": {...}}`` (step 10's), ``{"cluster": {...}}`` (step
-11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's)
-and ``{"kernels": [...]}``, then
+11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's),
+``{"lm": {...}}`` (step 14's) and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import signal
@@ -697,6 +724,91 @@ def int_mm_yardstick(M: int, K: int, N: int, dev) -> dict:
     return out
 
 
+# kernel route K2 (the LM stack): the batched entry of ring_matmul.cu at
+# the full-width qwen3-1.7b serve's products (batch x M x K x N): a query
+# chunk's scores and probs @ v (16 heads, chunks of 512 of 1,024 keys), a
+# decode step's scores over 1,025 keys (1 row of a 64-row tile), and an
+# expert product of a MoE layer (8 experts, 40 slots)
+K2_SHAPES = (("scores", (1, 16, 512, 128), (1, 16, 128, 1024)),
+             ("probs_v", (1, 16, 512, 1024), (1, 16, 1024, 128)),
+             ("decode", (1, 16, 1, 128), (1, 16, 128, 1025)),
+             ("experts", (8, 40, 64), (8, 64, 128)))
+
+
+def batched_bound(sa: tuple, sb: tuple) -> dict:
+    """K2's bound: the bytes (each operand read once, C written once)
+    against the limb-pair int8 operations, 36 x 2 x batch x M x N x K, at
+    the tensor-core rate."""
+    import torch
+    batch = tuple(torch.broadcast_shapes(sa[:-2], sb[:-2]))
+    nb = int(np.prod(batch)) if batch else 1
+    (M, K), N = sa[-2:], sb[-1]
+    nbytes = 8 * (int(np.prod(sa)) + int(np.prod(sb)) + nb * M * N)
+    ops_ = 36 * 2 * nb * M * N * K
+    b_ms, b_by = bound(nbytes, ops_, INT8_TC_OPS_PER_S)
+    return {"bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms_int8_ops": ops_ / INT8_TC_OPS_PER_S * 1e3}
+
+
+def batched_rows(rng, dev) -> dict:
+    """The batched ring matmul (K2) against torch.matmul of the same words
+    on the CPU (``torch.equal``) at the LM serve's shapes, a broadcast
+    batch (stride 0), an odd shape, K past one 4,128-word chunk on
+    all-ones words and 32-bit words; each shape timed (device ms by the
+    profiler, the wrapper call by CUDA events, the CPU's torch.matmul on
+    the host clock) beside its bound.  The scores product is the row."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_matmul as RM
+
+    def words(shape, dt=torch.int64):
+        info = torch.iinfo(dt)
+        return torch.from_numpy(rng.randint(
+            info.min, info.max, size=shape, dtype=np.int64)).to(dt)
+
+    shapes = []
+    for name, sa, sb in K2_SHAPES:
+        a, b = words(sa), words(sb)
+        a_d, b_d = a.to(dev), b.to(dev)
+        got = ops.ring_matmul(a_d, b_d)
+        torch.cuda.synchronize()
+        want = torch.matmul(a, b)
+        check(torch.equal(got.cpu(), want),
+              f"ring_matmul_batched disagrees with torch.matmul at {name} "
+              f"{sa} @ {sb}")
+        shapes.append({
+            "shape": name, "a": list(sa), "b": list(sb),
+            "max_abs_err": 0,
+            "ms": device_ms(lambda: RM.ring_matmul_batched_cuda(a_d, b_d),
+                            "ring_matmul_kernel"),
+            "call_ms": cuda_ms(lambda: ops.ring_matmul(a_d, b_d), reps=20),
+            "plain_ms": host_ms(lambda: torch.matmul(a, b), reps=2),
+            **batched_bound(sa, sb)})
+    cases = [(words((3, 65, 33)), words((33, 7))),          # 2-D kernel
+             (words((5, 64)), words((3, 64, 6))),           # stride 0
+             (words((2, 1, 9, 16)), words((1, 3, 16, 10))),  # expanded
+             (words((3, 65, 33), torch.int32),
+              words((3, 33, 70), torch.int32))]             # 32-bit
+    K = RM.max_k_chunk(64) + 64
+    cases.append((torch.full((2, 65, K), -1, dtype=torch.int64),
+                  torch.full((2, K, 66), -1, dtype=torch.int64)))
+    for a, b in cases:
+        got = ops.ring_matmul(a.to(dev), b.to(dev))
+        check(torch.equal(got.cpu(), torch.matmul(a, b)),
+              f"ring_matmul_batched disagrees at {tuple(a.shape)} @ "
+              f"{tuple(b.shape)} ({a.dtype})")
+    k = ops.RING_MATMUL_BATCHED
+    row = shapes[0]
+    return {k.name: {
+        "name": k.name, "route": "cuda", "source": k.source,
+        "replaces": k.replaces, "launches": 0, "max_abs_err": 0,
+        **{f: row[f] for f in ("ms", "call_ms", "plain_ms", "bound_ms",
+                               "bound_by")},
+        "library_ms": None, "shape": "x".join(map(str, row["a"])) + " @ "
+        + "x".join(map(str, row["b"])), "batched_shapes": shapes}}
+
+
 def prf_rows(rng, dev, instructions: int | None) -> dict:
     """The prf_mask row: each case (the largest group of a batch, lone
     draws, the joint adder's 78 streams) held against the plain version on
@@ -939,6 +1051,9 @@ def kernel_phase(rng, ptxas: dict, prf_instructions: int | None) -> list:
                           RM.ring_matmul_plain(a, b)),
               f"ring_matmul disagrees on all-ones words at K = {K} "
               f"({dt})")
+
+    # the batched entry (kernel route K2): phase lm's part (a)
+    rows.update(batched_rows(rng, dev))
 
     # mult_terms / and_terms: the grouped gamma-piece kernel, held against
     # its plain version on ragged, unaligned, broadcast, expanded and
@@ -3645,6 +3760,353 @@ def gateway_phase(params, net, kernels: list, card: str) -> dict:
     return out
 
 
+# --- phase lm: the LM stack's serving path (kernel route K2) -------------
+LM_SEED = 5
+LM_SMOKE_ARCHS = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
+                  "phi_3_vision_4_2b")
+LM_SMOKE_IDS = (2, 8)
+# the main path: qwen3-1.7b's CONFIG (full width) cut to LM_LAYERS of its
+# 28 layers; one prefill of LM_PREFILL ids (two q-chunks of 512) and
+# LM_DECODE_STEPS decode steps, batch 1, faithful
+LM_LAYERS = 2
+LM_PREFILL = 1024
+LM_DECODE_STEPS = 3
+# the secure logits against float64, the embedding table at scale 0.5
+# (LM_EMBED_SCALE x init_params' 0.02; at 0.02 fixed point's 13 fractional
+# bits quantize rmsnorm's mean square to a few units of 2^-13 and the
+# logits lie as far from float64 as logits of their own size, ROADMAP N1):
+# tools/torch_lm_rehearsal.py on the CPU, SMOKE and a middle width, 3
+# seeds, faithful and collapsed: the largest error 0.0088 of the largest
+# logit, relative L2 error up to 0.0076; growing about 1.4x a doubling of
+# d_model (0.0105 at 512, 0.0163 at 1,024).  This phase's main path on an
+# H100 at full width, weight seeds 5 and 6: 0.0218-0.0266 and
+# 0.0217-0.0227.  Held within 0.06 each; all-zero logits (relative L2 1)
+# and shuffled ones (1.41) fail.
+LM_EMBED_SCALE = 25.0
+LM_ERR_PER_LOGIT = 0.06
+LM_MAX_REL_L2 = 0.06
+LM_DEVICE = "cuda"
+
+
+def lm_full_config():
+    """The main path's config: qwen3-1.7b's CONFIG cut to LM_LAYERS."""
+    from repro_torch.configs import get
+    return lm_cut(get("qwen3_1_7b").CONFIG, LM_LAYERS)
+
+
+def lm_cut(cfg, layers: int):
+    return dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=min(
+        cfg.n_encoder_layers, layers))
+
+
+def lm_serve(eng, cfg, params, ids, steps: int, extra=None):
+    """serve_prefill of `ids` and `steps` decode steps (each on the last
+    id again) on `eng`; returns (logits of each, the last caches)."""
+    from repro_torch.nn import model as LM
+    pe = LM.params_to_engine(eng, params)
+    kw = extra(eng) if extra else {}
+    pos = ids.shape[1] + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+    lg, caches = LM.serve_prefill(eng, cfg, pe, ids, **kw)
+    out = [lg]
+    for t in range(steps):
+        lg, caches = LM.serve_decode(eng, cfg, pe, ids[:, -1:], caches,
+                                     pos + t)
+        out.append(lg)
+    return out, caches
+
+
+def lm_frontend(cfg, batch: int):
+    rs = np.random.RandomState(LM_SEED + 1)
+    if cfg.family == "vlm":
+        fe = rs.randn(batch, cfg.frontend_tokens, cfg.d_model) * 0.5
+        return lambda eng: {"frontend_embs": eng.from_plain(fe)}
+    if cfg.family == "encdec":
+        enc = rs.randn(batch, cfg.frontend_tokens, cfg.d_model) * 0.5
+        return lambda eng: {"enc_inputs": eng.from_plain(enc)}
+    return None
+
+
+def lm_leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from lm_leaves(tree[k], f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from lm_leaves(t, f"{path}[{i}]")
+    else:
+        yield path, getattr(tree, "data", tree)
+
+
+def lm_secure(device: str, cfg, params, ids, steps: int, collapse: bool):
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn.engine import TridentEngine
+    ctx = make_context(RING64, seed=LM_SEED, collapse=collapse,
+                       device=device)
+    out, caches = lm_serve(TridentEngine(ctx), cfg, params, ids, steps,
+                           lm_frontend(cfg, ids.shape[0]))
+    return ctx, out, caches
+
+
+def lm_within(want: np.ndarray, got: np.ndarray) -> tuple:
+    """(within the bounds, error / largest logit, relative L2 error)."""
+    err = float(np.abs(want - got).max() / np.abs(want).max())
+    rel = float(np.linalg.norm(want - got) / np.linalg.norm(want))
+    return err <= LM_ERR_PER_LOGIT and rel <= LM_MAX_REL_L2, err, rel
+
+
+def lm_close(what: str, plain: list, secure: list) -> dict:
+    """The secure logits against float64, step by step, within the
+    rehearsal's bounds; all-zero logits and the float64 logits shuffled
+    must fall outside them."""
+    from repro_torch.core.ring import RING64
+    rows = []
+    for i, (p, s) in enumerate(zip(plain, secure)):
+        p = p.double().cpu().numpy()
+        s = RING64.decode(s.reveal().cpu()).numpy()
+        check(p.shape == s.shape and np.isfinite(s).all(),
+              f"{what}: step {i}'s logits are not finite or of the wrong "
+              f"shape")
+        ok, err, rel = lm_within(p, s)
+        check(ok, f"{what}: step {i}'s logits off by {err} of the largest "
+                  f"float64 logit, relative L2 {rel}; bounds "
+                  f"{LM_ERR_PER_LOGIT} and {LM_MAX_REL_L2}")
+        shuffled = np.random.RandomState(i).permutation(p.reshape(-1))
+        for name, control in (("all-zero", np.zeros_like(p)),
+                              ("shuffled", shuffled.reshape(p.shape))):
+            check(not lm_within(p, control)[0],
+                  f"{what}: {name} logits pass the bounds at step {i}")
+        rows.append({"err_per_logit": err, "rel_l2": rel,
+                     "max_abs_logit": float(np.abs(p).max()),
+                     "shuffled_rel_l2": lm_within(p, shuffled)[2]})
+    return rows
+
+
+def lm_exact_words(cfg, params, pe, card: str) -> dict:
+    """The main path's words at its largest sizes, exact: (1) the shared
+    embedding table and lm_head opened on the card equal to their encoded
+    weights; (2) the ring matmul at the lm_head product, a (1, 2048) row of
+    words @ the lm_head's first lambda component (2048 x 151,936, a 2.5 GB
+    B operand), equal to torch.matmul of the same words on the CPU.  No
+    launch here counts toward a path."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import ops
+    out = {}
+    for name, share, w in (("embed", pe["embed"]["table"],
+                            params["embed"]["table"]),
+                           ("lm_head", pe["lm_head"]["w"],
+                            params["lm_head"]["w"])):
+        opened = share.reveal()
+        check(torch.equal(opened, RING64.encode(w, device=opened.device)),
+              f"lm: the shared {name} opens to other words than its "
+              f"encoded weights ({tuple(w.shape)})")
+        out[f"{name}_opened_words"] = int(opened.numel())
+        del opened
+    b = pe["lm_head"]["w"].data[1]
+    g = torch.Generator().manual_seed(LM_SEED)
+    a = torch.randint(-2**62, 2**62, (1, cfg.d_model), generator=g,
+                      dtype=torch.int64)
+    t0 = time.perf_counter()
+    got = ops.ring_matmul(a.to(b.device), b).cpu()
+    want = torch.matmul(a, b.cpu())
+    check(torch.equal(got, want),
+          f"lm: ring_matmul disagrees with torch.matmul at the lm_head "
+          f"product (1, {cfg.d_model}) @ {tuple(b.shape)}")
+    out["lm_head_matmul"] = {"a": [1, cfg.d_model], "b": list(b.shape),
+                             "b_bytes": b.numel() * 8, "equal": True,
+                             "s": time.perf_counter() - t0}
+    print(f"lm [{card}]: the shared embedding and lm_head open to their "
+          f"encoded weights ({out['embed_opened_words']} and "
+          f"{out['lm_head_opened_words']} words); ring_matmul at "
+          f"(1, {cfg.d_model}) @ {tuple(b.shape)} equals torch.matmul on "
+          f"the CPU")
+    return out
+
+
+def lm_prf_group_exact(cfg, card: str) -> dict:
+    """prf_mask at the main path's largest draw group, three streams of
+    vocab x d_model words (the lambdas of the shared embedding table or
+    lm_head), against its plain version on the same card."""
+    import torch
+    from repro_torch.core.prf import ThreefryKey
+    from repro_torch.kernels import prf_mask as PM
+    n = cfg.vocab * cfg.d_model
+    key = ThreefryKey.from_seed(LM_SEED)
+    streams = [(key.fold_in(j).data, 7 + j, n, 0) for j in range(3)]
+    dev = torch.device(LM_DEVICE)
+    got = PM.prf_mask_group_cuda(streams, torch.empty(3 * n,
+                                                      dtype=torch.int64,
+                                                      device=dev))
+    want = PM.prf_mask_group_plain(streams, torch.int64, dev)
+    check(torch.equal(got, want),
+          f"lm: prf_mask disagrees with its plain version on a group of 3 "
+          f"streams of {n} words")
+    print(f"lm [{card}]: prf_mask equals its plain version on a group of 3 "
+          f"streams of {n} words ({3 * n * 8 / 1e9:.2f} GB)")
+    del got, want
+    torch.cuda.empty_cache()
+    return {"streams": 3, "words_each": n, "equal": True}
+
+
+def lm_phase(kernels: list, card: str) -> dict:
+    """(b) the SMOKE configs of the four attention families on the card
+    against the CPU, bit for bit, faithful and collapsed, and qwen3 at a
+    middle width; (c) the main path: qwen3-1.7b at full width."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.kernels import ops
+    from repro_torch.nn import model as LM
+    from repro_torch.nn.engine import PlainEngine, TridentEngine
+
+    report = {"card": card, "smoke": {}}
+    # (b) card against CPU
+    mid = dataclasses.replace(
+        lm_cut(get("qwen3_1_7b").CONFIG, 2), d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, d_ff=768, vocab=4096, q_chunk=64)
+    cases = [(arch, lm_cut(get(arch).SMOKE, 2), LM_SMOKE_IDS, 1)
+             for arch in LM_SMOKE_ARCHS]
+    cases.append(("qwen3_1_7b_middle", mid, (1, 128), 2))
+    for name, cfg, shape, steps in cases:
+        params = LM.init_params(cfg, LM_SEED)
+        ids = np.random.RandomState(LM_SEED).randint(0, cfg.vocab,
+                                                     size=shape)
+        for collapse in (False, True):
+            mode = "collapsed" if collapse else "faithful"
+            path = f"lm_{name}_{mode}"
+            (ctx, out, caches), wall = drive(
+                path, kernels, ("prf_mask", "ring_matmul_batched"),
+                lambda: lm_secure(LM_DEVICE, cfg, params, ids, steps,
+                                  collapse), 1, unit="run")
+            card_launches = {k["name"]: k["launches_by_path"][path]
+                             for k in kernels}
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            rctx, rout, rcaches = lm_secure("cpu", cfg, params, ids, steps,
+                                            collapse)
+            cpu_s = time.perf_counter() - t0
+            calls = {k.name: k.calls for k in ops.KERNELS}
+            check(not ctx.abort_flag() and not rctx.abort_flag(),
+                  f"{path}: aborted")
+            check(all(torch.equal(a.data.cpu(), b.data)
+                      for a, b in zip(out, rout)),
+                  f"{path}: logits words differ between the card and the "
+                  f"CPU")
+            la, lb = list(lm_leaves(caches)), list(lm_leaves(rcaches))
+            check([p for p, _ in la] == [p for p, _ in lb] and all(
+                torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(la, lb)),
+                f"{path}: cache words differ between the card and the CPU")
+            check(ctx.tally.totals() == rctx.tally.totals(),
+                  f"{path}: totals() differ between the card and the CPU")
+            check(card_launches == calls,
+                  f"{path}: launches on the card {card_launches}, wrapper "
+                  f"calls on the CPU {calls}")
+            report["smoke"][path] = {
+                "wall_s": wall, "cpu_s": cpu_s, "totals": ctx.tally.totals(),
+                "launches": {n: c for n, c in card_launches.items() if c}}
+            print(f"{path} [{card}]: logits, caches and totals() equal to "
+                  f"the CPU run, no abort; launches = the CPU run's wrapper "
+                  f"calls; card {wall:.2f} s, CPU {cpu_s:.2f} s")
+
+    # (c) the main path at full width
+    cfg = lm_full_config()
+    report["config"] = {"arch": "qwen3-1.7b", "layers": LM_LAYERS,
+                        "of_layers": get("qwen3_1_7b").CONFIG.n_layers,
+                        "d_model": cfg.d_model, "heads": cfg.n_heads,
+                        "kv_heads": cfg.n_kv_heads, "d_head": cfg.dh,
+                        "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                        "q_chunk": cfg.q_chunk, "prefill": LM_PREFILL,
+                        "decode_steps": LM_DECODE_STEPS, "batch": 1,
+                        "mode": "faithful", "embed_scale": LM_EMBED_SCALE}
+    torch.cuda.empty_cache()
+    report["prf_mask_largest_group"] = lm_prf_group_exact(cfg, card)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, LM_SEED)
+    params["embed"]["table"] *= LM_EMBED_SCALE
+    report["init_params_s"] = time.perf_counter() - t0
+    ids = np.random.RandomState(LM_SEED).randint(0, cfg.vocab,
+                                                 size=(1, LM_PREFILL))
+    ctx = make_context(RING64, seed=LM_SEED, device=LM_DEVICE)
+    eng = TridentEngine(ctx)
+    t0 = time.perf_counter()
+    pe = LM.params_to_engine(eng, params)
+    torch.cuda.synchronize()
+    report["share_s"] = time.perf_counter() - t0
+    print(f"lm [{card}]: init_params {report['init_params_s']:.1f} s on "
+          f"the host, weights shared on the card in {report['share_s']:.2f} "
+          f"s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    share_peak = torch.cuda.max_memory_allocated()
+    report["exact_words"] = lm_exact_words(cfg, params, pe, card)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    needed = ("prf_mask", "ring_matmul", "ring_matmul_batched")
+    (lg, caches), prefill_wall = drive(
+        "lm_prefill", kernels, needed,
+        lambda: LM.serve_prefill(eng, cfg, pe, ids), 1, unit="prefill")
+    secure = [lg]
+    dec_walls = []
+
+    def decode_steps():
+        nonlocal caches
+        for t in range(LM_DECODE_STEPS):
+            t1 = time.perf_counter()
+            lg, caches = LM.serve_decode(eng, cfg, pe, ids[:, -1:], caches,
+                                         LM_PREFILL + t)
+            torch.cuda.synchronize()
+            dec_walls.append(time.perf_counter() - t1)
+            secure.append(lg)
+
+    _, _ = drive("lm_decode", kernels, needed, decode_steps,
+                 LM_DECODE_STEPS, unit="decode step")
+    check(not ctx.abort_flag(), "lm: the full-width serve aborted")
+    report["prefill_wall_s"] = prefill_wall
+    report["decode_walls_s"] = dec_walls
+    report["launches_prefill"] = {
+        k["name"]: k["launches_by_path"]["lm_prefill"] for k in kernels
+        if k["launches_by_path"]["lm_prefill"]}
+    report["launches_per_decode"] = {
+        k["name"]: k["launches_by_path"]["lm_decode"] / LM_DECODE_STEPS
+        for k in kernels if k["launches_by_path"]["lm_decode"]}
+    report["max_memory_allocated_gib"] = max(
+        share_peak, torch.cuda.max_memory_allocated()) / 2**30
+    report["totals"] = ctx.tally.totals()
+    kv = caches[0]["k"]
+    check(tuple(kv.shape) == (LM_LAYERS, 2, 1, cfg.n_kv_heads,
+                              LM_PREFILL + LM_DECODE_STEPS, cfg.dh),
+          f"lm: KV cache of shape {tuple(kv.shape)}")
+    # where the time goes: one more prefill and decode step, profiled
+    for what, run, wall in (
+            ("prefill", lambda: LM.serve_prefill(eng, cfg, pe, ids),
+             prefill_wall),
+            ("decode step", lambda: LM.serve_decode(
+                eng, cfg, pe, ids[:, -1:], caches,
+                LM_PREFILL + LM_DECODE_STEPS), min(dec_walls))):
+        by_name = {}
+        busy, dops = profile_batch("lm", run, wall, unit=what,
+                                   by_name=by_name)
+        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+        report[f"profile_{what.split()[0]}"] = {
+            "busy_ms": busy, "device_ops": dops, "wall_s": wall,
+            "top_ms": {k[:80]: v for k, v in top}}
+    del pe, caches, eng
+    torch.cuda.empty_cache()
+    plain, _ = lm_serve(PlainEngine(device=LM_DEVICE), cfg, params, ids,
+                        LM_DECODE_STEPS)
+    report["logits_vs_float64"] = lm_close("lm", plain, secure)
+    print(f"lm [{card}]: qwen3-1.7b at full width ({LM_LAYERS} of "
+          f"{report['config']['of_layers']} layers), prefill of "
+          f"{LM_PREFILL} ids {prefill_wall:.2f} s, decode steps "
+          f"{[round(w, 3) for w in dec_walls]} s; no abort; launches per "
+          f"prefill {report['launches_prefill']}, per decode step "
+          f"{report['launches_per_decode']}; peak device memory "
+          f"{report['max_memory_allocated_gib']:.1f} GiB; logits against "
+          f"float64 {report['logits_vs_float64']}")
+    return report
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3759,6 +4221,13 @@ def main() -> int:
                       f"{r['call_ms']:.5f} ms, plain {r['plain_ms']:.5f} ms "
                       f"in {r['plain_device_ops']:g} device ops, bound "
                       f"{r['bound_ms']:.7f} ms by {r['bound_by']}")
+        for r in k.get("batched_shapes", []):
+            print(f"  {r['shape']} {r['a']} @ {r['b']}: {r['ms']:.5f} ms on "
+                  f"the device, call {r['call_ms']:.5f} ms (CPU "
+                  f"torch.matmul {r['plain_ms']:.3f} ms); bound "
+                  f"{r['bound_ms']:.5f} ms by {r['bound_by']} (bytes "
+                  f"{r['bound_ms_bytes']:.5f}, int8 operations "
+                  f"{r['bound_ms_int8_ops']:.5f})")
         if "single_level" in k:
             r = k["single_level"]
             print(f"  one level (n = {BATCH}): {r['ms']:.5f} ms on the "
@@ -3953,6 +4422,11 @@ def main() -> int:
     gateway = gateway_phase(params, net, kernels, card)
     lap("gateway")
 
+    # --- the LM stack's serving path ---------------------------------------
+    print("phase lm")
+    lm = lm_phase(kernels, card)
+    lap("lm")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
@@ -3962,6 +4436,7 @@ def main() -> int:
     print(json.dumps({"cluster": cluster}))
     print(json.dumps({"obs": observed}))
     print(json.dumps({"gateway": gateway}))
+    print(json.dumps({"lm": lm}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -142,6 +142,23 @@ class CheckLedger:
         """Record an already-evaluated predicate (e.g. a range check)."""
         self.checks.append(torch.all(ok))
 
+    # --- loop bodies: a body's checks fold into one per iteration ---------
+    def begin_body(self) -> int:
+        return len(self.checks)
+
+    def end_body(self, mark: int):
+        """The checks since `mark` folded into one device boolean (None if
+        there were none), taken off the list."""
+        cs = self.checks[mark:]
+        del self.checks[mark:]
+        return torch.stack(cs).all() if cs else None
+
+    def absorb(self, oks) -> None:
+        """Record the iterations' folded checks as one."""
+        oks = [ok for ok in oks if ok is not None]
+        if oks:
+            self.checks.append(torch.stack(oks).all())
+
     def abort_flag(self) -> bool:
         """False if every consistency check passed; True = abort."""
         return not all_ok(self.checks)

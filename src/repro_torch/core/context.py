@@ -30,11 +30,18 @@ counters, ``offer`` in offline mode records the counter with each material
 the online words equal the fused run's.  (The JAX package's online run
 keeps its own counter and opens other words past the first skipped draw.)
 
-The JAX package's traced-key seam for ``lax.scan`` bodies (``key_override``,
-``scan_keys``) is not ported: no program of this slice scans.
+Loop bodies.  The JAX package runs layer stacks and query chunks as
+``lax.scan`` bodies, traced once: every iteration takes the same PRF
+counters under its own key (``scan_keys``: the iteration's key from
+``jax.random.split`` replaces the master key, each subset's stream comes
+from ``fold_in(key, subset_id)``).  The port runs those bodies as Python
+loops (``nn.recurrent.scan_loop``) that set the counter back before each
+iteration and set ``key_override`` through ``scan_keys``, so they draw the
+JAX package's words.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -42,7 +49,7 @@ import torch
 from ..kernels import ops
 from .algebra import CheckLedger
 from .costs import CostTally
-from .prf import SetupKeys, make_setup_keys
+from .prf import SetupKeys, ThreefryKey, make_setup_keys, subset_id
 from .ring import RING64, Ring
 
 
@@ -94,6 +101,9 @@ class TridentContext:
         self.materials = Materials()
         self._mat_idx = 0
         self.ledger = CheckLedger()
+        # inside a loop body (a JAX scan body): the iteration's key, which
+        # stands in for the master key (scan_keys)
+        self.key_override: ThreefryKey | None = None
 
     # --- PRF sampling ---------------------------------------------------
     def fresh_counter(self) -> int:
@@ -116,9 +126,25 @@ class TridentContext:
         ``prf_mask`` launch (up to MAX_STREAMS draws): a view per draw, or
         with `flat` the one buffer of their words, draw after draw."""
         return ops.lambda_masks_group(
-            [(self.keys.subset_key(sp[0]).data, self.fresh_counter(), sp[1],
+            [(self._subset_key(sp[0]).data, self.fresh_counter(), sp[1],
               self.ring.ell - sp[2] if len(sp) > 2 else 0) for sp in specs],
             self.ring.dtype, self.device, flat=flat)
+
+    def _subset_key(self, subset) -> ThreefryKey:
+        if self.key_override is not None:
+            return self.key_override.fold_in(subset_id(subset))
+        return self.keys.subset_key(subset)
+
+    @contextlib.contextmanager
+    def scan_keys(self, key: ThreefryKey):
+        """Use `key` (a loop iteration's key) as the PRF root inside a loop
+        body; restores the previous root on exit."""
+        prev = self.key_override
+        self.key_override = key
+        try:
+            yield
+        finally:
+            self.key_override = prev
 
     # --- ring words on the context's device -------------------------------
     def words(self, v) -> torch.Tensor:

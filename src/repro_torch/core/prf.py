@@ -9,8 +9,8 @@ dozen 32-bit operations per sample.  Only the ``squares`` stream itself,
 one 64-bit word per element, runs on the device.
 
 ``threefry2x32`` below is a pure-integer twin of ``jax.random.key(seed)``,
-``jax.random.fold_in`` and ``jax.random.key_data`` for the default
-threefry implementation (Salmon et al. 2011, 20 rounds, the rotation
+``jax.random.fold_in``, ``jax.random.split`` and ``jax.random.key_data``
+for the default threefry implementation (Salmon et al. 2011, 20 rounds, the rotation
 schedule of Random123); the tests hold it against ``jax.random``.
 """
 from __future__ import annotations
@@ -64,6 +64,14 @@ class ThreefryKey:
     def fold_in(self, data: int) -> "ThreefryKey":
         """``jax.random.fold_in``: data is taken as a uint32."""
         return ThreefryKey(threefry2x32(self.data, (0, data & _M32)))
+
+    def split(self, n: int) -> list:
+        """``jax.random.split(key, n)`` under ``jax_threefry_partitionable``
+        (JAX's default since 0.5): key i is the block function of the
+        64-bit counter i, as (high, low) words."""
+        return [ThreefryKey(threefry2x32(self.data, (i >> 32 & _M32,
+                                                     i & _M32)))
+                for i in range(n)]
 
 
 def subset_id(subset: Iterable[int]) -> int:

@@ -14,9 +14,10 @@ Per-element online costs (the paper's amortized lemmas; hashes are free):
     Pi_MultTr  offline 2 rnd 6*ell; online 1 rnd 3*ell   (Lemma D.2)
 
 Kernel routes.  PyTorch has no integer matmul on CUDA, so every matmul
-contraction (``_mm``: gamma pieces, online parts, m_x @ m_y) is a 2-D ring
-matmul through ``kernels.ops.ring_matmul``; batched operands run on the CPU
-only.  In ``fused`` mode with ``collapse=True`` a 2-D secure matmul makes
+contraction (``_mm``: gamma pieces, online parts, m_x @ m_y) goes through
+``kernels.ops.ring_matmul``: a 2-D product, or [..., M, K] @ (K, N), takes
+the ring matmul kernel, and a product with batch dimensions on both sides
+(attention, MoE experts) the batched one (kernel route K2).  In ``fused`` mode with ``collapse=True`` a 2-D secure matmul makes
 ONE ``kernels.ops.mpc_matmul_fused`` call where the gamma term is formed,
 which also yields m_x @ m_y and the online cross term.  The ``offline`` and
 ``online`` modes keep the plain path through the ring matmul.
@@ -102,15 +103,9 @@ def reconstruct(ctx: TridentContext, x: AShare,
 # Pi_Mult (Fig. 4) -- elementwise multiplication.
 # ---------------------------------------------------------------------------
 def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``matmul`` of ring words: a 2-D product is the ring matmul kernel's
-    (its plain version on the CPU); batched products run on the CPU only."""
-    if a.dim() == 2 and b.dim() == 2:
-        return ops.ring_matmul(a, b)
-    if a.device.type != "cpu":
-        raise NotImplementedError(
-            "batched (ndim != 2) ring matmul on CUDA: the batched kernel "
-            "comes with the LM-stack slice of the port")
-    return torch.matmul(a, b)
+    """``matmul`` of ring words (``jnp.matmul``'s shapes) by the ring
+    matmul kernels: 2-D or batched (their plain versions on the CPU)."""
+    return ops.ring_matmul(a, b)
 
 
 def _fused_matmul(ctx: TridentContext, x: AShare, y: AShare,

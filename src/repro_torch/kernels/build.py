@@ -36,6 +36,11 @@ SIGNATURES = {
     "prf_mask_group_u32": (_P, _P, _P),
     "ring_matmul_u64": (_P, _P, _P, _I, _I, _I, _I, _P),
     "ring_matmul_u32": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # A, B, C, batch, M, N, K, k_chunk, A and B batch strides (words)
+    "ring_matmul_batched_u64": (_P, _P, _P, _I, _I, _I, _I, _I, _I64, _I64,
+                                _P),
+    "ring_matmul_batched_u32": (_P, _P, _P, _I, _I, _I, _I, _I, _I64, _I64,
+                                _P),
     # address of a TermLaunch (the grouped gamma-piece kernel)
     "mult_terms_group_u64": (_P, _P),
     "mult_terms_group_u32": (_P, _P),

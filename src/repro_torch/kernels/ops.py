@@ -26,7 +26,8 @@ from .ppa_msb import (and_chain_offline_cuda, and_chain_offline_plain,
                       prefix_or_plain)
 from .prf_mask import launch_group as prf_launch_group
 from .prf_mask import prf_mask_group_plain
-from .ring_matmul import ring_matmul_cuda, ring_matmul_plain
+from .ring_matmul import (ring_matmul_batched_cuda, ring_matmul_cuda,
+                          ring_matmul_plain)
 
 _CSRC = "src/repro_torch/kernels/csrc/"
 
@@ -50,6 +51,11 @@ PRF_MASK = Kernel("prf_mask", _CSRC + "prf_mask.cu",
                   "src/repro/kernels/prf_mask.py:49")
 RING_MATMUL = Kernel("ring_matmul", _CSRC + "ring_matmul.cu",
                      "src/repro/kernels/limb_matmul.py:79")
+# kernel route K2: products with batch dimensions on both sides (the LM
+# stack's attention and MoE experts), one launch each; they replace the
+# JAX package's jnp.matmul, which no Pallas kernel computes
+RING_MATMUL_BATCHED = Kernel("ring_matmul_batched", _CSRC + "ring_matmul.cu",
+                             "src/repro/core/protocols.py:189")
 MPC_MATMUL_GRID = Kernel("mpc_matmul_grid", _CSRC + "ring_matmul.cu",
                          "src/repro/kernels/mpc_matmul_fused.py:46")
 MULT_TERMS = Kernel("mult_terms", _CSRC + "gamma_parts.cu",
@@ -63,8 +69,8 @@ AND_LEVEL = Kernel("and_level", _CSRC + "and_level.cu",
 # the whole msb(x + y) in one and_level.cu launch (its ppa_msb entry)
 PPA_MSB = Kernel("ppa_msb", _CSRC + "and_level.cu",
                  "src/repro/kernels/ppa_msb.py:65")
-KERNELS = (PRF_MASK, RING_MATMUL, MPC_MATMUL_GRID, MPC_MATMUL_FUSED,
-           MULT_TERMS, AND_TERMS, AND_LEVEL, PPA_MSB)
+KERNELS = (PRF_MASK, RING_MATMUL, RING_MATMUL_BATCHED, MPC_MATMUL_GRID,
+           MPC_MATMUL_FUSED, MULT_TERMS, AND_TERMS, AND_LEVEL, PPA_MSB)
 
 
 def reset_launches() -> None:
@@ -106,12 +112,22 @@ def lambda_masks_group(streams, dtype: torch.dtype, device,
 
 
 def ring_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A (M, K) @ B (K, N) mod 2^ell."""
-    RING_MATMUL.calls += 1
+    """A @ B mod 2^ell with ``torch.matmul``'s shapes: (M, K) @ (K, N), and
+    [..., M, K] @ (K, N) as the one (prod(...) * M, K) @ (K, N) product,
+    take the ring matmul kernel; products with batch dimensions on the
+    right take the batched kernel (one launch each)."""
+    if b.dim() == 2 and a.dim() >= 2:
+        RING_MATMUL.calls += 1
+        if _on_cpu(a):
+            return ring_matmul_plain(a, b)
+        out = ring_matmul_cuda(a.reshape(-1, a.shape[-1]), b)
+        RING_MATMUL.launches += 1
+        return out.view(tuple(a.shape[:-1]) + (b.shape[1],))
+    RING_MATMUL_BATCHED.calls += 1
     if _on_cpu(a):
         return ring_matmul_plain(a, b)
-    out = ring_matmul_cuda(a, b)
-    RING_MATMUL.launches += 1
+    out = ring_matmul_batched_cuda(a, b)
+    RING_MATMUL_BATCHED.launches += 1
     return out
 
 

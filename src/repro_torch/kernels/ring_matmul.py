@@ -9,6 +9,11 @@ s32 sums over K chunks short enough to stay exact.
 ``ring_matmul_limbs_plain`` is that arithmetic in plain PyTorch, so the
 CPU tests can hold the limb decomposition and its bound against
 ``torch.matmul``; nothing on the main path calls it.
+
+The batched entry (``ring_matmul_batched_cuda``) takes products with batch
+dimensions on both sides, broadcast as ``torch.matmul`` broadcasts them,
+in one launch of the same kernel (a 2-D product is its batch of one);
+``ring_matmul_plain`` is its plain version too.
 """
 from __future__ import annotations
 
@@ -22,6 +27,9 @@ LIMB_MAX = 255 * 255
 S32_MAX = 2**31 - 1
 
 _SYMBOL = {torch.int64: "ring_matmul_u64", torch.int32: "ring_matmul_u32"}
+_BATCHED = {torch.int64: "ring_matmul_batched_u64",
+            torch.int32: "ring_matmul_batched_u32"}
+MAX_GRID_Z = 65535     # batch x K chunks of one launch (gridDim.z)
 
 
 def max_k_chunk(ell: int) -> int:
@@ -32,7 +40,8 @@ def max_k_chunk(ell: int) -> int:
 
 
 def ring_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A @ B mod 2^ell in the storage type (CPU tensors)."""
+    """A @ B mod 2^ell in the storage type (CPU tensors), with
+    ``torch.matmul``'s shapes: the plain version of both entries."""
     return torch.matmul(a, b)
 
 
@@ -88,16 +97,65 @@ def _sm_count(device: torch.device) -> int:
     return n
 
 
+def _check_words(*ts, contiguous: bool = True) -> None:
+    check_operands(*ts, contiguous=contiguous)
+    if ts[0].dtype not in _SYMBOL:
+        raise ValueError(f"ring_matmul takes int64/int32 words, got "
+                         f"{ts[0].dtype}")
+
+
+def _batch_operand(x: torch.Tensor, batch: tuple) -> tuple:
+    """(contiguous words, batch stride in words) of one operand of a
+    batched product: stride 0 when every product reads the same matrix,
+    else its matrices one after another (broadcast ones copied out)."""
+    mat = tuple(x.shape[-2:])
+    nb = 1
+    for d in x.shape[:-2]:
+        nb *= d
+    if nb == 1:
+        return x.reshape(mat).contiguous(), 0
+    full = x.expand(batch + mat) if tuple(x.shape[:-2]) != batch else x
+    return full.contiguous(), mat[0] * mat[1]
+
+
+def ring_matmul_batched_cuda(a: torch.Tensor,
+                             b: torch.Tensor) -> torch.Tensor:
+    """A [..., M, K] @ B [..., K, N] mod 2^ell by ONE launch of the batched
+    ``ring_matmul`` kernel, batch dimensions broadcast as in
+    ``torch.matmul``."""
+    if a.dim() < 2 or b.dim() < 2 or a.shape[-1] != b.shape[-2]:
+        raise ValueError(f"ring_matmul_batched takes [..., M, K] @ "
+                         f"[..., K, N], got {tuple(a.shape)} @ "
+                         f"{tuple(b.shape)}")
+    _check_words(a, b, contiguous=False)
+    batch = tuple(torch.broadcast_shapes(a.shape[:-2], b.shape[:-2]))
+    nb = 1
+    for d in batch:
+        nb *= d
+    (M, K), N = a.shape[-2:], b.shape[-1]
+    a3, a_stride = _batch_operand(a, batch)
+    b3, b_stride = _batch_operand(b, batch)
+    chunk = k_chunk(M, N, K, max(1, _sm_count(a.device) // max(nb, 1)),
+                    torch.iinfo(a.dtype).bits)
+    chunks = -(-K // chunk)
+    if nb * chunks > MAX_GRID_Z:
+        raise ValueError(f"ring_matmul_batched: {nb} products x {chunks} K "
+                         f"chunks exceed one launch's {MAX_GRID_Z}")
+    alloc = torch.zeros if chunks > 1 else torch.empty
+    out = alloc(batch + (M, N), dtype=a.dtype, device=a.device)
+    launch("ring_matmul", _BATCHED[a.dtype], a.device, a3.data_ptr(),
+           b3.data_ptr(), out.data_ptr(), nb, M, N, K, chunk, a_stride,
+           b_stride)
+    return out
+
+
 def ring_matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A (M, K) @ B (K, N) mod 2^ell by the ``ring_matmul`` kernel."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"ring_matmul takes (M, K) @ (K, N), got "
                          f"{tuple(a.shape)} @ {tuple(b.shape)}")
     a, b = a.contiguous(), b.contiguous()
-    check_operands(a, b)
-    if a.dtype not in _SYMBOL:
-        raise ValueError(f"ring_matmul takes int64/int32 words, got "
-                         f"{a.dtype}")
+    _check_words(a, b)
     (M, K), N = a.shape, b.shape[1]
     chunk = k_chunk(M, N, K, _sm_count(a.device),
                     torch.iinfo(a.dtype).bits)

@@ -1,0 +1,479 @@
+"""Generic LM over the Engine, forward and serving (``repro/nn/model.py``).
+
+A model is a sequence of SEGMENTS, each a homogeneous run of layers over
+stacked per-layer parameters.  The JAX package runs each segment as a
+``jax.lax.scan``; the port runs it as a loop with the same semantics
+(``recurrent.scan_loop``: the same PRF counters and keys an iteration, the
+same tally and checks), so both open the same words.  Segment kinds:
+
+    attn_mlp    pre-norm attention + pre-norm MLP (dense transformers, vlm)
+    attn_moe    pre-norm attention + pre-norm MoE (qwen3-moe, mixtral)
+    enc         whisper's encoder layers (attention + MLP)
+    xattn_mlp   decoder block with self-attn + cross-attn + MLP (whisper)
+    retention, ret_slstm_pair, shared_attn
+                the recurrent families (zamba2, xlstm): not ported yet
+
+Modality frontends (whisper audio, phi-3-vision CLIP) are stubs:
+precomputed frame / patch embeddings are secret-shared and consumed
+directly.
+
+Training (the backward passes, ``loss_and_grads``, ``train_step``,
+microbatching, SGD) comes with the LM training slice of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..core.shares import AShare
+from . import blocks as B
+from . import layers as L
+from .engine import Engine, TridentEngine
+from .recurrent import _leaf, _wrap, scan_loop, stack_outs
+
+RECURRENT_KINDS = ("retention", "ret_slstm_pair", "shared_attn")
+
+
+def _not_ported(kind: str):
+    return NotImplementedError(
+        f"segment kind {kind!r} (the hybrid and ssm families' recurrent "
+        f"blocks, nn/recurrent.py) comes with the recurrent families' slice "
+        f"of the port")
+
+
+# ===========================================================================
+# Config
+# ===========================================================================
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                  # dense | moe | hybrid | ssm | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0              # 0 -> d_model // n_heads
+    act: str = "swiglu"          # mlp activation
+    qk_norm: bool = False
+    window: int | None = None    # sliding-window attention
+    n_experts: int = 0
+    top_k: int = 0
+    moe_routing: str = "public"  # public | dense
+    ssm_state: int = 0
+    shared_attn_every: int = 6   # zamba2: shared block cadence
+    n_encoder_layers: int = 0    # whisper
+    frontend: str | None = None  # audio | vision (stub)
+    frontend_tokens: int = 0     # prepended patch/frame embeddings (vlm)
+    rope_theta: float = 1e4
+    seq_chunk: int = 128         # recurrence chunk
+    q_chunk: int | None = None   # prefill query chunk
+    long_window: int = 8192      # window cap for hybrid long-context serving
+    remat: bool = True
+    microbatch: int = 0          # 0 = no microbatching
+
+    @property
+    def dh(self) -> int:
+        return self.d_head or self.d_model // self.n_heads
+
+    def attn_cfg(self, window=None) -> L.AttnConfig:
+        return L.AttnConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            n_kv_heads=self.n_kv_heads, d_head=self.dh,
+            qk_norm=self.qk_norm,
+            window=self.window if window is None else window,
+            rope_theta=self.rope_theta)
+
+    def mlp_cfg(self) -> B.MLPConfig:
+        return B.MLPConfig(self.d_model, self.d_ff, self.act)
+
+    def moe_cfg(self) -> B.MoEConfig:
+        return B.MoEConfig(self.d_model, self.d_ff, self.n_experts,
+                           self.top_k, self.act, self.moe_routing)
+
+    def segments(self):
+        """[(kind, count)] layer plan."""
+        if self.family in ("dense", "vlm"):
+            return [("attn_mlp", self.n_layers)]
+        if self.family == "moe":
+            return [("attn_moe", self.n_layers)]
+        if self.family == "hybrid":
+            segs = []
+            left = self.n_layers
+            while left > 0:
+                take = min(self.shared_attn_every, left)
+                segs.append(("retention", take))
+                left -= take
+                segs.append(("shared_attn", 1))
+            return segs
+        if self.family == "ssm":
+            # xlstm: alternate mLSTM (retention) and sLSTM pairs
+            return [("ret_slstm_pair", self.n_layers // 2)]
+        if self.family == "encdec":
+            return [("enc", self.n_encoder_layers),
+                    ("xattn_mlp", self.n_layers)]
+        raise ValueError(self.family)
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for kind, _ in cfg.segments():
+        if kind in RECURRENT_KINDS:
+            raise _not_ported(kind)
+
+
+# ===========================================================================
+# Parameter trees: nested dicts (and lists) with arrays at the leaves.
+# Dict keys are visited in sorted order, as jax.tree_util visits them, so
+# converting a tree draws the PRF streams in the JAX package's order.
+# ===========================================================================
+def tree_map(fn, *trees):
+    first = trees[0]
+    if first is None:
+        return None
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees))
+                for k in sorted(first)}
+    if isinstance(first, (list, tuple)):
+        return type(first)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+# ===========================================================================
+# Parameter init (numpy float64; converted per engine afterwards)
+# ===========================================================================
+def _layer_init(rng, cfg: ModelConfig, kind: str):
+    if kind in ("attn_mlp", "enc"):
+        return {"n1": L.rmsnorm_init(rng, cfg.d_model),
+                "attn": L.attention_init(rng, cfg.attn_cfg()),
+                "n2": L.rmsnorm_init(rng, cfg.d_model),
+                "mlp": B.mlp_init(rng, cfg.mlp_cfg())}
+    if kind == "attn_moe":
+        return {"n1": L.rmsnorm_init(rng, cfg.d_model),
+                "attn": L.attention_init(rng, cfg.attn_cfg()),
+                "n2": L.rmsnorm_init(rng, cfg.d_model),
+                "moe": B.moe_init(rng, cfg.moe_cfg())}
+    if kind == "xattn_mlp":
+        return {"n1": L.rmsnorm_init(rng, cfg.d_model),
+                "attn": L.attention_init(rng, cfg.attn_cfg()),
+                "nx": L.rmsnorm_init(rng, cfg.d_model),
+                "xattn": L.attention_init(rng, cfg.attn_cfg()),
+                "n2": L.rmsnorm_init(rng, cfg.d_model),
+                "mlp": B.mlp_init(rng, cfg.mlp_cfg())}
+    if kind in RECURRENT_KINDS:
+        raise _not_ported(kind)
+    raise ValueError(kind)
+
+
+def init_params(cfg: ModelConfig, seed: int = 0):
+    """The plain (numpy float64) parameter tree: the JAX package's draws
+    from the same ``RandomState`` in the same order, so the same weights
+    (and the way weights cross between the packages)."""
+    _check_ported(cfg)
+    rng = np.random.RandomState(seed)
+    p = {"embed": L.embedding_init(rng, cfg.vocab, cfg.d_model),
+         "final_norm": L.rmsnorm_init(rng, cfg.d_model),
+         "lm_head": L.linear_init(rng, cfg.d_model, cfg.vocab, scale=0.02)}
+    p["segments"] = [
+        tree_map(lambda *xs: np.stack(xs),
+                 *[_layer_init(rng, cfg, kind) for _ in range(count)])
+        for kind, count in cfg.segments()]
+    return p
+
+
+def params_to_engine(eng: Engine, params):
+    """Convert the numpy tree to engine tensors (Pi_Sh for Trident).
+    Stacked segment leaves keep the JAX package's scan layout: a share's
+    data is (n, 4, ...)."""
+    def conv_stacked(x):
+        t = eng.from_plain(x)            # AShare data (4, n, ...) | (n, ...)
+        if isinstance(eng, TridentEngine):
+            return AShare(torch.movedim(t.data, 0, 1))   # (n, 4, ...)
+        return t
+
+    out = {"embed": tree_map(eng.from_plain, params["embed"]),
+           "final_norm": tree_map(eng.from_plain, params["final_norm"]),
+           "lm_head": tree_map(eng.from_plain, params["lm_head"])}
+    out["segments"] = [tree_map(conv_stacked, stacked)
+                       for stacked in params["segments"]]
+    return out
+
+
+def _layer(eng, stacked, i: int):
+    """Layer i's parameters of a stacked segment."""
+    if isinstance(eng, TridentEngine):
+        return tree_map(lambda a: AShare(a.data[i]), stacked)
+    return tree_map(lambda a: a[i], stacked)
+
+
+def _cache_at(cache, i: int):
+    """Layer i's raw serving cache of a stacked segment cache."""
+    return tree_map(lambda a: a[i], cache)
+
+
+# ===========================================================================
+# Blocks (single layer) -- pre-norm residual wiring
+# ===========================================================================
+def _block_fwd(eng, cfg: ModelConfig, kind: str, p, x, enc_out=None):
+    if kind in ("attn_mlp", "enc", "attn_moe"):
+        h, c1 = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, ca, _ = L.attention_fwd(eng, p["attn"], cfg.attn_cfg(), h)
+        x1 = eng.add(x, a)
+        h2, c2 = L.rmsnorm_fwd(eng, p["n2"], x1)
+        if kind == "attn_moe":
+            m, cm = B.moe_fwd(eng, p["moe"], cfg.moe_cfg(), h2)
+        else:
+            m, cm = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x1, m)
+        return y, (c1, ca, c2, cm)
+    if kind == "xattn_mlp":
+        h, c1 = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, ca, _ = L.attention_fwd(eng, p["attn"], cfg.attn_cfg(), h)
+        x1 = eng.add(x, a)
+        hx, cxn = L.rmsnorm_fwd(eng, p["nx"], x1)
+        xa, cxa = L.cross_attention_fwd(eng, p["xattn"], cfg.attn_cfg(),
+                                        hx, enc_out)
+        x2 = eng.add(x1, xa)
+        h2, c2 = L.rmsnorm_fwd(eng, p["n2"], x2)
+        m, cm = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x2, m)
+        return y, (c1, ca, cxn, cxa, c2, cm)
+    if kind in RECURRENT_KINDS:
+        raise _not_ported(kind)
+    raise ValueError(kind)
+
+
+def _seg_fwd(eng, cfg: ModelConfig, kind: str, stacked, x, count: int,
+             enc_out=None):
+    """One segment's layers; returns (y, [each layer's cache]): its input
+    with cfg.remat (the backward pass re-runs the layer), else its
+    forward cache."""
+    def body(carry, i):
+        xi = _wrap(eng, carry)
+        y, cache = _block_fwd(eng, cfg, kind, _layer(eng, stacked, i), xi,
+                              enc_out=enc_out)
+        return _leaf(eng, y), (_leaf(eng, xi) if cfg.remat else cache)
+
+    y, caches = scan_loop(eng, count, f"seg_{kind}", body, _leaf(eng, x))
+    return _wrap(eng, y), caches
+
+
+# ===========================================================================
+# Full model forward
+# ===========================================================================
+def forward(eng: Engine, cfg: ModelConfig, params, ids,
+            frontend_embs=None, enc_inputs=None):
+    """ids: (B, S) public token ids.
+    frontend_embs (vlm): (B, n_patches, D) precomputed patch embeddings
+    (secret-shared activations from the stubbed frontend).
+    enc_inputs (encdec): (B, S_enc, D) precomputed frame embeddings.
+    Returns (logits, cache)."""
+    _check_ported(cfg)
+    x, c_emb = L.embedding_fwd(eng, params["embed"], ids)
+    n_front = 0
+    if cfg.family == "vlm" and frontend_embs is not None:
+        x = eng.concat([frontend_embs, x], axis=1)
+        n_front = eng.shape_of(frontend_embs)[1]
+
+    enc_out = None
+    seg_caches = []
+    for (kind, count), stacked in zip(cfg.segments(), params["segments"]):
+        if kind == "enc":
+            enc_out, cs = _seg_fwd(eng, cfg, kind, stacked, enc_inputs,
+                                   count)
+        else:
+            x, cs = _seg_fwd(eng, cfg, kind, stacked, x, count,
+                             enc_out=enc_out)
+        seg_caches.append(cs)
+
+    xn, c_fn = L.rmsnorm_fwd(eng, params["final_norm"], x)
+    logits, c_head = L.linear_fwd(eng, params["lm_head"], xn)
+    return logits, (c_emb, n_front, seg_caches, c_fn, c_head, enc_out)
+
+
+# ===========================================================================
+# Serving
+# ===========================================================================
+# KV caches are stored 2-component ([m, lam_sum]): per-party memory is what
+# a real deployment pays; the joint simulation's 4-component stack is
+# redundant for cached tensors (values and tallies identical).
+def kv_compress(eng, x):
+    if isinstance(eng, TridentEngine):
+        d = x.data
+        return torch.stack([d[0], d[1] + d[2] + d[3]])
+    return x
+
+
+def kv_expand(eng, raw):
+    if isinstance(eng, TridentEngine):
+        return AShare(torch.cat([raw, torch.zeros_like(raw)], dim=0))
+    return raw
+
+
+def _last_token(eng, x):
+    if isinstance(eng, TridentEngine):
+        return AShare(x.data[:, :, -1:])
+    return x[:, -1:]
+
+
+def serve_prefill(eng: Engine, cfg: ModelConfig, params, ids,
+                  frontend_embs=None, enc_inputs=None):
+    """Prefill with q-chunked attention; returns (logits_last, caches).
+    caches: list aligned with cfg.segments():
+      {"k", "v"} raw (L, 2, ...)        attention segments
+      + "enc_kv" {"k", "v"}             cross-attention segments (whisper)
+      share                             encoder output (whisper)
+    Each segment's layers run as one loop (``scan_loop``)."""
+    _check_ported(cfg)
+    x, _ = L.embedding_fwd(eng, params["embed"], ids)
+    if cfg.family == "vlm" and frontend_embs is not None:
+        x = eng.concat([frontend_embs, x], axis=1)
+
+    enc_out = None
+    caches = []
+    for (kind, count), stacked in zip(cfg.segments(), params["segments"]):
+        if kind == "enc":
+            enc_out, _ = _seg_fwd(eng, cfg, kind, stacked, enc_inputs,
+                                  count)
+            caches.append(enc_out)
+            continue
+        x, cache = _seg_infer_scan(eng, cfg, kind, stacked, x, count,
+                                   enc_out=enc_out)
+        caches.append(cache)
+
+    xn, _ = L.rmsnorm_fwd(eng, params["final_norm"], x)
+    last = _last_token(eng, xn)
+    logits, _ = L.linear_fwd(eng, params["lm_head"], last)
+    return logits, caches
+
+
+def _infer_block(eng, cfg, kind, p, x, enc_out):
+    """Forward-only block; returns (y, serve-cache dict of raw leaves)."""
+    if kind in ("attn_mlp", "enc", "attn_moe"):
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, kv = L.attention_prefill(eng, p["attn"], cfg.attn_cfg(), h,
+                                    q_chunk=cfg.q_chunk)
+        x1 = eng.add(x, a)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
+        if kind == "attn_moe":
+            m, _ = B.moe_fwd(eng, p["moe"], cfg.moe_cfg(), h2)
+        else:
+            m, _ = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x1, m)
+        cache = {"k": kv_compress(eng, kv["k"]),
+                 "v": kv_compress(eng, kv["v"])}
+        if cfg.window is not None:
+            cache = {"k": cache["k"][..., -cfg.window:, :],
+                     "v": cache["v"][..., -cfg.window:, :]}
+        return y, cache
+    if kind == "xattn_mlp":
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, kv = L.attention_prefill(eng, p["attn"], cfg.attn_cfg(), h,
+                                    q_chunk=cfg.q_chunk)
+        x1 = eng.add(x, a)
+        hx, _ = L.rmsnorm_fwd(eng, p["nx"], x1)
+        xa, _ = L.cross_attention_fwd(eng, p["xattn"], cfg.attn_cfg(),
+                                      hx, enc_out)
+        x2 = eng.add(x1, xa)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x2)
+        m, _ = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x2, m)
+        # per-layer cross-attention K/V of the encoder output, for decode
+        Hk, dh = cfg.n_kv_heads, cfg.dh
+        ek, _ = L.linear_fwd(eng, {"w": p["xattn"]["wk"]}, enc_out)
+        ev, _ = L.linear_fwd(eng, {"w": p["xattn"]["wv"]}, enc_out)
+        ek = L._split_heads(eng, ek, Hk, dh)
+        ev = L._split_heads(eng, ev, Hk, dh)
+        return y, {"k": kv_compress(eng, kv["k"]),
+                   "v": kv_compress(eng, kv["v"]),
+                   "enc_kv": {"k": kv_compress(eng, ek),
+                              "v": kv_compress(eng, ev)}}
+    if kind in RECURRENT_KINDS:
+        raise _not_ported(kind)
+    raise ValueError(kind)
+
+
+def _seg_infer_scan(eng, cfg, kind, stacked, x, count, enc_out=None):
+    def body(carry, i):
+        y, cache = _infer_block(eng, cfg, kind, _layer(eng, stacked, i),
+                                _wrap(eng, carry), enc_out)
+        return _leaf(eng, y), cache
+
+    y, caches = scan_loop(eng, count, f"inf_{kind}", body, _leaf(eng, x))
+    return _wrap(eng, y), stack_outs(caches)
+
+
+def serve_decode(eng: Engine, cfg: ModelConfig, params, ids_last, caches,
+                 pos: int):
+    """One decode step: ids_last (B,1) public; caches from serve_prefill
+    (or a decode step before).  Returns (logits, new_caches)."""
+    _check_ported(cfg)
+    x, _ = L.embedding_fwd(eng, params["embed"], ids_last)
+    new_caches = []
+    for (kind, count), stacked, seg_cache in zip(
+            cfg.segments(), params["segments"], caches):
+        if kind == "enc":
+            # the encoder output stays; each decoder layer caches its
+            # cross-attention K/V ("enc_kv")
+            new_caches.append(seg_cache)
+            continue
+        x, new_seg = _seg_decode_scan(eng, cfg, kind, stacked, x,
+                                      seg_cache, count, pos)
+        new_caches.append(new_seg)
+    xn, _ = L.rmsnorm_fwd(eng, params["final_norm"], x)
+    logits, _ = L.linear_fwd(eng, params["lm_head"], xn)
+    return logits, new_caches
+
+
+def _decode_block(eng, cfg, kind, p, x, cache, pos):
+    if kind in ("attn_mlp", "enc", "attn_moe"):
+        kv = {"k": kv_expand(eng, cache["k"]),
+              "v": kv_expand(eng, cache["v"])}
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, kv2 = L.attention_decode(eng, p["attn"], cfg.attn_cfg(), h, kv,
+                                    pos)
+        x1 = eng.add(x, a)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
+        if kind == "attn_moe":
+            m, _ = B.moe_fwd(eng, p["moe"], cfg.moe_cfg(), h2)
+        else:
+            m, _ = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x1, m)
+        # windowed archs keep a static cache size; others grow by one
+        return y, {"k": kv_compress(eng, kv2["k"]),
+                   "v": kv_compress(eng, kv2["v"])}
+    if kind == "xattn_mlp":
+        kv = {"k": kv_expand(eng, cache["k"]),
+              "v": kv_expand(eng, cache["v"])}
+        enc_kv = cache["enc_kv"]
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        a, kv2 = L.attention_decode(eng, p["attn"], cfg.attn_cfg(), h, kv,
+                                    pos)
+        x1 = eng.add(x, a)
+        hx, _ = L.rmsnorm_fwd(eng, p["nx"], x1)
+        xa = L.cross_attention_decode(
+            eng, p["xattn"], cfg.attn_cfg(), hx,
+            {"k": kv_expand(eng, enc_kv["k"]),
+             "v": kv_expand(eng, enc_kv["v"])})
+        x2 = eng.add(x1, xa)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x2)
+        m, _ = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
+        y = eng.add(x2, m)
+        return y, {"k": kv_compress(eng, kv2["k"]),
+                   "v": kv_compress(eng, kv2["v"]), "enc_kv": enc_kv}
+    if kind in RECURRENT_KINDS:
+        raise _not_ported(kind)
+    raise ValueError(kind)
+
+
+def _seg_decode_scan(eng, cfg, kind, stacked, x, seg_cache, count, pos):
+    def body(carry, i):
+        y, nc = _decode_block(eng, cfg, kind, _layer(eng, stacked, i),
+                              _wrap(eng, carry), _cache_at(seg_cache, i),
+                              pos)
+        return _leaf(eng, y), nc
+
+    y, caches = scan_loop(eng, count, f"dec_{kind}", body, _leaf(eng, x))
+    return _wrap(eng, y), stack_outs(caches)

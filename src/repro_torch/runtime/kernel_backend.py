@@ -20,7 +20,8 @@ backend ``FourPartyRuntime`` holds:
     last axis and adds the constants, as the JAX package's
     ``PallasKernels`` does.
     Pi_MatMul keeps one ring matmul per gamma piece (its three terms fused
-    on the K axis) and a 3x3 all-pairs ring matmul per party online; each
+    on the K axis) and a 3x3 all-pairs ring matmul per party online
+    (batched operands: term by term through ``ops.ring_matmul``); each
     group of PRF draws is one launch that derives the streams' keys and
     words in-kernel.  On CPU tensors each wrapper takes its kernel's plain
     version.
@@ -119,8 +120,9 @@ class HopperKernels(TorchKernels):
                                            [(lam_x, lam_y, masks, js)])[0]
         p0, q0 = AL.GAMMA_TERMS[js[0]][0]           # indices this party holds
         if lam_x[p0].dim() != 2 or lam_y[q0].dim() != 2:
-            _batched_matmul(lam_x[p0])
-            return super().gamma_pieces(kind, op, lam_x, lam_y, masks, js)
+            # batched: term by term through the ring matmul kernels
+            return super().gamma_pieces(kind, ops.ring_matmul, lam_x, lam_y,
+                                        masks, js)
         # sum_t A_t @ B_t == [A_1|A_2|A_3] @ [B_1;B_2;B_3]: one ring matmul
         # per piece, the three terms fused on the K axis.
         out = {}
@@ -137,9 +139,8 @@ class HopperKernels(TorchKernels):
             return self.online_parts_round(
                 kind, op, [(m_x, m_y, lam_x, lam_y, gammas, lam_zs, js)])[0]
         if m_x.dim() != 2 or m_y.dim() != 2:
-            _batched_matmul(m_x)
-            return super().online_parts(kind, op, m_x, m_y, lam_x, lam_y,
-                                        gammas, lam_zs, js)
+            return super().online_parts(kind, ops.ring_matmul, m_x, m_y,
+                                        lam_x, lam_y, gammas, lam_zs, js)
         # one 3x3 all-pairs launch: row 0 / column 0 give m_x @ m_y and the
         # four cross products the two parts need.
         p = ops.mpc_matmul_grid([m_x] + [lam_x[j] for j in js],
@@ -240,15 +241,6 @@ def _split_parts(outs: list, requests) -> list:
         parts = {j: next(it) for j in r[-1]}
         res.append((next(it), parts))
     return res
-
-
-def _batched_matmul(t: torch.Tensor) -> None:
-    """Batched operands take the per-component path on the CPU; on CUDA
-    there is none (PyTorch has no integer matmul there)."""
-    if t.device.type != "cpu":
-        raise NotImplementedError(
-            "batched (ndim != 2) ring matmul on CUDA: the batched kernel "
-            "comes with the LM-stack slice of the port")
 
 
 def _elementwise(kind: str) -> None:

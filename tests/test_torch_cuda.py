@@ -152,6 +152,26 @@ def test_kernels_equal_plain_on_card(cuda_device):
             b = torch.full((K, 66), -1, dtype=dtype)
             got = RM.ring_matmul_cuda(a.to(cuda_device), b.to(cuda_device))
             assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b)), K
+        # the batched entry (kernel route K2): attention-like products,
+        # broadcast batches (stride 0 and expanded), odd shapes (one-word
+        # copies), a 1-row decode product, and all-ones words past one
+        # K chunk; through ops.ring_matmul, one launch each
+        for sa, sb in [((2, 3, 5, 8), (2, 3, 8, 70)), ((3, 65, 33),
+                                                       (3, 33, 7)),
+                       ((1, 4, 1, 64), (1, 4, 64, 129)),
+                       ((5, 64), (3, 64, 6)), ((3, 5, 64), (64, 6)),
+                       ((2, 1, 9, 16), (1, 3, 16, 10))]:
+            a, b = words(*sa), words(*sb)
+            before = ops.RING_MATMUL_BATCHED.launches
+            got = ops.ring_matmul(a.to(cuda_device), b.to(cuda_device))
+            assert torch.equal(got.cpu(), torch.matmul(a, b)), (dtype, sa)
+            assert ops.RING_MATMUL_BATCHED.launches - before == \
+                (len(sb) > 2), sa
+        a = torch.full((2, 65, top + 32), -1, dtype=dtype)
+        b = torch.full((2, top + 32, 66), -1, dtype=dtype)
+        got = RM.ring_matmul_batched_cuda(a.to(cuda_device),
+                                          b.to(cuda_device))
+        assert torch.equal(got.cpu(), RM.ring_matmul_plain(a, b))
         # the grouped gamma-piece kernel: the stacked (J, T, n) form (odd
         # n: rows at unaligned offsets; J = 20: two launches) ...
         for J, T, n, signs in [(3, 3, 16384, (1, 1, 1)),

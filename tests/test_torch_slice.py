@@ -139,8 +139,9 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
     online-only run, the prep pipeline and the continuous dealer; the joint
     simulation's context and its server; a training step's engine in
     either world); the "torch" backend refuses CUDA; a batched ring
-    matmul on a non-CPU device names the slice that brings it; the "dotp"
-    kind runs on the "hopper" backend."""
+    matmul on a non-CPU device goes to the batched kernel's wrapper, which
+    takes CUDA tensors only; the "dotp" kind runs on the "hopper"
+    backend."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FourPartyRuntime(T64)
@@ -180,7 +181,7 @@ def test_entry_points_refuse_the_cpu_by_default(monkeypatch):
         make_kernel_backend("torch", torch.device("cuda"))
     lam = {j: torch.empty((2, 3, 3), dtype=torch.int64, device="meta")
            for j in (1, 2, 3)}
-    with pytest.raises(NotImplementedError, match="slice"):
+    with pytest.raises(ValueError, match="must be CUDA tensors"):
         HopperKernels().gamma_pieces("matmul", torch.matmul, lam, lam, lam,
                                      (1, 2, 3))
     words = {j: torch.arange(6, dtype=torch.int64).reshape(2, 3) * j - 7
