@@ -19,7 +19,7 @@ import torch
 
 from ..core.shares import AShare
 from .engine import Engine, TridentEngine
-from .recurrent import scan_loop
+from . import recurrent as R
 
 
 def _device(eng) -> torch.device:
@@ -310,7 +310,7 @@ def attention_prefill(eng: Engine, params, cfg: AttnConfig, x,
             yi = eng.matmul(yi, v_full)                   # (B,H,C,dh)
             return carry, eng.transpose(yi, (2, 0, 1, 3))  # (C,B,H,dh)
 
-        _, ys = scan_loop(eng, nc, "attn_prefill", body)
+        _, ys = R.scan_loop(eng, nc, "attn_prefill", body)
         yc = eng.concat(ys, axis=0)                       # (S,B,H,dh)
         ctx_v = eng.transpose(yc, (1, 2, 0, 3))           # (B,H,S,dh)
     merged = _merge_heads(eng, ctx_v)

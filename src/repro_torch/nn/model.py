@@ -10,8 +10,13 @@ same tally and checks), so both open the same words.  Segment kinds:
     attn_moe    pre-norm attention + pre-norm MoE (qwen3-moe, mixtral)
     enc         whisper's encoder layers (attention + MLP)
     xattn_mlp   decoder block with self-attn + cross-attn + MLP (whisper)
-    retention, ret_slstm_pair, shared_attn
-                the recurrent families (zamba2, xlstm): not ported yet
+    retention   pre-norm matrix-state recurrence (zamba2 mamba, xlstm mLSTM)
+    ret_slstm_pair
+                a retention layer then a pre-norm scalar-state recurrence
+                (xlstm's mLSTM + sLSTM pairs)
+    shared_attn zamba2's single shared attn+mlp block applied after each
+                retention group (one parameter set for every application;
+                it runs outside any layer loop, on the context's own key)
 
 Modality frontends (whisper audio, phi-3-vision CLIP) are stubs:
 precomputed frame / patch embeddings are secret-shared and consumed
@@ -30,17 +35,9 @@ import torch
 from ..core.shares import AShare
 from . import blocks as B
 from . import layers as L
+from . import recurrent as R
 from .engine import Engine, TridentEngine
 from .recurrent import _leaf, _wrap, scan_loop, stack_outs
-
-RECURRENT_KINDS = ("retention", "ret_slstm_pair", "shared_attn")
-
-
-def _not_ported(kind: str):
-    return NotImplementedError(
-        f"segment kind {kind!r} (the hybrid and ssm families' recurrent "
-        f"blocks, nn/recurrent.py) comes with the recurrent families' slice "
-        f"of the port")
 
 
 # ===========================================================================
@@ -94,6 +91,15 @@ class ModelConfig:
         return B.MoEConfig(self.d_model, self.d_ff, self.n_experts,
                            self.top_k, self.act, self.moe_routing)
 
+    def ret_cfg(self) -> R.RetentionConfig:
+        return R.RetentionConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            d_k=self.ssm_state or self.dh,
+            d_v=self.d_model // self.n_heads, seq_chunk=self.seq_chunk)
+
+    def slstm_cfg(self) -> R.SLSTMConfig:
+        return R.SLSTMConfig(self.d_model, self.n_heads, self.seq_chunk)
+
     def segments(self):
         """[(kind, count)] layer plan."""
         if self.family in ("dense", "vlm"):
@@ -118,12 +124,6 @@ class ModelConfig:
         raise ValueError(self.family)
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    for kind, _ in cfg.segments():
-        if kind in RECURRENT_KINDS:
-            raise _not_ported(kind)
-
-
 # ===========================================================================
 # Parameter trees: nested dicts (and lists) with arrays at the leaves.
 # Dict keys are visited in sorted order, as jax.tree_util visits them, so
@@ -145,7 +145,7 @@ def tree_map(fn, *trees):
 # Parameter init (numpy float64; converted per engine afterwards)
 # ===========================================================================
 def _layer_init(rng, cfg: ModelConfig, kind: str):
-    if kind in ("attn_mlp", "enc"):
+    if kind in ("attn_mlp", "enc", "shared_attn"):
         return {"n1": L.rmsnorm_init(rng, cfg.d_model),
                 "attn": L.attention_init(rng, cfg.attn_cfg()),
                 "n2": L.rmsnorm_init(rng, cfg.d_model),
@@ -162,24 +162,34 @@ def _layer_init(rng, cfg: ModelConfig, kind: str):
                 "xattn": L.attention_init(rng, cfg.attn_cfg()),
                 "n2": L.rmsnorm_init(rng, cfg.d_model),
                 "mlp": B.mlp_init(rng, cfg.mlp_cfg())}
-    if kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
+    if kind == "retention":
+        return {"n1": L.rmsnorm_init(rng, cfg.d_model),
+                "ret": R.retention_init(rng, cfg.ret_cfg())}
+    if kind == "ret_slstm_pair":
+        return {"n1": L.rmsnorm_init(rng, cfg.d_model),
+                "ret": R.retention_init(rng, cfg.ret_cfg()),
+                "n2": L.rmsnorm_init(rng, cfg.d_model),
+                "sl": R.slstm_init(rng, cfg.slstm_cfg())}
     raise ValueError(kind)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0):
     """The plain (numpy float64) parameter tree: the JAX package's draws
     from the same ``RandomState`` in the same order, so the same weights
-    (and the way weights cross between the packages)."""
-    _check_ported(cfg)
+    (and the way weights cross between the packages).  A shared_attn
+    segment holds None; its one parameter set ("shared_attn") is drawn
+    after every segment."""
     rng = np.random.RandomState(seed)
     p = {"embed": L.embedding_init(rng, cfg.vocab, cfg.d_model),
          "final_norm": L.rmsnorm_init(rng, cfg.d_model),
          "lm_head": L.linear_init(rng, cfg.d_model, cfg.vocab, scale=0.02)}
     p["segments"] = [
+        None if kind == "shared_attn" else
         tree_map(lambda *xs: np.stack(xs),
                  *[_layer_init(rng, cfg, kind) for _ in range(count)])
         for kind, count in cfg.segments()]
+    if any(kind == "shared_attn" for kind, _ in cfg.segments()):
+        p["shared_attn"] = _layer_init(rng, cfg, "shared_attn")
     return p
 
 
@@ -198,6 +208,8 @@ def params_to_engine(eng: Engine, params):
            "lm_head": tree_map(eng.from_plain, params["lm_head"])}
     out["segments"] = [tree_map(conv_stacked, stacked)
                        for stacked in params["segments"]]
+    if "shared_attn" in params:
+        out["shared_attn"] = tree_map(eng.from_plain, params["shared_attn"])
     return out
 
 
@@ -217,7 +229,7 @@ def _cache_at(cache, i: int):
 # Blocks (single layer) -- pre-norm residual wiring
 # ===========================================================================
 def _block_fwd(eng, cfg: ModelConfig, kind: str, p, x, enc_out=None):
-    if kind in ("attn_mlp", "enc", "attn_moe"):
+    if kind in ("attn_mlp", "enc", "attn_moe", "shared_attn"):
         h, c1 = L.rmsnorm_fwd(eng, p["n1"], x)
         a, ca, _ = L.attention_fwd(eng, p["attn"], cfg.attn_cfg(), h)
         x1 = eng.add(x, a)
@@ -240,8 +252,17 @@ def _block_fwd(eng, cfg: ModelConfig, kind: str, p, x, enc_out=None):
         m, cm = B.mlp_fwd(eng, p["mlp"], cfg.mlp_cfg(), h2)
         y = eng.add(x2, m)
         return y, (c1, ca, cxn, cxa, c2, cm)
-    if kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
+    if kind == "retention":
+        h, c1 = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, cr, _ = R.retention_fwd(eng, p["ret"], cfg.ret_cfg(), h)
+        return eng.add(x, r), (c1, cr)
+    if kind == "ret_slstm_pair":
+        h, c1 = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, cr, _ = R.retention_fwd(eng, p["ret"], cfg.ret_cfg(), h)
+        x1 = eng.add(x, r)
+        h2, c2 = L.rmsnorm_fwd(eng, p["n2"], x1)
+        sl, cs, _ = R.slstm_fwd(eng, p["sl"], cfg.slstm_cfg(), h2)
+        return eng.add(x1, sl), (c1, cr, c2, cs)
     raise ValueError(kind)
 
 
@@ -270,7 +291,6 @@ def forward(eng: Engine, cfg: ModelConfig, params, ids,
     (secret-shared activations from the stubbed frontend).
     enc_inputs (encdec): (B, S_enc, D) precomputed frame embeddings.
     Returns (logits, cache)."""
-    _check_ported(cfg)
     x, c_emb = L.embedding_fwd(eng, params["embed"], ids)
     n_front = 0
     if cfg.family == "vlm" and frontend_embs is not None:
@@ -283,6 +303,8 @@ def forward(eng: Engine, cfg: ModelConfig, params, ids,
         if kind == "enc":
             enc_out, cs = _seg_fwd(eng, cfg, kind, stacked, enc_inputs,
                                    count)
+        elif kind == "shared_attn":
+            x, cs = _block_fwd(eng, cfg, kind, params["shared_attn"], x)
         else:
             x, cs = _seg_fwd(eng, cfg, kind, stacked, x, count,
                              enc_out=enc_out)
@@ -319,14 +341,18 @@ def _last_token(eng, x):
 
 
 def serve_prefill(eng: Engine, cfg: ModelConfig, params, ids,
-                  frontend_embs=None, enc_inputs=None):
+                  frontend_embs=None, enc_inputs=None, long_ctx=False):
     """Prefill with q-chunked attention; returns (logits_last, caches).
     caches: list aligned with cfg.segments():
       {"k", "v"} raw (L, 2, ...)        attention segments
       + "enc_kv" {"k", "v"}             cross-attention segments (whisper)
+      {"s"} / {"s1", "s2"} raw (L, 2, ...)  recurrent states (retention;
+                                        ret_slstm_pair)
+      {"k", "v"} raw (2, ...)           the shared block (no layer axis)
       share                             encoder output (whisper)
-    Each segment's layers run as one loop (``scan_loop``)."""
-    _check_ported(cfg)
+    Each segment's layers run as one loop (``scan_loop``); the shared
+    block runs outside any loop.  long_ctx: the attention windows, the
+    shared block's too, take cfg.long_window (``_window``)."""
     x, _ = L.embedding_fwd(eng, params["embed"], ids)
     if cfg.family == "vlm" and frontend_embs is not None:
         x = eng.concat([frontend_embs, x], axis=1)
@@ -339,8 +365,13 @@ def serve_prefill(eng: Engine, cfg: ModelConfig, params, ids,
                                   count)
             caches.append(enc_out)
             continue
+        if kind == "shared_attn":
+            x, kv = _infer_block(eng, cfg, kind, params["shared_attn"], x,
+                                 None, long_ctx)
+            caches.append(kv)
+            continue
         x, cache = _seg_infer_scan(eng, cfg, kind, stacked, x, count,
-                                   enc_out=enc_out)
+                                   enc_out=enc_out, long_ctx=long_ctx)
         caches.append(cache)
 
     xn, _ = L.rmsnorm_fwd(eng, params["final_norm"], x)
@@ -349,11 +380,21 @@ def serve_prefill(eng: Engine, cfg: ModelConfig, params, ids,
     return logits, caches
 
 
-def _infer_block(eng, cfg, kind, p, x, enc_out):
+def _window(cfg, long_ctx):
+    """The attention kinds' window: cfg.long_window when serving a long
+    context (it widens a narrower cfg.window, as the JAX package does),
+    else cfg.window.  The hybrid family has no cfg.window, so its shared
+    block keeps all positions, or the last cfg.long_window of them."""
+    return (cfg.long_window if long_ctx else None) or cfg.window
+
+
+def _infer_block(eng, cfg, kind, p, x, enc_out, long_ctx):
     """Forward-only block; returns (y, serve-cache dict of raw leaves)."""
-    if kind in ("attn_mlp", "enc", "attn_moe"):
+    if kind in ("attn_mlp", "enc", "attn_moe", "shared_attn"):
+        window = _window(cfg, long_ctx)
         h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
-        a, kv = L.attention_prefill(eng, p["attn"], cfg.attn_cfg(), h,
+        a, kv = L.attention_prefill(eng, p["attn"],
+                                    cfg.attn_cfg(window=window), h,
                                     q_chunk=cfg.q_chunk)
         x1 = eng.add(x, a)
         h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
@@ -364,10 +405,22 @@ def _infer_block(eng, cfg, kind, p, x, enc_out):
         y = eng.add(x1, m)
         cache = {"k": kv_compress(eng, kv["k"]),
                  "v": kv_compress(eng, kv["v"])}
-        if cfg.window is not None:
-            cache = {"k": cache["k"][..., -cfg.window:, :],
-                     "v": cache["v"][..., -cfg.window:, :]}
+        if window is not None:
+            cache = {"k": cache["k"][..., -window:, :],
+                     "v": cache["v"][..., -window:, :]}
         return y, cache
+    if kind == "retention":
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, _, st = R.retention_fwd(eng, p["ret"], cfg.ret_cfg(), h)
+        return eng.add(x, r), {"s": kv_compress(eng, st)}
+    if kind == "ret_slstm_pair":
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, _, st1 = R.retention_fwd(eng, p["ret"], cfg.ret_cfg(), h)
+        x1 = eng.add(x, r)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
+        sl, _, st2 = R.slstm_fwd(eng, p["sl"], cfg.slstm_cfg(), h2)
+        return eng.add(x1, sl), {"s1": kv_compress(eng, st1),
+                                 "s2": kv_compress(eng, st2)}
     if kind == "xattn_mlp":
         h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
         a, kv = L.attention_prefill(eng, p["attn"], cfg.attn_cfg(), h,
@@ -390,15 +443,14 @@ def _infer_block(eng, cfg, kind, p, x, enc_out):
                    "v": kv_compress(eng, kv["v"]),
                    "enc_kv": {"k": kv_compress(eng, ek),
                               "v": kv_compress(eng, ev)}}
-    if kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
     raise ValueError(kind)
 
 
-def _seg_infer_scan(eng, cfg, kind, stacked, x, count, enc_out=None):
+def _seg_infer_scan(eng, cfg, kind, stacked, x, count, enc_out=None,
+                    long_ctx=False):
     def body(carry, i):
         y, cache = _infer_block(eng, cfg, kind, _layer(eng, stacked, i),
-                                _wrap(eng, carry), enc_out)
+                                _wrap(eng, carry), enc_out, long_ctx)
         return _leaf(eng, y), cache
 
     y, caches = scan_loop(eng, count, f"inf_{kind}", body, _leaf(eng, x))
@@ -406,10 +458,10 @@ def _seg_infer_scan(eng, cfg, kind, stacked, x, count, enc_out=None):
 
 
 def serve_decode(eng: Engine, cfg: ModelConfig, params, ids_last, caches,
-                 pos: int):
+                 pos: int, long_ctx=False):
     """One decode step: ids_last (B,1) public; caches from serve_prefill
-    (or a decode step before).  Returns (logits, new_caches)."""
-    _check_ported(cfg)
+    (or a decode step before), served with the same long_ctx.  Returns
+    (logits, new_caches)."""
     x, _ = L.embedding_fwd(eng, params["embed"], ids_last)
     new_caches = []
     for (kind, count), stacked, seg_cache in zip(
@@ -419,21 +471,27 @@ def serve_decode(eng: Engine, cfg: ModelConfig, params, ids_last, caches,
             # cross-attention K/V ("enc_kv")
             new_caches.append(seg_cache)
             continue
+        if kind == "shared_attn":
+            x, kv = _decode_block(eng, cfg, kind, params["shared_attn"], x,
+                                  seg_cache, pos, long_ctx)
+            new_caches.append(kv)
+            continue
         x, new_seg = _seg_decode_scan(eng, cfg, kind, stacked, x,
-                                      seg_cache, count, pos)
+                                      seg_cache, count, pos, long_ctx)
         new_caches.append(new_seg)
     xn, _ = L.rmsnorm_fwd(eng, params["final_norm"], x)
     logits, _ = L.linear_fwd(eng, params["lm_head"], xn)
     return logits, new_caches
 
 
-def _decode_block(eng, cfg, kind, p, x, cache, pos):
-    if kind in ("attn_mlp", "enc", "attn_moe"):
+def _decode_block(eng, cfg, kind, p, x, cache, pos, long_ctx):
+    if kind in ("attn_mlp", "enc", "attn_moe", "shared_attn"):
         kv = {"k": kv_expand(eng, cache["k"]),
               "v": kv_expand(eng, cache["v"])}
         h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
-        a, kv2 = L.attention_decode(eng, p["attn"], cfg.attn_cfg(), h, kv,
-                                    pos)
+        a, kv2 = L.attention_decode(
+            eng, p["attn"], cfg.attn_cfg(window=_window(cfg, long_ctx)), h,
+            kv, pos)
         x1 = eng.add(x, a)
         h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
         if kind == "attn_moe":
@@ -444,6 +502,21 @@ def _decode_block(eng, cfg, kind, p, x, cache, pos):
         # windowed archs keep a static cache size; others grow by one
         return y, {"k": kv_compress(eng, kv2["k"]),
                    "v": kv_compress(eng, kv2["v"])}
+    if kind == "retention":
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, st = R.retention_step(eng, p["ret"], cfg.ret_cfg(), h,
+                                 kv_expand(eng, cache["s"]))
+        return eng.add(x, r), {"s": kv_compress(eng, st)}
+    if kind == "ret_slstm_pair":
+        h, _ = L.rmsnorm_fwd(eng, p["n1"], x)
+        r, st1 = R.retention_step(eng, p["ret"], cfg.ret_cfg(), h,
+                                  kv_expand(eng, cache["s1"]))
+        x1 = eng.add(x, r)
+        h2, _ = L.rmsnorm_fwd(eng, p["n2"], x1)
+        sl, st2 = R.slstm_step(eng, p["sl"], cfg.slstm_cfg(), h2,
+                               kv_expand(eng, cache["s2"]))
+        return eng.add(x1, sl), {"s1": kv_compress(eng, st1),
+                                 "s2": kv_compress(eng, st2)}
     if kind == "xattn_mlp":
         kv = {"k": kv_expand(eng, cache["k"]),
               "v": kv_expand(eng, cache["v"])}
@@ -463,16 +536,15 @@ def _decode_block(eng, cfg, kind, p, x, cache, pos):
         y = eng.add(x2, m)
         return y, {"k": kv_compress(eng, kv2["k"]),
                    "v": kv_compress(eng, kv2["v"]), "enc_kv": enc_kv}
-    if kind in RECURRENT_KINDS:
-        raise _not_ported(kind)
     raise ValueError(kind)
 
 
-def _seg_decode_scan(eng, cfg, kind, stacked, x, seg_cache, count, pos):
+def _seg_decode_scan(eng, cfg, kind, stacked, x, seg_cache, count, pos,
+                     long_ctx=False):
     def body(carry, i):
         y, nc = _decode_block(eng, cfg, kind, _layer(eng, stacked, i),
                               _wrap(eng, carry), _cache_at(seg_cache, i),
-                              pos)
+                              pos, long_ctx)
         return _leaf(eng, y), nc
 
     y, caches = scan_loop(eng, count, f"dec_{kind}", body, _leaf(eng, x))

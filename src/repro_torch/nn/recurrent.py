@@ -17,16 +17,32 @@ tallies the first iteration scaled by the count and the others not at
 all, and folds each iteration's checks.  A loop that kept counting would
 draw other words from the second iteration on.
 
-The recurrent blocks themselves (retention, sLSTM) are not ported yet.
+The recurrent blocks, forward and serving side: a retention-style matrix
+state (zamba2's Mamba2 layers, xlstm's mLSTM) and an sLSTM-style scalar
+state, each with a public per-head decay a_h and secret gates.  Under a
+public decay the linear recurrence costs no communication: within a chunk
+of C positions it is a public decay-matrix contraction, across chunks a
+first-order carry; only the projections, the state contractions and the
+gates pay for products.  Each chunk loop is a ``scan_loop`` (tags
+``"ret_fwd"`` and ``"slstm_fwd"``), so a chunk's PRF draws are the JAX
+package's.  ``retention_step`` and ``slstm_step`` take one token against
+the carried state (decode).  The backward passes come with the LM
+training slice.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import zlib
 
+import numpy as np
 import torch
 
+from ..core import protocols as PR
 from ..core.shares import AShare
-from .engine import TridentEngine
+from ..kernels import ops
+from . import layers as L
+from .engine import Engine, TridentEngine
 
 
 def _is_triv(eng) -> bool:
@@ -100,3 +116,286 @@ def stack_outs(outs: list, dim: int = 0):
         return type(first)(stack_outs([o[i] for o in outs], dim)
                            for i in range(len(first)))
     return torch.stack(outs, dim)
+
+
+# ---------------------------------------------------------------------------
+# Config / init
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class RetentionConfig:
+    d_model: int
+    n_heads: int
+    d_k: int                 # state width (zamba2 ssm_state, e.g. 64)
+    d_v: int                 # value head dim (d_model // n_heads)
+    seq_chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SLSTMConfig:
+    d_model: int
+    n_heads: int
+    seq_chunk: int = 128
+
+
+def head_decays(n_heads: int) -> np.ndarray:
+    """Public per-head decay a_h = 1 - 2^-(5 + h*3/H) (RetNet schedule)."""
+    h = np.arange(n_heads)
+    return 1.0 - 2.0 ** (-5.0 - 3.0 * h / max(n_heads - 1, 1))
+
+
+def retention_init(rng, cfg: RetentionConfig):
+    d, H, dk, dv = cfg.d_model, cfg.n_heads, cfg.d_k, cfg.d_v
+    p = {
+        "wq": L.linear_init(rng, d, H * dk)["w"],
+        "wk": L.linear_init(rng, d, H * dk)["w"],
+        "wv": L.linear_init(rng, d, H * dv)["w"],
+        "wo": L.linear_init(rng, H * dv, d)["w"],
+    }
+    p["wg"] = L.linear_init(rng, d, H * dv)["w"]   # the silu gate
+    return p
+
+
+def slstm_init(rng, cfg: SLSTMConfig):
+    d = cfg.d_model
+    return {
+        "wi": L.linear_init(rng, d, d)["w"],
+        "wz": L.linear_init(rng, d, d)["w"],
+        "wo": L.linear_init(rng, d, d)["w"],
+        "wout": L.linear_init(rng, d, d)["w"],
+    }
+
+
+# ---------------------------------------------------------------------------
+# Public decay tables (float64 numpy: applying them costs no communication)
+# ---------------------------------------------------------------------------
+def _decay_tables(decay: np.ndarray, C: int):
+    """Per-head (H,) decay a -> public chunk tables:
+    D (H,C,C) lower-tri a^{i-j}; u (H,C) = a^{i+1}; w (H,C) = a^{C-1-j};
+    ac (H,) = a^C."""
+    i = np.arange(C)[:, None]
+    j = np.arange(C)[None, :]
+    expnt = np.clip(i - j, 0, None)
+    D = np.where(i >= j, decay[:, None, None] ** expnt[None], 0.0)
+    u = decay[:, None] ** (np.arange(C)[None, :] + 1)
+    w = decay[:, None] ** (C - 1 - np.arange(C)[None, :])
+    ac = decay ** C
+    return D, u, w, ac
+
+
+def _proj_heads(eng, x, w, H, dh):
+    """(B,S,D) @ w -> (B,H,S,dh)."""
+    y, cache = L.linear_fwd(eng, {"w": w}, x)
+    b, s, _ = eng.shape_of(x)
+    y = eng.reshape(y, (b, s, H, dh))
+    return eng.transpose(y, (0, 2, 1, 3)), cache
+
+
+def _unproj_heads(eng, y):
+    b, h, s, dh = eng.shape_of(y)
+    y = eng.transpose(y, (0, 2, 1, 3))
+    return eng.reshape(y, (b, s, h * dh))
+
+
+def _chunks(eng, x, C):
+    """(B,H,S,dh) -> (nc, B,H,C,dh): chunk i is ``L._chunk(eng, xc, i)``."""
+    b, h, s, dh = eng.shape_of(x)
+    nc = s // C
+    x = eng.reshape(x, (b, h, nc, C, dh))
+    return eng.transpose(x, (2, 0, 1, 3, 4)), nc
+
+
+def _unchunks(eng, x):
+    nc, b, h, C, dh = eng.shape_of(x)
+    x = eng.transpose(x, (1, 2, 0, 3, 4))
+    return eng.reshape(x, (b, h, nc * C, dh))
+
+
+def _split_like(eng, x, H, dh):
+    b, s, _ = eng.shape_of(x)
+    x = eng.reshape(x, (b, s, H, dh))
+    return eng.transpose(x, (0, 2, 1, 3))
+
+
+def _stack_chunks(eng, outs):
+    """A chunk loop's raw outputs -> the chunked tensor (nc, B,H,C,dh)."""
+    return eng.stack_to_new_axis([_wrap(eng, o) for o in outs], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Retention forward: chunked loop carrying the (B,H,dk,dv) state.
+# ---------------------------------------------------------------------------
+def retention_fwd(eng: Engine, params, cfg: RetentionConfig, x):
+    """x: (B,S,D) -> (y, cache, new_state), the state (B,H,dk,dv) run
+    from zero."""
+    H, dk, dv, C = cfg.n_heads, cfg.d_k, cfg.d_v, cfg.seq_chunk
+    b, s, d = eng.shape_of(x)
+    C = min(C, s)
+    assert s % C == 0, (s, C)
+    D, u, w, ac = _decay_tables(head_decays(H), C)
+
+    q, cq = _proj_heads(eng, x, params["wq"], H, dk)
+    k, ck = _proj_heads(eng, x, params["wk"], H, dk)
+    v, cv = _proj_heads(eng, x, params["wv"], H, dv)
+    scale = 1.0 / math.sqrt(dk)
+
+    qc, nc = _chunks(eng, q, C)           # (nc,B,H,C,dk)
+    kc, _ = _chunks(eng, k, C)
+    vc, _ = _chunks(eng, v, C)
+
+    state = eng.zeros((b, H, dk, dv))
+
+    Dp = D[None]                                    # (1,H,C,C) public
+    up = u[None, :, :, None]                        # (1,H,C,1)
+    wp = w[None, :, :, None]
+    acp = ac[None, :, None, None]
+
+    def body(carry, i):
+        Sm = _wrap(eng, carry)
+        qi, ki, vi = (L._chunk(eng, t, i) for t in (qc, kc, vc))
+        s_qk = eng.matmul(qi, eng.transpose(ki, (0, 1, 3, 2)))
+        s_m = eng.mul_public(s_qk, Dp * scale)      # public decay mask
+        y_intra = eng.matmul(s_m, vi)
+        q_u = eng.mul_public(qi, up * scale)
+        y_inter = eng.matmul(q_u, Sm)
+        kw = eng.mul_public(ki, wp)
+        S_new = eng.add(
+            eng.mul_public(Sm, acp),
+            eng.matmul(eng.transpose(kw, (0, 1, 3, 2)), vi))
+        y = eng.add(y_intra, y_inter)
+        return _leaf(eng, S_new), (_leaf(eng, y), _leaf(eng, Sm))
+
+    final_state, outs = scan_loop(eng, nc, "ret_fwd", body, _leaf(eng, state))
+    y_heads = _unchunks(eng, _stack_chunks(eng, [y for y, _ in outs]))
+    y_flat = _unproj_heads(eng, y_heads)            # (B,S,H*dv)
+
+    g_lin, cg = L.linear_fwd(eng, {"w": params["wg"]}, x)
+    g, cact = eng.silu(g_lin)
+    gate_cache = (cg, cact, g, y_flat)
+    out, co = L.linear_fwd(eng, {"w": params["wo"]}, eng.mul(y_flat, g))
+    cache = (cq, ck, cv, q, k, v, [sm for _, sm in outs], gate_cache, co)
+    return out, cache, _wrap(eng, final_state)
+
+
+def retention_step(eng: Engine, params, cfg: RetentionConfig, x, state):
+    """Single-token decode: x (B,1,D), state (B,H,dk,dv).
+    y_t = q_t (a S + k_t^T v_t);  S' = a S + k_t^T v_t  (O(1) memory)."""
+    H, dk, dv = cfg.n_heads, cfg.d_k, cfg.d_v
+    q, _ = _proj_heads(eng, x, params["wq"], H, dk)   # (B,H,1,dk)
+    k, _ = _proj_heads(eng, x, params["wk"], H, dk)
+    v, _ = _proj_heads(eng, x, params["wv"], H, dv)
+    a = head_decays(H)[None, :, None, None]
+    S_dec = eng.mul_public(state, a)
+    S_new = eng.add(S_dec, eng.matmul(eng.transpose(k, (0, 1, 3, 2)), v))
+    y = eng.matmul(eng.mul_public(q, 1.0 / math.sqrt(dk)), S_new)
+    y_flat = _unproj_heads(eng, y)
+    g_lin, _ = L.linear_fwd(eng, {"w": params["wg"]}, x)
+    g, _ = eng.silu(g_lin)
+    out, _ = L.linear_fwd(eng, {"w": params["wo"]}, eng.mul(y_flat, g))
+    return out, S_new
+
+
+# ---------------------------------------------------------------------------
+# sLSTM-style block: scalar state per channel, public per-head decay.
+# ---------------------------------------------------------------------------
+def slstm_fwd(eng: Engine, params, cfg: SLSTMConfig, x):
+    """x: (B,S,D), the state run from zero.  c_t = f c_{t-1} + i_t*z_t ;
+    h_t = o_t * c_t.  With public f the c-recurrence is a public
+    lower-triangular contraction (local: no communication); only i*z and
+    o*c pay Pi_Mult.  A head's channels share its decay."""
+    d, H, C = cfg.d_model, cfg.n_heads, cfg.seq_chunk
+    b, s, _ = eng.shape_of(x)
+    C = min(C, s)
+    assert s % C == 0
+    Dh, u, wgt, ac = _decay_tables(head_decays(H), C)
+
+    i_lin, ci = L.linear_fwd(eng, {"w": params["wi"]}, x)
+    z, cz = L.linear_fwd(eng, {"w": params["wz"]}, x)
+    o_lin, c_o = L.linear_fwd(eng, {"w": params["wo"]}, x)
+    i_g, ci_act = eng.sigmoid(i_lin)
+    o_g, co_act = eng.sigmoid(o_lin)
+    iz = eng.mul(i_g, z)                          # (B,S,D) secret product
+
+    # chunked public recurrence on heads (B,H,S,dh)
+    dh = d // H
+    izc, nc = _chunks(eng, _split_like(eng, iz, H, dh), C)  # (nc,B,H,C,dh)
+    state = eng.zeros((b, H, 1, dh))
+
+    Dp = Dh[None]                                 # (1,H,C,C) public
+    up = u[None, :, :, None]                      # (1,H,C,1)
+    acp = ac[None, :, None, None]
+
+    def body(carry, i):
+        c_prev = _wrap(eng, carry)                # (B,H,1,dh)
+        izi = L._chunk(eng, izc, i)
+        # intra: c_rel = Dp @ iz  (public matmul: local, no communication)
+        c_intra = _pub_left(eng, Dp, izi)
+        c_inter = eng.mul_public(_bcast_chunk(eng, c_prev, C), up)
+        c = eng.add(c_intra, c_inter)
+        c_last = eng.add(
+            eng.mul_public(c_prev, acp),
+            _last_of_chunk_weighted(eng, izi, wgt))
+        return _leaf(eng, c_last), _leaf(eng, c)
+
+    final_c, cs = scan_loop(eng, nc, "slstm_fwd", body, _leaf(eng, state))
+    c_full = _unproj_heads(eng, _unchunks(eng, _stack_chunks(eng, cs)))
+
+    h = eng.mul(o_g, c_full)
+    y, c_out = L.linear_fwd(eng, {"w": params["wout"]}, h)
+    cache = (ci, cz, c_o, ci_act, co_act, i_g, z, o_g, c_full, c_out)
+    return y, cache, _wrap(eng, final_c)
+
+
+def _pub_left(eng, Dp, x):
+    """(1,H,C,C) public @ (B,H,C,dh) share: a local contraction with the
+    encoded public matrix (the ring matmul, broadcast over the components
+    and the batch) + one truncation for the fixed-point rescale."""
+    if _is_triv(eng):
+        enc = eng.ctx.encode(Dp[0])                    # (H,C,C) fixed point
+        return _trunc_pub(eng, ops.ring_matmul(enc[None, None], x.data))
+    return torch.matmul(torch.as_tensor(Dp[0], dtype=x.dtype,
+                                        device=x.device), x)
+
+
+def _trunc_pub(eng, prod_data):
+    """Truncate a public-matrix contraction result (one Pi_Trunc)."""
+    return PR.truncate_share(eng.ctx, AShare(prod_data))
+
+
+def _bcast_chunk(eng, c_prev, C):
+    """(B,H,1,dh) -> (B,H,C,dh) broadcast."""
+    if _is_triv(eng):
+        d = c_prev.data
+        return AShare(d.expand(d.shape[:3] + (C,) + d.shape[4:]))
+    return c_prev.expand(c_prev.shape[:2] + (C,) + c_prev.shape[3:])
+
+
+def _last_of_chunk_weighted(eng, izi, wgt):
+    """sum_j a^{C-1-j} iz_j  -> (B,H,1,dh): the public weights wgt (H,C)
+    (``_decay_tables``' w), local (the ring matmul of the encoded (H,1,C)
+    weights, one row a head)."""
+    if _is_triv(eng):
+        enc = eng.ctx.encode(wgt)
+        return _trunc_pub(eng, ops.ring_matmul(enc[None, None, :, None],
+                                               izi.data))
+    return torch.matmul(torch.as_tensor(wgt, dtype=izi.dtype,
+                                        device=izi.device)[:, None], izi)
+
+
+def slstm_step(eng: Engine, params, cfg: SLSTMConfig, x, state):
+    """Single-token decode: c' = f c + i*z ; h = o * c'.
+    state layout matches slstm_fwd's carry: (B, H, 1, d//H)."""
+    d, H = cfg.d_model, cfg.n_heads
+    i_lin, _ = L.linear_fwd(eng, {"w": params["wi"]}, x)
+    z, _ = L.linear_fwd(eng, {"w": params["wz"]}, x)
+    o_lin, _ = L.linear_fwd(eng, {"w": params["wo"]}, x)
+    i_g, _ = eng.sigmoid(i_lin)
+    o_g, _ = eng.sigmoid(o_lin)
+    iz = eng.mul(i_g, z)                           # (B,1,D)
+    izh = _split_like(eng, iz, H, d // H)          # (B,H,1,dh)
+    a = head_decays(H)[None, :, None, None]
+    c_new = eng.add(eng.mul_public(state, a),
+                    izh)
+    c_flat = _unproj_heads(eng, c_new)             # (B,1,D)
+    h = eng.mul(o_g, c_flat)
+    y, _ = L.linear_fwd(eng, {"w": params["wout"]}, h)
+    return y, c_new

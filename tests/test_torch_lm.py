@@ -1,13 +1,13 @@
 """The port's LM stack (``repro_torch.nn.layers``, ``blocks``, ``model``,
-``recurrent``'s loop helpers, ``configs``) against the JAX package's on the
-same seeds: the layers and the loop seam bit for bit (the seam: a JAX
-``lax.scan`` body traced once draws the same counters under each
+``recurrent``, ``configs``) against the JAX package's on the same seeds:
+the layers, the recurrent blocks and the loop seam bit for bit (the seam:
+a JAX ``lax.scan`` body traced once draws the same counters under each
 iteration's key; the port's loop must draw the same words), the model's
 serving path against JAX's ``PlainEngine``, the port's secure run
 against its own plain one and its words against the JAX package's pinned
 digests.  The model-level bit-for-bit comparison that runs JAX, too slow
 here (JAX compiles every scan body), is ``tools/torch_lm_vs_jax.py``, which
-prints those digests.  Three items: the suite's test count is held near
+prints those digests.  Five items: the suite's wall time is held near
 its limit."""
 import dataclasses
 import importlib.util
@@ -48,7 +48,7 @@ from repro_torch.nn.engine import PlainEngine as TPlain  # noqa: E402
 from repro_torch.nn.engine import TridentEngine as TEngine  # noqa: E402
 
 SEED = 5
-# the four attention families the port serves, SMOKE widths
+# the attention and the recurrent families the port serves, SMOKE widths
 SERVED = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny", "phi_3_vision_4_2b")
 RECURRENT = ("zamba2_7b", "xlstm_350m")
 # the port's secure serve against its own float64 run.  The embedding
@@ -59,19 +59,28 @@ RECURRENT = ("zamba2_7b", "xlstm_350m")
 # tools/torch_lm_rehearsal.py on the CPU at scale 0.5, four SMOKE families
 # at one layer, 3 seeds, faithful and collapsed: the largest error 0.0081
 # of the largest float64 logit, relative L2 error up to 0.0071 (0.0088
-# and 0.0076 at d_model 256).  Held: both within 0.02; an all-zero output
-# (relative L2 1) and the float64 logits shuffled fail them.
+# and 0.0076 at d_model 256); the recurrent families' SMOKE (zamba2 uncut,
+# also with long_ctx, and xlstm, 16 ids and 2 decode steps): 0.0104 and
+# 0.0081 (0.0080 and 0.0075 at d_model 256).  Held: both within 0.02; an
+# all-zero output (relative L2 1) and the float64 logits shuffled fail
+# them.
 EMBED_SCALE = 25.0
 ERR_PER_LOGIT = 0.02
 MAX_REL_L2 = 0.02
-# The JAX package's serve on its TridentEngine, collapsed, each SMOKE
-# config cut to one layer: serve_prefill of (2, 8) ids and one
-# serve_decode step from init_params(cfg, 0) at context seed 5.  The
-# sha256 of its logits and cache words, totals() and abort flag, as
+# The JAX package's serve on its TridentEngine, collapsed, from
+# init_params(cfg, 0) at context seed 5: the attention families' SMOKE
+# cut to one layer, serve_prefill of (2, 8) ids and one serve_decode step;
+# the recurrent families' SMOKE uncut (zamba2's shared block applied
+# twice), (2, 16) ids (two chunks) and two decode steps, zamba2 also with
+# long_ctx and long_window 12 ("zamba2_7b+long_ctx"); mixtral at one layer
+# with long_ctx and long_window 12 (its window of 4 widened), (2, 16) ids
+# and two decode steps ("mixtral_8x7b+long_ctx").  The sha256 of its
+# logits and cache words, totals() and abort flag, as
 # tools/torch_lm_vs_jax.py prints it (JAX 0.9.0 on the CPU; the tool
 # itself holds the port's words to JAX's, leaf by leaf).  The port's run
 # must give the same digest: the words of params_to_engine's draws, the
-# segments' loop keys, the KV cache plumbing and the frontend inputs.
+# segments' and chunks' loop keys, the KV cache and state plumbing and the
+# frontend inputs.
 JAX_SERVE_DIGESTS = {
     "qwen3_1_7b":
         "15dc957fe4eb45465aac032e50874f31eba78bf97c1746561ab0be87db309085",
@@ -81,6 +90,14 @@ JAX_SERVE_DIGESTS = {
         "8c7a7f10e9516f9de1da926773c77e6b12edbbb4f948292d458d801e5705f56b",
     "phi_3_vision_4_2b":
         "62725e7d5c2369a160d2f5ee7eeeeee981de34a0044d2079f6d4c10ccc9fffc1",
+    "zamba2_7b":
+        "41dac942610d02ee2f70c08384fc451401777f55df5373e31d2fc8734e0c5a5d",
+    "xlstm_350m":
+        "79a4dd7834d1506f91fe9abf338db51fefc228751898e1fa929d086600e12786",
+    "zamba2_7b+long_ctx":
+        "2f53a4060cc7b3fc447e46a5aa994f09774d617b97990c512adfc486c1431d64",
+    "mixtral_8x7b+long_ctx":
+        "1dc3828d140dc348c664748f7014a630caea93957e39a349dfb0d0cc79adec91",
 }
 _VS_JAX = pathlib.Path(__file__).resolve().parents[1] / "tools" / \
     "torch_lm_vs_jax.py"
@@ -249,6 +266,45 @@ def test_lm_decode_and_blocks_match_jax():
     _same_ctx(jc, tc, "moe_fwd dense")
 
 
+def test_lm_recurrent_blocks_match_jax():
+    """The recurrent blocks bit for bit against the JAX package's, run
+    live at RING64, faithful then collapsed: retention_fwd over x of
+    (2, 16, 32) (4 heads, d_k = d_v = 8, seq_chunk 8: two chunks through
+    scan_loop "ret_fwd", the state crossing a chunk boundary),
+    retention_step from its state, slstm_fwd (two chunks of "slstm_fwd":
+    the public decay contractions through the ring matmul) and slstm_step
+    from its state.  Output words, the carried state, totals(), the PRF
+    counter and the abort flag after each block."""
+    rng = np.random.RandomState(7)
+    rc = dict(d_model=32, n_heads=4, d_k=8, d_v=8, seq_chunk=8)
+    sc = dict(d_model=32, n_heads=4, seq_chunk=8)
+    rp = JR.retention_init(rng, JR.RetentionConfig(**rc))
+    sp = JR.slstm_init(rng, JR.SLSTMConfig(**sc))
+    x, x1 = rng.randn(2, 16, 32) * 0.5, rng.randn(2, 1, 32) * 0.5
+    for collapse in (False, True):
+        mode = "collapsed" if collapse else "faithful"
+        jc, tc, je, te = _pair(collapse)
+        jx, tx, jx1, tx1 = (e.from_plain(v) for v in (x, x1) for e in (je, te))
+        for name, M, c in (("retention", "Retention", rc),
+                           ("slstm", "SLSTM", sc)):
+            jcfg = getattr(JR, f"{M}Config")(**c)
+            tcfg = getattr(TR, f"{M}Config")(**c)
+            p = rp if name == "retention" else sp
+            jp, tp = _conv(je, p), _conv(te, p)
+            fwd, step = f"{name}_fwd", f"{name}_step"
+            jy, _, jst = getattr(JR, fwd)(je, jp, jcfg, jx)
+            ty, _, tst = getattr(TR, fwd)(te, tp, tcfg, tx)
+            _same(jy, ty, f"{fwd} {mode}")
+            _same(jst, tst, f"{fwd} {mode} state")
+            _same_ctx(jc, tc, f"{fwd} {mode}")
+            jy, jst = getattr(JR, step)(je, jp, jcfg, jx1, jst)
+            ty, tst = getattr(TR, step)(te, tp, tcfg, tx1, tst)
+            _same(jy, ty, f"{step} {mode}")
+            _same(jst, tst, f"{step} {mode} state")
+            _same_ctx(jc, tc, f"{step} {mode}")
+        assert tc._counter > 0 and tc.tally.totals()["online"]["rounds"]
+
+
 def _check_mlp():
     """mlp_fwd swiglu and relu2, faithful, bit for bit against JAX."""
     jc, tc, je, te = _pair()
@@ -375,9 +431,8 @@ def test_lm_moe_mlp_and_serve_match(monkeypatch):
     for qwen3 the full forward's logits; the port's
     TridentEngine (collapsed, one layer) within the rehearsal's bounds of
     its own plain run (the embedding at scale 0.5), no abort, where
-    all-zero or shuffled logits fall outside the bounds; the recurrent
-    kinds raise
-    NotImplementedError."""
+    all-zero or shuffled logits fall outside the bounds.  The recurrent
+    families and long_ctx: test_lm_recurrent_and_long_ctx_serve_match."""
     _check_moe(monkeypatch)
     _check_mlp()
     assert TCFG.ARCHS == JCFG.ARCHS and TCFG.ALIASES == JCFG.ALIASES
@@ -440,12 +495,98 @@ def test_lm_moe_mlp_and_serve_match(monkeypatch):
             assert not _close(a, np.zeros_like(a)), (arch, what)
             assert not _close(a, shuffled.reshape(a.shape)), (arch, what)
 
-    for arch in RECURRENT:
-        cfg = TCFG.get(arch).SMOKE
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            TM.init_params(cfg, 0)
-        with pytest.raises(NotImplementedError, match="recurrent"):
-            TM.serve_prefill(TPlain(device="cpu"), cfg, {}, np.zeros((1, 2)))
+
+def test_lm_recurrent_and_long_ctx_serve_match():
+    """The recurrent families' serve and the long_ctx windows against
+    JAX: zamba2 (hybrid: two retention groups, the shared block applied
+    twice) and xlstm (ssm) SMOKE uncut, zamba2 with long_ctx (the shared
+    block's window) and mixtral with long_ctx at one layer (an attention
+    kind's window widened from 4), each through ``_check_long_serve``."""
+    vs = _vs_jax()
+    for case in RECURRENT + ("zamba2_7b" + vs.LONG, "mixtral_8x7b" + vs.LONG):
+        _check_long_serve(vs, case)
+
+
+def _serve_long(M, eng, cfg, params, long_ctx, steps=2, jit=None):
+    """serve_prefill of (2, 16) ids (two chunks) and `steps` serve_decode
+    steps, each jitted by `jit` when given: ([the steps' logits], the last
+    caches)."""
+    ids = np.random.RandomState(1).randint(0, cfg.vocab, size=(2, 16))
+
+    def prefill(pe, ids):
+        return M.serve_prefill(eng, cfg, pe, ids, long_ctx=long_ctx)
+
+    def decode(pe, ids, caches, pos):
+        return M.serve_decode(eng, cfg, pe, ids, caches, pos,
+                              long_ctx=long_ctx)
+
+    if jit is not None:
+        prefill, decode = jit(prefill), jit(decode, static_argnums=3)
+    pe = M.params_to_engine(eng, params)
+    out = [prefill(pe, ids)]
+    for t in range(steps):
+        out.append(decode(pe, ids[:, -1:], out[-1][1], 16 + t))
+    return [lg for lg, _ in out], out[-1][1]
+
+
+def _check_long_serve(vs, case):
+    """A case of the recurrent and long_ctx serve (SMOKE; the recurrent
+    families uncut, the attention families at one layer; `case` +
+    "+long_ctx": long_window 12, below the prefill): init_params equal to
+    JAX's (the shared block's set drawn last); the port's PlainEngine
+    serve within 1e-9 of JAX's, JAX's run jitted (logits of the prefill
+    and of two decode steps, one with long_ctx, and every state and KV
+    cache leaf) and, for a recurrent family without long_ctx, its full
+    forward's logits; the port's secure serve (collapsed) hashed against
+    JAX_SERVE_DIGESTS (two decode steps) and, with the embedding at scale
+    0.5, within the rehearsal's bounds of its own plain run (zeros and
+    shuffled logits must fail)."""
+    assert vs.digest(vs.run_port(case, 1, True)) == JAX_SERVE_DIGESTS[case], \
+        f"{case}: the serve's words differ from the JAX package's"
+    jcfg, long_ctx = vs.case_config(JCFG.get, case, 1)
+    tcfg, _ = vs.case_config(TCFG.get, case, 1)
+    recurrent = tcfg.family in ("hybrid", "ssm")
+    params, jparams = TM.init_params(tcfg, 0), JM.init_params(jcfg, 0)
+    assert [p for p, _ in _tree_leaves(params)][-1].startswith(
+        "/shared_attn") == (jcfg.family == "hybrid"), case
+    assert all(np.array_equal(a, b) for a, b in zip(
+        jax.tree_util.tree_leaves(jparams),
+        [leaf for _, leaf in _tree_leaves(params) if leaf is not None],
+        strict=True)), case
+    jpe, tpe = JPlain(dtype=jnp.float64), TPlain(device="cpu")
+    steps = 1 if long_ctx else 2
+    j = _serve_long(JM, jpe, jcfg, jparams, long_ctx, steps, jit=jax.jit)
+    t = _serve_long(TM, tpe, tcfg, params, long_ctx, steps)
+    for i, (a, b) in enumerate(zip(j[0], t[0], strict=True)):
+        assert np.abs(_f64(a) - _f64(b)).max() <= 1e-9, (case, "step", i)
+    jl, tl = list(_tree_leaves(j[1])), list(_tree_leaves(t[1]))
+    assert [p for p, _ in jl] == [p for p, _ in tl], case
+    for (pa, a), (_, b) in zip(jl, tl):
+        assert _f64(a).shape == _f64(b).shape, (case, pa)
+        assert np.abs(_f64(a) - _f64(b)).max() <= 1e-9, (case, pa)
+    if long_ctx:
+        kv = t[1][-1]["k"]
+        assert kv.shape[-2] == tcfg.long_window < 16, (case, kv.shape)
+    elif recurrent:
+        # the training-side forward: every position's logits
+        ids = np.random.RandomState(3).randint(0, tcfg.vocab, (2, 16))
+        jf = jax.jit(lambda pe, ids: JM.forward(jpe, jcfg, pe, ids)[0])(
+            JM.params_to_engine(jpe, jparams), ids)
+        tf, _ = TM.forward(tpe, tcfg, TM.params_to_engine(tpe, params), ids)
+        assert np.abs(_f64(jf) - _f64(tf)).max() <= 1e-9, (case, "fwd")
+
+    params["embed"]["table"] *= EMBED_SCALE
+    plain, _ = _serve_long(TM, tpe, tcfg, params, long_ctx)
+    ctx = tmake(T64, seed=SEED, collapse=True, device="cpu")
+    eng = TEngine(ctx)
+    sec, _ = _serve_long(TM, eng, tcfg, params, long_ctx)
+    assert not ctx.abort_flag(), case
+    for i, (a, b) in enumerate(zip(plain, sec)):
+        a, b = _f64(a), _f64(eng.to_plain(b))
+        assert _close(a, b), (case, i, _close(a, b, rows=True))
+        shuffled = np.random.RandomState(0).permutation(a.reshape(-1))
+        assert not _close(a, np.zeros_like(a)), (case, i)
+        assert not _close(a, shuffled.reshape(a.shape)), (case, i)
 
 
 def _tree_leaves(tree, path=""):

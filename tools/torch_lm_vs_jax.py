@@ -4,17 +4,30 @@
     PYTHONPATH=src python3 tools/torch_lm_vs_jax.py [--archs qwen3_1_7b,...]
         [--layers 1] [--modes collapsed,faithful]
 
-For each arch's SMOKE config (by default the four attention families the
-port serves), cut to ``--layers`` layers, and each mode of
-the joint simulation (faithful, or collapsed), runs ``serve_prefill`` of
-(2, 8) token ids and one ``serve_decode`` step through the JAX package's
-``TridentEngine`` and through the port's on the CPU, from the same weights
-(``init_params(cfg, 0)``), ids and context seed, and asserts equal logits
-words, equal cache words (every leaf), equal ``totals()`` and equal abort
-flags.  Prints one line an (arch, mode) with its walls and the digest of
-the JAX run's words (``digest``), then one JSON line.  The digests of the
-collapsed runs at one layer are pinned in ``tests/test_torch_lm.py``,
-which holds the port's serve to them.
+For each case's SMOKE config and each mode of the joint simulation
+(faithful, or collapsed), runs ``serve_prefill`` and ``serve_decode``
+through the JAX package's ``TridentEngine`` and through the port's on the
+CPU, from the same weights (``init_params(cfg, 0)``), ids and context
+seed, and asserts equal logits words, equal cache words (every leaf),
+equal ``totals()`` and equal abort flags.  The cases (all by default):
+
+  the attention families (qwen3, mixtral, whisper, phi-3-vision), cut to
+      ``--layers`` layers: (2, 8) ids and one decode step;
+  the recurrent families, uncut (zamba2: two retention groups of 2, the
+      shared block applied twice; xlstm: one mLSTM + sLSTM pair): (2, 16)
+      ids, two chunks of seq_chunk 8, and two decode steps;
+  ``zamba2_7b+long_ctx``: zamba2 served with ``long_ctx=True`` and
+      long_window 12, below the prefill, so the shared block's cache
+      keeps its last 12 positions;
+  ``mixtral_8x7b+long_ctx``: mixtral at ``--layers`` layers, served with
+      ``long_ctx=True``: long_window 12 widens its SMOKE window of 4 and
+      lies below the prefill.  A long_ctx case serves as the recurrent
+      families do: (2, 16) ids and two decode steps.
+
+Prints one line a (case, mode) with its walls and the digest of the JAX
+run's words (``digest``), then one JSON line.  The digests of the
+collapsed runs (at one layer for the attention families) are pinned in
+``tests/test_torch_lm.py``, which holds the port's serve to them.
 
 The JAX reference compiles every ``lax.scan`` body, so a run takes minutes
 (about 85 s for qwen3 collapsed at one layer on one CPU): too slow for the
@@ -33,6 +46,17 @@ import numpy as np
 
 SEED = 5
 IDS_SHAPE = (2, 8)
+# the recurrent families and the long_ctx cases: two chunks of SMOKE's
+# seq_chunk 8, so the state crosses a chunk boundary (and the prefill
+# LONG_WINDOW), then two decode steps
+RECURRENT = ("zamba2_7b", "xlstm_350m")
+RECURRENT_IDS_SHAPE = (2, 16)
+RECURRENT_DECODE_STEPS = 2
+LONG = "+long_ctx"
+LONG_WINDOW = 12
+CASES = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny", "phi_3_vision_4_2b",
+         "zamba2_7b", "xlstm_350m", "zamba2_7b" + LONG,
+         "mixtral_8x7b" + LONG)
 
 
 def _words(x):
@@ -54,54 +78,78 @@ def _leaves(tree, path=""):
         yield path, tree
 
 
-def run_jax(cfg_name: str, layers: int, collapse: bool):
+def run_jax(case: str, layers: int, collapse: bool):
     from repro.configs import get
     from repro.core.context import make_context
     from repro.core.ring import RING64
     from repro.nn import model as JM
     from repro.nn.engine import TridentEngine
-    cfg = _cut(get(cfg_name).SMOKE, layers)
     ctx = make_context(RING64, seed=SEED, collapse=collapse)
-    eng = TridentEngine(ctx)
-    ids, kw = _inputs(cfg, eng)
-    params = JM.params_to_engine(eng, JM.init_params(cfg, 0))
-    logits, caches = JM.serve_prefill(eng, cfg, params, ids, **kw)
-    logits2, caches2 = JM.serve_decode(eng, cfg, params, ids[:, -1:], caches,
-                                       pos=_pos(cfg))
-    return (logits, caches, logits2, caches2, ctx.tally.totals(),
-            bool(ctx.abort_flag()))
+    run = _serve(JM, get, TridentEngine(ctx), case, layers)
+    return run + (ctx.tally.totals(), bool(ctx.abort_flag()))
 
 
-def run_port(cfg_name: str, layers: int, collapse: bool):
+def run_port(case: str, layers: int, collapse: bool):
     from repro_torch.configs import get
     from repro_torch.core.context import make_context
     from repro_torch.core.ring import RING64
     from repro_torch.nn import model as TM
     from repro_torch.nn.engine import TridentEngine
-    cfg = _cut(get(cfg_name).SMOKE, layers)
     ctx = make_context(RING64, seed=SEED, collapse=collapse, device="cpu")
-    eng = TridentEngine(ctx)
-    ids, kw = _inputs(cfg, eng)
-    params = TM.params_to_engine(eng, TM.init_params(cfg, 0))
-    logits, caches = TM.serve_prefill(eng, cfg, params, ids, **kw)
-    logits2, caches2 = TM.serve_decode(eng, cfg, params, ids[:, -1:], caches,
-                                       pos=_pos(cfg))
-    return (logits, caches, logits2, caches2, ctx.tally.totals(),
-            ctx.abort_flag())
+    run = _serve(TM, get, TridentEngine(ctx), case, layers)
+    return run + (ctx.tally.totals(), ctx.abort_flag())
 
 
-def _cut(cfg, layers: int):
-    return dataclasses.replace(
-        cfg, n_layers=layers,
-        n_encoder_layers=min(cfg.n_encoder_layers, layers))
+def _serve(M, get, eng, case: str, layers: int) -> tuple:
+    """One case through model module `M` on `eng`: (prefill logits, its
+    caches, the last decode step's logits, its caches)."""
+    cfg, long_ctx = case_config(get, case, layers)
+    ids, kw = _inputs(cfg, eng, long_ctx)
+    params = M.params_to_engine(eng, M.init_params(cfg, 0))
+    logits, caches = M.serve_prefill(eng, cfg, params, ids, long_ctx=long_ctx,
+                                     **kw)
+    out = (logits, caches)
+    for t in range(_steps(cfg, long_ctx)):
+        out = M.serve_decode(eng, cfg, params, ids[:, -1:], out[1],
+                             pos=_pos(cfg, long_ctx) + t, long_ctx=long_ctx)
+    return (logits, caches) + tuple(out)
 
 
-def _pos(cfg) -> int:
-    return IDS_SHAPE[1] + (cfg.frontend_tokens if cfg.family == "vlm" else 0)
+def case_config(get, case: str, layers: int) -> tuple:
+    """(the case's SMOKE config, long_ctx) from a configs module's `get`."""
+    arch = case[:-len(LONG)] if case.endswith(LONG) else case
+    cfg = get(arch).SMOKE
+    if arch not in RECURRENT:
+        cfg = dataclasses.replace(
+            cfg, n_layers=layers,
+            n_encoder_layers=min(cfg.n_encoder_layers, layers))
+    if case.endswith(LONG):
+        return dataclasses.replace(cfg, long_window=LONG_WINDOW), True
+    return cfg, False
 
 
-def _inputs(cfg, eng):
-    ids = np.random.RandomState(1).randint(0, cfg.vocab, size=IDS_SHAPE)
+def _long_run(cfg, long_ctx) -> bool:
+    """A recurrent family or a long_ctx case: RECURRENT_IDS_SHAPE ids and
+    RECURRENT_DECODE_STEPS decode steps."""
+    return long_ctx or cfg.family in ("hybrid", "ssm")
+
+
+def _ids_shape(cfg, long_ctx) -> tuple:
+    return RECURRENT_IDS_SHAPE if _long_run(cfg, long_ctx) else IDS_SHAPE
+
+
+def _steps(cfg, long_ctx) -> int:
+    return RECURRENT_DECODE_STEPS if _long_run(cfg, long_ctx) else 1
+
+
+def _pos(cfg, long_ctx) -> int:
+    return _ids_shape(cfg, long_ctx)[1] + (
+        cfg.frontend_tokens if cfg.family == "vlm" else 0)
+
+
+def _inputs(cfg, eng, long_ctx):
+    ids = np.random.RandomState(1).randint(0, cfg.vocab,
+                                           size=_ids_shape(cfg, long_ctx))
     rs = np.random.RandomState(2)
     kw = {}
     if cfg.family == "vlm":
@@ -153,8 +201,8 @@ def compare(j, t) -> list:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--archs", default="qwen3_1_7b,mixtral_8x7b,"
-                    "whisper_tiny,phi_3_vision_4_2b")
+    ap.add_argument("--archs", default=",".join(CASES),
+                    help="cases: arch ids, an arch + '+long_ctx'")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--modes", default="collapsed,faithful")
     args = ap.parse_args()
