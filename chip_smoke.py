@@ -266,6 +266,30 @@ from the root of a checkout.  In order, it
      config with its cuts, the sharing time, the prefill and decode
      walls, launches per kernel per prefill and per decode step, the
      profiled busy share of a prefill and the peak device memory.
+ 16. LM training of the attention families (phase "lm-train"): with the
+     kernel rows of step 3, the ring matmul held against ``torch.matmul``
+     on the CPU at the LM's largest 2-D products (phase lm's MLP and the
+     train step's weight gradient, MLP dY W^T and lm_head dx), each timed
+     beside its bound; (b) the SMOKE configs of qwen3-1.7b, mixtral-8x7b
+     (public and dense routing), whisper-tiny and phi-3-vision at 2
+     layers, qwen3's also with microbatch 2, and qwen3 at d_model 256
+     with 128 ids: one ``train_step`` each on the card and on the CPU,
+     faithful and collapsed: equal new params words, loss, ``totals()``,
+     no abort, the card's launches the CPU run's wrapper calls; (c) the
+     main path: phi-3-vision-4.2b's CONFIG (d_model 3,072, 32 heads of
+     96, d_ff 8,192, vocab 32,064, remat) cut to 2 of 32 layers, 128 ids
+     and labels behind its 576 frontend embeddings, batch 1, faithful,
+     the embedding at scale 0.5: two driven steps (``loss_and_grads``
+     then ``sgd_update``, each part's wall kept) and a profiled
+     ``train_step``, no abort, ``ring_matmul`` (2-D and K2) and
+     ``and_level`` at every shape the steps gave them exact against the
+     CPU and the plain version, and the first step's loss and gradients
+     against float64 with fixed point's mean error on the card
+     (``tools/torch_lm_rehearsal.py``'s model; all-zero and shuffled
+     gradients fail its bounds) and against plain float64 (printed:
+     ROADMAP N6).  It prints the sharing time, the steps' walls, the busy
+     share and top device operations, launches per step and the peak
+     device memory.
 
 Each path (the deal and the online-only run of steps 5 and 10 and the
 offline and online runs of step 8 being two each; step 11's, 12's and
@@ -281,8 +305,8 @@ last lines come
 ``{"joint_split": {...}}`` (step 8's), ``{"aby3": {...}}`` (step 9's),
 ``{"runtime_train": {...}}`` (step 10's), ``{"cluster": {...}}`` (step
 11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's),
-``{"lm": {...}}`` (step 14's), ``{"lm_recurrent": {...}}`` (step 15's)
-and ``{"kernels": [...]}``, then
+``{"lm": {...}}`` (step 14's), ``{"lm_recurrent": {...}}`` (step 15's),
+``{"lm_train": {...}}`` (step 16's) and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -1092,6 +1116,9 @@ def kernel_phase(rng, ptxas: dict, prf_instructions: int | None) -> list:
     rows.update(batched_rows(rng, dev))
     rows[ops.RING_MATMUL_BATCHED.name]["recurrent_shapes"] = \
         recurrent_k2_rows(np.random.RandomState(LM_SEED))
+    # the 2-D entry at the LM's shapes (phases lm and lm-train)
+    rows[ops.RING_MATMUL.name]["lm_shapes"] = lm_matmul_rows(
+        np.random.RandomState(LM_SEED))
 
     # mult_terms / and_terms: the grouped gamma-piece kernel, held against
     # its plain version on ragged, unaligned, broadcast, expanded and
@@ -4333,7 +4360,8 @@ def cpu_matmul(a, b, threads: int = 8):
     return torch.cat(parts, dim=-1)
 
 
-def lmr_exact_words(arch: str, seen: dict, card: str) -> dict:
+def lmr_exact_words(arch: str, seen: dict, card: str,
+                    phase: str = "lm-recurrent") -> dict:
     """The kernels at every shape a main path's driven runs gave them
     (``record_shapes``), exact: ``ops.ring_matmul`` at each distinct (A,
     B) shape, 2-D and batched, equal to torch.matmul of the same random
@@ -4355,7 +4383,7 @@ def lmr_exact_words(arch: str, seen: dict, card: str) -> dict:
         a, b = words(sa), words(sb)
         got = ops.ring_matmul(a.to(dev), b.to(dev)).cpu()
         check(torch.equal(got, cpu_matmul(a, b)),
-              f"lm-recurrent {arch}: ring_matmul disagrees with "
+              f"{phase} {arch}: ring_matmul disagrees with "
               f"torch.matmul at the main path's {sa} @ {sb}")
         out["ring_matmul"].append([list(sa), list(sb)])
     out["ring_matmul_s"] = time.perf_counter() - t0
@@ -4363,13 +4391,13 @@ def lmr_exact_words(arch: str, seen: dict, card: str) -> dict:
     for shapes in sorted(seen["and_level"], key=str):
         args = [None if sh is None else words(sh).to(dev) for sh in shapes]
         check(torch.equal(ops.and_level(*args), PPA.and_level_plain(*args)),
-              f"lm-recurrent {arch}: and_level disagrees with its plain "
+              f"{phase} {arch}: and_level disagrees with its plain "
               f"version at the main path's {shapes}")
         out["and_level"].append(list(shapes))
         del args
     torch.cuda.synchronize()
     out["and_level_s"] = time.perf_counter() - t0
-    print(f"lm-recurrent [{card}]: {arch}: ring_matmul equals torch.matmul "
+    print(f"{phase} [{card}]: {arch}: ring_matmul equals torch.matmul "
           f"on the CPU at all {len(out['ring_matmul'])} shapes of the main "
           f"path ({out['ring_matmul_s']:.1f} s): {out['ring_matmul']}; "
           f"and_level equals its plain version at all "
@@ -4558,6 +4586,337 @@ def lm_recurrent_phase(kernels: list, card: str) -> dict:
                 LMR_SMOKE_STEPS, collapse, card, long_ctx)
     for arch in LMR_LAYERS:
         report[arch] = lmr_main_path(arch, kernels, card)
+    return report
+
+
+# --- phase lm-train: LM training of the attention families ------------
+LMT_LR = 2.0 ** -6
+LMT_SMOKE_IDS = (2, 8)
+# the main path: phi-3-vision-4.2b's CONFIG (full width, remat) cut to
+# LMT_LAYERS of its 32 layers; LMT_STEPS steps of LMT_IDS ids and labels
+# behind its 576 frontend embeddings, batch 1, faithful, the embedding at
+# phase lm's scale 0.5
+LMT_LAYERS = 2
+LMT_IDS = 128
+LMT_STEPS = 2
+# the secure gradients against float64 with fixed point's mean behaviour
+# (tools/torch_lm_rehearsal.py fixed_point_plain: each truncation -1 unit
+# of 2^-13; against plain float64 the gradients are off by a multiple of
+# themselves at these vocabularies, ROADMAP N6, reported, not held).
+# The rehearsal (--train, the embedding at scale 0.5, 3 seeds, faithful
+# and collapsed): on the CPU the four SMOKE families within relative L2
+# 0.163 (error per largest entry 0.210) and qwen3 at d_model 256 within
+# 0.080 (0.052); this main path on an H100 80GB HBM3 at 700 W (--cases
+# full --device cuda) within 0.103 (0.136), the loss within 7.4e-5, and
+# in this phase, at its own seed, 0.0994 (0.217).  Held (relative L2,
+# error per largest entry) within LMT_GRAD_BOUNDS, the loss within
+# LMT_LOSS_ATOL; all-zero gradients (relative L2 1) and shuffled ones
+# (about 1.41) fail.
+LMT_GRAD_BOUNDS = (0.25, 0.35)
+LMT_LOSS_ATOL = 1e-3
+# the ring matmul's 2-D products at the LM's shapes (M, K, N): phase lm's
+# largest (qwen3's MLP up projection of 1,024 ids) and the train step's
+# three largest (phi-3-vision at 704 positions): a weight gradient x^T @
+# dY with K the positions, the MLP's dY @ W^T with K = d_ff, and the
+# lm_head's dx with K = the vocabulary
+LM_MATMUL_SHAPES = (("lm_prefill_mlp_up", 1024, 2048, 6144),
+                    ("train_weight_grad", 3072, 704, 8192),
+                    ("train_mlp_dx", 704, 8192, 3072),
+                    ("train_lm_head_dx", 704, 32064, 3072))
+
+
+def lm_matmul_rows(rng) -> list:
+    """The ring matmul at LM_MATMUL_SHAPES against torch.matmul of the
+    same words on the CPU (threaded), each timed (device ms by the
+    profiler, the wrapper call by CUDA events, the CPU's product on the
+    host clock) beside its bound.  No launch here counts toward a path."""
+    import torch
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ring_matmul as RM
+    dev = torch.device(LM_DEVICE)
+    rows = []
+    for name, M, K, N in LM_MATMUL_SHAPES:
+        a = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=(M, K),
+                                         dtype=np.int64))
+        b = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=(K, N),
+                                         dtype=np.int64))
+        a_d, b_d = a.to(dev), b.to(dev)
+        got = ops.ring_matmul(a_d, b_d).cpu()
+        t0 = time.perf_counter()
+        want = cpu_matmul(a, b)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got, want), f"lm: ring_matmul disagrees with "
+              f"torch.matmul at {name} ({M}, {K}) @ ({K}, {N})")
+        rows.append({
+            "shape": name, "M": M, "K": K, "N": N, "max_abs_err": 0,
+            "ms": device_ms(lambda: RM.ring_matmul_cuda(a_d, b_d),
+                            "ring_matmul_kernel", reps=5),
+            "call_ms": cuda_ms(lambda: ops.ring_matmul(a_d, b_d), reps=5,
+                               warmup=1),
+            "plain_ms": plain_ms, "plain": "CPU torch.matmul, 8 threads",
+            **ring_matmul_bound(M, K, N)})
+        r = rows[-1]
+        print(f"lm: ring_matmul {name} ({M}, {K}) @ ({K}, {N}) equal to "
+              f"torch.matmul: {r['ms']:.4f} ms on the device, call "
+              f"{r['call_ms']:.4f} ms (CPU {plain_ms:.1f} ms); bound "
+              f"{r['bound_ms']:.4f} ms by {r['bound_by']} (bytes "
+              f"{r['bound_ms_bytes']:.4f}, int8 operations "
+              f"{r['bound_ms_int8_ops']:.4f})")
+        del a_d, b_d, got, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lmt_labels(cfg, shape: tuple) -> tuple:
+    """(ids, labels) of a train run, from the seed."""
+    rs = np.random.RandomState(LM_SEED + 2)
+    return (rs.randint(0, cfg.vocab, size=shape),
+            rs.randint(0, cfg.vocab, size=shape))
+
+
+def lmt_secure(device: str, cfg, params, ids, labels, collapse: bool):
+    """One train_step on a fresh context; (ctx, new params, loss)."""
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn import model as LM
+    from repro_torch.nn.engine import TridentEngine
+    ctx = make_context(RING64, seed=LM_SEED, collapse=collapse,
+                       device=device)
+    eng = TridentEngine(ctx)
+    extra = lm_frontend(cfg, ids.shape[0])
+    new, loss, _ = LM.train_step(eng, cfg, LM.params_to_engine(eng, params),
+                                 ids, labels, lr=LMT_LR,
+                                 **(extra(eng) if extra else {}))
+    return ctx, new, loss
+
+
+def lmt_card_vs_cpu(path: str, kernels: list, needed: tuple, cfg, params,
+                    ids, labels, collapse: bool, card: str) -> dict:
+    """One train step on the card (a driven path) and on the CPU: equal
+    new params words, loss, totals(), no abort, the card's launches the
+    CPU run's wrapper calls."""
+    import torch
+    from repro_torch.kernels import ops
+    (ctx, new, loss), wall = drive(
+        path, kernels, needed,
+        lambda: lmt_secure(LM_DEVICE, cfg, params, ids, labels, collapse), 1,
+        unit="step")
+    card_launches = {k["name"]: k["launches_by_path"][path] for k in kernels}
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rctx, rnew, rloss = lmt_secure("cpu", cfg, params, ids, labels, collapse)
+    cpu_s = time.perf_counter() - t0
+    calls = {k.name: k.calls for k in ops.KERNELS}
+    check(not ctx.abort_flag() and not rctx.abort_flag(), f"{path}: aborted")
+    la, lb = list(lm_leaves(new)), list(lm_leaves(rnew))
+    check([p for p, _ in la] == [p for p, _ in lb] and all(
+        torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(la, lb)),
+        f"{path}: new params words differ between the card and the CPU")
+    check(float(loss) == float(rloss),
+          f"{path}: loss {float(loss)} on the card, {float(rloss)} on the "
+          f"CPU")
+    check(ctx.tally.totals() == rctx.tally.totals(),
+          f"{path}: totals() differ between the card and the CPU")
+    check(card_launches == calls,
+          f"{path}: launches on the card {card_launches}, wrapper calls on "
+          f"the CPU {calls}")
+    print(f"{path} [{card}]: new params, loss {float(loss):.6f} and "
+          f"totals() equal to the CPU run, no abort; launches = the CPU "
+          f"run's wrapper calls; card {wall:.2f} s, CPU {cpu_s:.2f} s")
+    return {"wall_s": wall, "cpu_s": cpu_s, "loss": float(loss),
+            "totals": ctx.tally.totals(),
+            "launches": {n: c for n, c in card_launches.items() if c}}
+
+
+def lmt_grads_vs_float64(cfg, params, ids, labels, secure_loss: float,
+                         secure: dict, card: str) -> dict:
+    """The main path's first step's loss and gradients (opened, float64
+    on the card) against the fixed-point model from the same weights
+    (held, LMT_GRAD_BOUNDS and LMT_LOSS_ATOL; all-zero and shuffled
+    gradients must fail) and against plain float64 (ROADMAP N6,
+    reported)."""
+    import torch
+    import torch_lm_rehearsal as RH
+    from repro_torch.nn.engine import PlainEngine
+    extra = lm_frontend(cfg, ids.shape[0])
+    out = {}
+    for name, eng in (("fixed_point", RH.fixed_point_plain(LM_DEVICE)),
+                      ("float64", PlainEngine(device=LM_DEVICE))):
+        t0 = time.perf_counter()
+        loss, want, _ = RH.loss_and_grads(eng, cfg, params, ids, labels,
+                                          extra)
+        gap = RH.grad_gap(want, secure)
+        out[name] = dict(gap, loss=loss, loss_err=abs(loss - secure_loss),
+                         s=time.perf_counter() - t0)
+        if name == "fixed_point":
+            def within(g):
+                return g["rel_l2"] <= LMT_GRAD_BOUNDS[0] and \
+                    g["err_per_max"] <= LMT_GRAD_BOUNDS[1]
+            check(within(gap), f"lm-train: the gradients lie {gap} from the "
+                  f"fixed-point model; bounds {LMT_GRAD_BOUNDS}")
+            check(out[name]["loss_err"] <= LMT_LOSS_ATOL,
+                  f"lm-train: loss {secure_loss} against the fixed-point "
+                  f"model's {loss}")
+            zeros = RH.grad_gap(want, {k: torch.zeros_like(v)
+                                       for k, v in want.items()})
+            mixed = RH.grad_gap(want, RH.shuffled(want))
+            check(not within(zeros) and not within(mixed),
+                  f"lm-train: all-zero ({zeros}) or shuffled ({mixed}) "
+                  f"gradients pass the bounds")
+            out[name]["zeros_rel_l2"] = zeros["rel_l2"]
+            out[name]["shuffled_rel_l2"] = mixed["rel_l2"]
+        del want
+        torch.cuda.empty_cache()
+    print(f"lm-train [{card}]: loss {secure_loss:.6f}; gradients against "
+          f"the fixed-point model {out['fixed_point']} (held: "
+          f"{LMT_GRAD_BOUNDS}, loss {LMT_LOSS_ATOL}); against plain "
+          f"float64 {out['float64']} (ROADMAP N6, not held)")
+    return out
+
+
+def lmt_main_path(kernels: list, card: str) -> dict:
+    """phi-3-vision-4.2b at full width (LMT_LAYERS of its layers):
+    init_params, params_to_engine on the card, LMT_STEPS driven steps
+    (``loss_and_grads`` then ``sgd_update``, the first's gradients opened,
+    the second's walls kept), one more step through ``train_step``
+    profiled; ring_matmul and and_level at every shape the steps gave
+    them, exact; the first step's loss and gradients against float64."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn import model as LM
+    from repro_torch.nn.engine import TridentEngine
+    import torch_lm_rehearsal as RH
+    cfg = lm_cut(get("phi_3_vision_4_2b").CONFIG, LMT_LAYERS)
+    rep = {"config": {
+        "arch": cfg.name, "layers": LMT_LAYERS,
+        "of_layers": get("phi_3_vision_4_2b").CONFIG.n_layers,
+        "d_model": cfg.d_model, "heads": cfg.n_heads,
+        "kv_heads": cfg.n_kv_heads, "d_head": cfg.dh, "d_ff": cfg.d_ff,
+        "vocab": cfg.vocab, "frontend_tokens": cfg.frontend_tokens,
+        "ids": LMT_IDS, "batch": 1, "remat": cfg.remat, "mode": "faithful",
+        "lr": LMT_LR, "embed_scale": LM_EMBED_SCALE, "steps": LMT_STEPS,
+        "cuts": [f"layers {LMT_LAYERS} of "
+                 f"{get('phi_3_vision_4_2b').CONFIG.n_layers}"]}}
+    print(f"lm-train [{card}]: main path {rep['config']}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = LM.init_params(cfg, LM_SEED)
+    params["embed"]["table"] *= LM_EMBED_SCALE
+    rep["init_params_s"] = time.perf_counter() - t0
+    rep["parameters"] = int(sum(np.asarray(leaf).size
+                                for _, leaf in lm_leaves(params)))
+    ids, labels = lmt_labels(cfg, (1, LMT_IDS))
+    ctx = make_context(RING64, seed=LM_SEED, device=LM_DEVICE)
+    eng = TridentEngine(ctx)
+    extra = lm_frontend(cfg, 1)(eng)
+    t0 = time.perf_counter()
+    pe = LM.params_to_engine(eng, params)
+    torch.cuda.synchronize()
+    rep["share_s"] = time.perf_counter() - t0
+    print(f"lm-train [{card}]: {rep['parameters']} parameters, init_params "
+          f"{rep['init_params_s']:.1f} s on the host, shared on the card in "
+          f"{rep['share_s']:.2f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    needed = ("prf_mask", "ring_matmul", "ring_matmul_batched", "and_level")
+    seen = {"ring_matmul": set(), "and_level": set()}
+    steps, losses, first = [], [], {}
+
+    def step():
+        nonlocal pe
+        walls = {}
+        t0 = time.perf_counter()
+        loss, grads = LM.loss_and_grads(eng, cfg, pe, ids, labels, **extra)
+        torch.cuda.synchronize()
+        walls["loss_and_grads_s"] = time.perf_counter() - t0
+        if not first:
+            first["grads"] = RH.grads_plain(eng, grads)
+        t0 = time.perf_counter()
+        pe = LM.sgd_update(eng, pe, grads, LMT_LR)
+        torch.cuda.synchronize()
+        walls["sgd_update_s"] = time.perf_counter() - t0
+        walls["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        steps.append(walls)
+        losses.append(float(loss))
+
+    for i in range(LMT_STEPS):
+        _, wall = record_shapes(seen, lambda: drive(
+            f"lmt_step{i + 1}", kernels, needed, step, 1, unit="step"))
+        steps[-1]["wall_s"] = wall
+        check(np.isfinite(losses[-1]), f"lm-train: step {i + 1}'s loss "
+              f"{losses[-1]}")
+    check(not ctx.abort_flag(), "lm-train: the full-width step aborted")
+    rep["steps"] = steps
+    rep["losses"] = losses
+    last = f"lmt_step{LMT_STEPS}"
+    rep["launches_per_step"] = {
+        k["name"]: k["launches_by_path"][last] for k in kernels
+        if k["launches_by_path"][last]}
+    rep["totals"] = ctx.tally.totals()
+    by_name = {}
+    busy, dops = profile_batch(
+        "lm-train", lambda: LM.train_step(eng, cfg, pe, ids, labels,
+                                          lr=LMT_LR, **extra),
+        steps[-1]["wall_s"], unit="training step", by_name=by_name)
+    top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+    rep["profile_step"] = {
+        "busy_ms": busy, "device_ops": dops, "wall_s": steps[-1]["wall_s"],
+        "busy_share": busy / (steps[-1]["wall_s"] * 1e3),
+        "top_ms": {k[:80]: v for k, v in top}}
+    check(not ctx.abort_flag(), "lm-train: the profiled step aborted")
+    rep["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() \
+        / 2**30
+    print(f"lm-train [{card}]: phi-3-vision-4.2b at full width "
+          f"({LMT_LAYERS} of {rep['config']['of_layers']} layers), "
+          f"{LMT_IDS} ids + {cfg.frontend_tokens} frontend positions: "
+          f"steps {[{k: round(v, 3) for k, v in s.items()} for s in steps]}"
+          f"; losses {losses}; launches per step "
+          f"{rep['launches_per_step']}; busy share "
+          f"{rep['profile_step']['busy_share']:.3f}; peak device memory "
+          f"{rep['max_memory_allocated_gib']:.1f} GiB; no abort")
+    del pe, eng, extra
+    torch.cuda.empty_cache()
+    rep["exact"] = lmr_exact_words("phi_3_vision_4_2b", seen, card,
+                                   phase="lm-train")
+    rep["grads_vs_float64"] = lmt_grads_vs_float64(
+        cfg, params, ids, labels, losses[0], first.pop("grads"), card)
+    torch.cuda.empty_cache()
+    return rep
+
+
+def lm_train_phase(kernels: list, card: str) -> dict:
+    """(b) the four attention families' SMOKE at 2 layers and qwen3 at
+    phase lm's middle width, one train step each on the card against the
+    CPU, bit for bit, faithful and collapsed (mixtral with both routings,
+    qwen3 SMOKE also with microbatch 2); (c) the main path: a train step
+    of phi-3-vision-4.2b at full width."""
+    from repro_torch.configs import get
+    from repro_torch.nn import model as LM
+    report = {"card": card, "smoke": {}}
+    mid = dataclasses.replace(
+        lm_cut(get("qwen3_1_7b").CONFIG, 2), d_model=256, n_heads=4,
+        n_kv_heads=2, d_head=64, d_ff=768, vocab=4096, q_chunk=64)
+    cases = [(arch, lm_cut(get(arch).SMOKE, 2), LMT_SMOKE_IDS)
+             for arch in LM_SMOKE_ARCHS]
+    cases.append(("mixtral_8x7b_dense", dataclasses.replace(
+        lm_cut(get("mixtral_8x7b").SMOKE, 2), moe_routing="dense"),
+        LMT_SMOKE_IDS))
+    cases.append(("qwen3_1_7b_microbatch", dataclasses.replace(
+        lm_cut(get("qwen3_1_7b").SMOKE, 2), microbatch=2), LMT_SMOKE_IDS))
+    cases.append(("qwen3_1_7b_middle", mid, (1, LMT_IDS)))
+    for name, cfg, shape in cases:
+        params = LM.init_params(cfg, LM_SEED)
+        ids, labels = lmt_labels(cfg, shape)
+        for collapse in (False, True):
+            mode = "collapsed" if collapse else "faithful"
+            path = f"lmt_{name}_{mode}"
+            report["smoke"][path] = lmt_card_vs_cpu(
+                path, kernels, ("prf_mask", "ring_matmul",
+                                "ring_matmul_batched"), cfg, params, ids,
+                labels, collapse, card)
+    report["main_path"] = lmt_main_path(kernels, card)
     return report
 
 
@@ -4886,6 +5245,11 @@ def main() -> int:
     lm_recurrent = lm_recurrent_phase(kernels, card)
     lap("lm-recurrent")
 
+    # --- LM training of the attention families -----------------------------
+    print("phase lm-train")
+    lm_train = lm_train_phase(kernels, card)
+    lap("lm-train")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
@@ -4897,6 +5261,7 @@ def main() -> int:
     print(json.dumps({"gateway": gateway}))
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_recurrent": lm_recurrent}))
+    print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

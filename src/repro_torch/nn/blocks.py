@@ -1,4 +1,4 @@
-"""MLP and MoE blocks over the Engine, forward side
+"""MLP and MoE blocks over the Engine, with manual backprop
 (``repro/nn/blocks.py``).
 
 MoE privacy modes:
@@ -11,7 +11,10 @@ MoE privacy modes:
 Routing bookkeeping is public; it runs with torch on the declassified
 scores' device, as ``jax.lax.top_k`` and the scatter run on the JAX
 package's (no copy to the host).  The top-k keeps ``jax.lax.top_k``'s
-order: descending, the lower expert first on a tie (a stable sort).
+order: descending, the lower expert first on a tie (a stable sort).  The
+backward pass scatters rows back to public positions with an integer
+``index_add_`` (``_scatter_rows``): repeated positions sum mod 2^ell, in
+any order, so the words are exact on the card too.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import torch
 
 from ..core.shares import AShare
 from .engine import Engine, TridentEngine
-from .layers import linear_fwd, linear_init
+from .layers import linear_bwd, linear_fwd, linear_init
 
 
 # ---------------------------------------------------------------------------
@@ -65,6 +68,34 @@ def mlp_fwd(eng: Engine, params, cfg: MLPConfig, x):
         cache_act = (bit,)
     y, c_down = linear_fwd(eng, {"w": params["w_down"]}, h)
     return y, (c_up, cache_act, c_down)
+
+
+def mlp_bwd(eng: Engine, params, cfg: MLPConfig, cache, dy):
+    c_up, cache_act, c_down = cache
+    dh, g_down = linear_bwd(eng, {"w": params["w_down"]}, c_down, dy)
+    grads = {"w_down": g_down["w"]}
+    dx_g = None
+    if cfg.act in ("swiglu", "sigmoid_glu"):
+        c_gate, c_act, a, up = cache_act
+        da = eng.mul(dh, up)
+        dup = eng.mul(dh, a)
+        if cfg.act == "swiglu":
+            dgate = eng.silu_bwd(c_act, da)
+        else:
+            dgate = eng.sigmoid_bwd(c_act, da)
+        dx_g, g_gate = linear_bwd(eng, {"w": params["w_gate"]}, c_gate, dgate)
+        grads["w_gate"] = g_gate["w"]
+    elif cfg.act == "relu2":
+        bit, r = cache_act
+        dr = eng.mul(dh, eng.scale(r, 2.0))
+        dup = eng.relu_bwd(bit, dr)
+    else:  # relu
+        (bit,) = cache_act
+        dup = eng.relu_bwd(bit, dh)
+    dx_u, g_up = linear_bwd(eng, {"w": params["w_up"]}, c_up, dup)
+    grads["w_up"] = g_up["w"]
+    dx = eng.add(dx_u, dx_g) if dx_g is not None else dx_u
+    return dx, grads
 
 
 # ---------------------------------------------------------------------------
@@ -113,6 +144,28 @@ def _expert_mlp_fwd(eng, params, cfg: MoEConfig, x):
         cache = (x, bit)
     y = eng.matmul(h, params["e_down"])
     return y, (cache, h)
+
+
+def _expert_mlp_bwd(eng, params, cfg: MoEConfig, cache, dy):
+    inner, h = cache
+    dh = eng.matmul(dy, eng.transpose(params["e_down"], (0, 2, 1)))
+    g_down = eng.matmul(eng.transpose(h, (0, 2, 1)), dy)
+    grads = {"e_down": g_down}
+    if cfg.act == "swiglu":
+        x, c_act, a, up = inner
+        da = eng.mul(dh, up)
+        dup = eng.mul(dh, a)
+        dgate = eng.silu_bwd(c_act, da)
+        grads["e_gate"] = eng.matmul(eng.transpose(x, (0, 2, 1)), dgate)
+        dx = eng.add(
+            eng.matmul(dup, eng.transpose(params["e_up"], (0, 2, 1))),
+            eng.matmul(dgate, eng.transpose(params["e_gate"], (0, 2, 1))))
+    else:
+        x, bit = inner
+        dup = eng.relu_bwd(bit, dh)
+        dx = eng.matmul(dup, eng.transpose(params["e_up"], (0, 2, 1)))
+    grads["e_up"] = eng.matmul(eng.transpose(x, (0, 2, 1)), dup)
+    return dx, grads
 
 
 def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
@@ -172,10 +225,69 @@ def moe_fwd(eng: Engine, params, cfg: MoEConfig, x):
     return y, cache
 
 
+def moe_bwd(eng: Engine, params, cfg: MoEConfig, cache, dy):
+    b, s, d = eng.shape_of(dy)
+    t = b * s
+    dyf = eng.reshape(dy, (t, d))
+    if cfg.routing == "dense":
+        c_r, c_sm, c_e, gates, ye = cache
+        dye_w = _tile_experts(eng, dyf, cfg.n_experts)          # (E,T,D)
+        # y = sum_e gate_e * ye_e
+        dye = _weight_by_gates(eng, dye_w, gates)
+        dgates_full = eng.sum(eng.mul(dye_w, ye), axis=-1)      # (E,T)
+        dgates = eng.transpose(dgates_full, (1, 0))             # (T,E)
+        dlogits = eng.softmax_bwd(c_sm, dgates)
+        dxe, g_e = _expert_mlp_bwd(eng, params, cfg, c_e, dye)
+        dxf = eng.sum(dxe, axis=0)                              # (T,D)
+        dxr, g_r = linear_bwd(eng, {"w": params["router"]}, c_r, dlogits)
+        g_e["router"] = g_r["w"]
+        return eng.reshape(eng.add(dxf, dxr), (b, s, d)), g_e
+
+    (c_r, c_sm, c_e, gates, picked, disp_idx, combine_pos, keep_f,
+     top_idx) = cache
+    # contrib = gate * picked * keep
+    dyk = _tile_k(eng, dyf, cfg.top_k)                          # (T,k,D)
+    dyk = eng.mask_public(dyk, keep_f[..., None])
+    gw = _broadcast_gate(eng, gates, dyk)
+    dpicked = eng.mul(dyk, gw)                                  # (T,k,D)
+    dgates = eng.sum(eng.mul(dyk, picked), axis=-1)             # (T,k)
+    dsel = eng.softmax_bwd(c_sm, dgates)
+    # scatter dsel back into the (T,E) logits' grad (public positions)
+    dlogits = _scatter_topk(eng, dsel, top_idx, cfg.n_experts)
+    # scatter dpicked back to the expert slots; an overflowed assignment
+    # adds its masked (zero) row to the slot it was clamped to
+    cap = _cap_of(eng, c_e)
+    dye = _scatter_rows(eng, eng.reshape(dpicked, (t * cfg.top_k, d)),
+                        combine_pos.reshape(-1), cfg.n_experts * cap, d)
+    dye = eng.reshape(dye, (cfg.n_experts, cap, d))
+    dxe, g_e = _expert_mlp_bwd(eng, params, cfg, c_e, dye)
+    # scatter the experts' token grads back to (T,D); a padded slot's row
+    # goes to token 0, as its forward gather took token 0
+    dxf = _scatter_rows(eng, eng.reshape(dxe, (cfg.n_experts * cap, d)),
+                        disp_idx.reshape(-1), t, d)
+    dxr, g_r = linear_bwd(eng, {"w": params["router"]}, c_r, dlogits)
+    g_e["router"] = g_r["w"]
+    return eng.reshape(eng.add(dxf, dxr), (b, s, d)), g_e
+
+
+def _cap_of(eng, c_e):
+    """The expert capacity: the expert cache's x is (E, cap, D)."""
+    return eng.shape_of(c_e[0][0])[1]
+
+
 def _tile_experts(eng, xf, e):
     if isinstance(eng, TridentEngine):
         return AShare(xf.data[:, None].expand((4, e) + xf.data.shape[1:]))
     return xf[None].expand((e,) + tuple(xf.shape))
+
+
+def _tile_k(eng, xf, k):
+    """(T, D) -> (T, k, D), each row repeated k times (a view)."""
+    if isinstance(eng, TridentEngine):
+        _, t, d = xf.data.shape
+        return AShare(xf.data[:, :, None].expand((4, t, k, d)))
+    t, d = xf.shape
+    return xf[:, None].expand((t, k, d))
 
 
 def _weight_by_gates(eng, ye, gates):
@@ -225,3 +337,29 @@ def _dispatch_indices(top_idx: torch.Tensor, n_experts: int, cap: int):
     disp = torch.where(last >= 0, value[last.clamp(min=0)], 0)
     return (disp.reshape(n_experts, cap), slot.reshape(t, k),
             keep.reshape(t, k))
+
+
+def _scatter_topk(eng, dsel, top_idx, n_experts):
+    """(T, k) grads of the selected logits -> the (T, E) logits' grad."""
+    t, k = top_idx.shape
+    rows = torch.arange(t, device=top_idx.device)[:, None]
+    flat_pos = (rows * n_experts + top_idx).reshape(-1)
+    return _scatter_rows(eng, eng.reshape(dsel, (t * k, 1)), flat_pos,
+                         t * n_experts, 1, reshape_to=(t, n_experts))
+
+
+def _scatter_rows(eng, rows, pos, n_out, d, reshape_to=None):
+    """A (n_out, d) tensor of zeros with each row of `rows` added at its
+    public position in `pos` (repeated positions sum): the JAX package's
+    ``.at[pos].add``, an integer ``index_add_`` on share words."""
+    if isinstance(eng, TridentEngine):
+        data = rows.data
+        out = torch.zeros((4, n_out, d), dtype=data.dtype, device=data.device)
+        out.index_add_(1, pos.to(device=data.device, dtype=torch.int64), data)
+        res = AShare(out)
+    else:
+        res = torch.zeros((n_out, d), dtype=rows.dtype, device=rows.device)
+        res.index_add_(0, pos.to(device=rows.device, dtype=torch.int64), rows)
+    if reshape_to is not None:
+        res = eng.reshape(res, reshape_to)
+    return res

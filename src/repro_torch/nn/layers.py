@@ -3,8 +3,14 @@
 
 Every layer runs privately (``TridentEngine``: [[.]]-shares and the 4PC
 protocols) and in the clear (``PlainEngine``: the correctness oracle) from
-the same code.  ``fwd(eng, params, x, ...) -> (y, cache)`` as in the JAX
-package; the backward passes come with the LM training slice.
+the same code.  Every layer exposes, as in the JAX package,
+
+    fwd(eng, params, x, ...)    -> (y, cache)
+    bwd(eng, params, cache, dy) -> (dx, grads-dict)
+
+(integer share words have no autograd: backprop is written by hand, as
+the paper does).  A weight gradient dW = X^T @ dY is one truncating
+matmul whose cost does not depend on the contraction (token) length.
 
 Public tensors the layers build (rope tables, attention masks, token ids)
 go to the engine's device.
@@ -40,6 +46,18 @@ def linear_fwd(eng: Engine, params, x):
     return y, (x,)
 
 
+def linear_bwd(eng: Engine, params, cache, dy):
+    (x,) = cache
+    # flatten leading dims for the weight gradient contraction
+    d_in = eng.shape_of(x)[-1]
+    d_out = eng.shape_of(dy)[-1]
+    x2 = eng.reshape(x, (-1, d_in))
+    dy2 = eng.reshape(dy, (-1, d_out))
+    dw = eng.matmul(eng.transpose(x2, (1, 0)), dy2)
+    dx = eng.matmul(dy, eng.transpose(params["w"], (1, 0)))
+    return dx, {"w": dw}
+
+
 # ---------------------------------------------------------------------------
 # Embedding (public token ids)
 # ---------------------------------------------------------------------------
@@ -50,6 +68,13 @@ def embedding_init(rng, vocab: int, d_model: int):
 def embedding_fwd(eng: Engine, params, ids):
     ids = torch.as_tensor(ids).to(dtype=torch.int64, device=_device(eng))
     return eng.embed(params["table"], ids), (ids,)
+
+
+def embedding_bwd(eng: Engine, params, cache, dy):
+    """The table's gradient: dy's rows summed into their ids' rows (a
+    repeated id sums, mod 2^ell on shares)."""
+    (ids,) = cache
+    return None, {"table": eng.embed_bwd(params["table"], ids, dy)}
 
 
 # ---------------------------------------------------------------------------
@@ -69,6 +94,23 @@ def rmsnorm_fwd(eng: Engine, params, x, eps: float = 1e-5):
     g_b = _broadcast_param(eng, params["g"], x)
     y = eng.mul(xhat, g_b)
     return y, (xhat, inv, params["g"])
+
+
+def rmsnorm_bwd(eng: Engine, _params, cache, dy):
+    xhat, inv, g = cache
+    g_b = _broadcast_param(eng, g, dy)
+    dxhat = eng.mul(dy, g_b)
+    prod = eng.mul(dxhat, xhat)
+    m = eng.mean(prod, axis=-1, keepdims=True)
+    m_b = _broadcast_like(eng, m, dy)
+    inner = eng.sub(dxhat, eng.mul(xhat, m_b))
+    inv_b = _broadcast_like(eng, inv, dy)
+    dx = eng.mul(inner, inv_b)
+    # dg = sum over all leading dims of dy * xhat
+    dg_full = eng.mul(dy, xhat)
+    d = eng.shape_of(dy)[-1]
+    dg = eng.sum(eng.reshape(dg_full, (-1, d)), axis=0)
+    return dx, {"g": dg}
 
 
 def _broadcast_like(eng: Engine, small, like):
@@ -239,6 +281,65 @@ def attention_fwd(eng: Engine, params, cfg: AttnConfig, x,
     return y, cache, new_kv
 
 
+def _attn_core_bwd(eng, cfg: AttnConfig, core, dy, co, wo, mask):
+    """The shared middle of attention_bwd and cross_attention_bwd: from
+    dy back through wo, probs @ v, the smx softmax and q k^T.  Returns
+    (dq, dk, dv) by head, the KV repetition summed back per group, and
+    wo's gradient."""
+    q, k_full, v_full, probs, csm = core
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    groups = H // Hk
+    dmerged, g_o = linear_bwd(eng, {"w": wo}, co, dy)
+    dctx = _split_heads(eng, dmerged, H, dh)          # (B,H,S,dh)
+    # ctx = probs @ v
+    dprobs = eng.matmul(dctx, eng.transpose(v_full, (0, 1, 3, 2)))
+    dv_full = eng.matmul(eng.transpose(probs, (0, 1, 3, 2)), dctx)
+    dscores = eng.softmax_bwd(csm, dprobs, mask=mask)
+    dscores = eng.scale(dscores, 1.0 / math.sqrt(dh))
+    dq = eng.matmul(dscores, k_full)                  # (B,H,S,dh)
+    dk_full = eng.matmul(eng.transpose(dscores, (0, 1, 3, 2)), q)
+    # undo the KV repetition: sum the grads across each group
+    dk = _sum_groups(eng, dk_full, Hk, groups)
+    dv = _sum_groups(eng, dv_full, Hk, groups)
+    return dq, dk, dv, g_o["w"]
+
+
+def attention_bwd(eng: Engine, params, cfg: AttnConfig, cache, dy):
+    cq, ck, cv, qk_caches, core, co = cache
+    dh = cfg.d_head
+    s, s_k = eng.shape_of(core[0])[2], eng.shape_of(core[1])[2]
+    mask = attn_mask(cfg, s, s_k, offset=s_k - s, device=_device(eng))
+    dq, dk, dv, g_o = _attn_core_bwd(eng, cfg, core, dy, co, params["wo"],
+                                     mask)
+    cos, sin = rope_tables(s, dh, cfg.rope_theta)
+    dq = rope_apply(eng, dq, cos, sin, inverse=True)
+    dk = rope_apply(eng, dk, cos, sin, inverse=True)
+    grads = {}
+    if cfg.qk_norm:
+        cqn, ckn = qk_caches
+        dq, gq = rmsnorm_bwd(eng, {"g": params["qnorm_g"]}, cqn, dq)
+        dk, gk = rmsnorm_bwd(eng, {"g": params["knorm_g"]}, ckn, dk)
+        grads["qnorm_g"] = gq["g"]
+        grads["knorm_g"] = gk["g"]
+
+    dx1, g_q = linear_bwd(eng, {"w": params["wq"]}, cq, _merge_heads(eng, dq))
+    dx2, g_k = linear_bwd(eng, {"w": params["wk"]}, ck, _merge_heads(eng, dk))
+    dx3, g_v = linear_bwd(eng, {"w": params["wv"]}, cv, _merge_heads(eng, dv))
+    dx = eng.add(eng.add(dx1, dx2), dx3)
+    grads.update({"wq": g_q["w"], "wk": g_k["w"], "wv": g_v["w"], "wo": g_o})
+    return dx, grads
+
+
+def _sum_groups(eng, x, hk, groups):
+    """(B, Hk*groups, S, dh) -> (B, Hk, S, dh): each KV head's repeated
+    copies summed (the gradient of ``_repeat_kv``)."""
+    if groups == 1:
+        return x
+    b, h, s, dh = eng.shape_of(x)
+    x = eng.reshape(x, (b, hk, groups, s, dh))
+    return eng.sum(x, axis=2)
+
+
 # ---------------------------------------------------------------------------
 # Cross attention (whisper decoder): q from x, k/v from the encoder output.
 # ---------------------------------------------------------------------------
@@ -262,6 +363,19 @@ def cross_attention_fwd(eng: Engine, params, cfg: AttnConfig, x, enc_out):
     merged = _merge_heads(eng, ctx_v)
     y, co = linear_fwd(eng, {"w": params["wo"]}, merged)
     return y, (cq, ck, cv, (q, k_full, v_full, probs, csm), co)
+
+
+def cross_attention_bwd(eng: Engine, params, cfg: AttnConfig, cache, dy):
+    """Returns (dx, d_enc_out, grads)."""
+    cq, ck, cv, core, co = cache
+    dq, dk, dv, g_o = _attn_core_bwd(eng, cfg, core, dy, co, params["wo"],
+                                     None)
+    dx, g_q = linear_bwd(eng, {"w": params["wq"]}, cq, _merge_heads(eng, dq))
+    de1, g_k = linear_bwd(eng, {"w": params["wk"]}, ck, _merge_heads(eng, dk))
+    de2, g_v = linear_bwd(eng, {"w": params["wv"]}, cv, _merge_heads(eng, dv))
+    d_enc = eng.add(de1, de2)
+    grads = {"wq": g_q["w"], "wk": g_k["w"], "wv": g_v["w"], "wo": g_o}
+    return dx, d_enc, grads
 
 
 # ---------------------------------------------------------------------------

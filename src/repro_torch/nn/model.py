@@ -1,4 +1,5 @@
-"""Generic LM over the Engine, forward and serving (``repro/nn/model.py``).
+"""Generic LM over the Engine: forward, training and serving
+(``repro/nn/model.py``).
 
 A model is a sequence of SEGMENTS, each a homogeneous run of layers over
 stacked per-layer parameters.  The JAX package runs each segment as a
@@ -22,8 +23,23 @@ Modality frontends (whisper audio, phi-3-vision CLIP) are stubs:
 precomputed frame / patch embeddings are secret-shared and consumed
 directly.
 
-Training (the backward passes, ``loss_and_grads``, ``train_step``,
-microbatching, SGD) comes with the LM training slice of the port.
+Manual backprop: the forward loop keeps each layer's cache (with
+cfg.remat only its input); ``backward`` runs each segment's layers as a
+reverse loop (``scan_loop(..., reverse=True)``) whose body re-runs the
+layer forward under the forward's keys where cfg.remat says so, then the
+layer backward under keys of its own (tags ``seg_{kind}`` and
+``segbwd_{kind}``), as the JAX package's reverse scan does.  The re-run
+forward starts from the backward loop's PRF counter, not the forward's:
+its masks, and so its truncations' rounding, may differ from the forward
+run's; the JAX package's do too, so the words are the same.
+``train_step`` is one step of plain SGD: ``loss_and_grads`` (the smx
+softmax's cross-entropy gradient (p - onehot) / N, one declassified
+monitoring loss), optionally summed over microbatches, then
+``sgd_update``.  Training covers the attention kinds (attn_mlp,
+attn_moe, enc, xattn_mlp); the recurrent kinds' backward passes
+(retention, ret_slstm_pair, shared_attn) are still to port
+(ROADMAP Queue 1, item 2), and so are optimizers other than SGD (Queue 1,
+item 3).
 """
 from __future__ import annotations
 
@@ -281,6 +297,96 @@ def _seg_fwd(eng, cfg: ModelConfig, kind: str, stacked, x, count: int,
     return _wrap(eng, y), caches
 
 
+def _block_bwd(eng, cfg: ModelConfig, kind: str, p, cache, dy):
+    """One layer's backward pass: (dx, grads), and for xattn_mlp
+    (dx, grads, d_enc)."""
+    if kind in ("attn_mlp", "enc", "attn_moe"):
+        c1, ca, c2, cm = cache
+        if kind == "attn_moe":
+            dm, g_m = B.moe_bwd(eng, p["moe"], cfg.moe_cfg(), cm, dy)
+        else:
+            dm, g_m = B.mlp_bwd(eng, p["mlp"], cfg.mlp_cfg(), cm, dy)
+        dh2, g_n2 = L.rmsnorm_bwd(eng, p["n2"], c2, dm)
+        dx1 = eng.add(dy, dh2)
+        da, g_a = L.attention_bwd(eng, p["attn"], cfg.attn_cfg(), ca, dx1)
+        dh1, g_n1 = L.rmsnorm_bwd(eng, p["n1"], c1, da)
+        dx = eng.add(dx1, dh1)
+        return dx, {"n1": g_n1, "attn": g_a, "n2": g_n2,
+                    "moe" if kind == "attn_moe" else "mlp": g_m}
+    if kind == "xattn_mlp":
+        c1, ca, cxn, cxa, c2, cm = cache
+        dm, g_m = B.mlp_bwd(eng, p["mlp"], cfg.mlp_cfg(), cm, dy)
+        dh2, g_n2 = L.rmsnorm_bwd(eng, p["n2"], c2, dm)
+        dx2 = eng.add(dy, dh2)
+        dxa, d_enc, g_x = L.cross_attention_bwd(eng, p["xattn"],
+                                                cfg.attn_cfg(), cxa, dx2)
+        dhx, g_nx = L.rmsnorm_bwd(eng, p["nx"], cxn, dxa)
+        dx1 = eng.add(dx2, dhx)
+        da, g_a = L.attention_bwd(eng, p["attn"], cfg.attn_cfg(), ca, dx1)
+        dh1, g_n1 = L.rmsnorm_bwd(eng, p["n1"], c1, da)
+        dx = eng.add(dx1, dh1)
+        grads = {"n1": g_n1, "attn": g_a, "nx": g_nx, "xattn": g_x,
+                 "n2": g_n2, "mlp": g_m}
+        return dx, grads, d_enc
+    _no_backward(kind)
+
+
+# the segment kinds with a backward pass in the port
+TRAINED_KINDS = ("attn_mlp", "attn_moe", "enc", "xattn_mlp")
+
+
+def _no_backward(kind: str):
+    raise NotImplementedError(
+        f"the {kind} kind has no backward pass in the port yet (ROADMAP "
+        f"Queue 1, item 2: LM training of the recurrent families)")
+
+
+def _stack_layers(eng, trees: list):
+    """Per-layer grads trees -> one tree of stacked leaves, the layout of
+    ``params_to_engine``'s segments: a share's data (n, 4, ...)."""
+    if isinstance(eng, TridentEngine):
+        return tree_map(lambda *xs: AShare(torch.stack([x.data for x in xs])),
+                        *trees)
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _seg_bwd(eng, cfg: ModelConfig, kind: str, stacked, caches, dy,
+             count: int, enc_out=None):
+    """A segment's layers in reverse (``scan_loop(..., reverse=True)``):
+    with cfg.remat each layer's forward runs again from its stored input
+    under the forward's keys (tag ``seg_{kind}``), then its backward under
+    ``segbwd_{kind}``.  Returns (dx, stacked grads[, the summed d_enc])."""
+    has_enc = kind == "xattn_mlp"
+
+    def body(carry, i, scopes):
+        fwd_keys, bwd_keys = scopes
+        dxc, denc_acc = carry if has_enc else (carry, None)
+        p = _layer(eng, stacked, i)
+        if cfg.remat:
+            with fwd_keys():
+                _, cache = _block_fwd(eng, cfg, kind, p,
+                                      _wrap(eng, caches[i]), enc_out=enc_out)
+        else:
+            cache = caches[i]
+        with bwd_keys():
+            out = _block_bwd(eng, cfg, kind, p, cache, _wrap(eng, dxc))
+        if has_enc:
+            dx, grads, d_enc = out
+            return (_leaf(eng, dx), denc_acc + _leaf(eng, d_enc)), grads
+        dx, grads = out
+        return _leaf(eng, dx), grads
+
+    init = _leaf(eng, dy)
+    if has_enc:
+        init = (init, _leaf(eng, eng.zeros(eng.shape_of(enc_out))))
+    fin, grads = scan_loop(eng, count, (f"seg_{kind}", f"segbwd_{kind}"),
+                           body, init, reverse=True)
+    grads = _stack_layers(eng, grads)
+    if has_enc:
+        return _wrap(eng, fin[0]), grads, _wrap(eng, fin[1])
+    return _wrap(eng, fin), grads
+
+
 # ===========================================================================
 # Full model forward
 # ===========================================================================
@@ -313,6 +419,210 @@ def forward(eng: Engine, cfg: ModelConfig, params, ids,
     xn, c_fn = L.rmsnorm_fwd(eng, params["final_norm"], x)
     logits, c_head = L.linear_fwd(eng, params["lm_head"], xn)
     return logits, (c_emb, n_front, seg_caches, c_fn, c_head, enc_out)
+
+
+def backward(eng: Engine, cfg: ModelConfig, params, cache, dlogits):
+    """Returns the grads tree, laid out as params (segments stacked)."""
+    for kind, _ in cfg.segments():
+        if kind not in TRAINED_KINDS:
+            _no_backward(kind)
+    c_emb, n_front, seg_caches, c_fn, c_head, enc_out = cache
+    dxn, g_head = L.linear_bwd(eng, params["lm_head"], c_head, dlogits)
+    dx, g_fn = L.rmsnorm_bwd(eng, params["final_norm"], c_fn, dxn)
+    grads = {"lm_head": g_head, "final_norm": g_fn}
+    seg_grads = []
+    d_enc_total = None
+    for (kind, count), stacked, cs in zip(
+            reversed(cfg.segments()), reversed(params["segments"]),
+            reversed(seg_caches)):
+        if kind == "enc":
+            # the encoder's grads come after the decoder's d_enc is summed
+            _, g_seg = _seg_bwd(eng, cfg, kind, stacked, cs, d_enc_total,
+                                count)
+        elif kind == "xattn_mlp":
+            dx, g_seg, d_enc = _seg_bwd(eng, cfg, kind, stacked, cs, dx,
+                                        count, enc_out=enc_out)
+            d_enc_total = d_enc if d_enc_total is None else \
+                eng.add(d_enc_total, d_enc)
+        else:
+            dx, g_seg = _seg_bwd(eng, cfg, kind, stacked, cs, dx, count)
+        seg_grads.append(g_seg)
+    grads["segments"] = list(reversed(seg_grads))
+    if n_front:
+        dx = _drop_front(eng, dx, n_front)
+    _, grads["embed"] = L.embedding_bwd(eng, params["embed"], c_emb, dx)
+    return grads
+
+
+def _drop_front(eng, x, n_front):
+    """(B, S, ...) -> (B, S - n_front, ...): the frontend's positions
+    dropped."""
+    if isinstance(eng, TridentEngine):
+        return AShare(x.data[:, :, n_front:])
+    return x[:, n_front:]
+
+
+def _pad_front(eng, x, n_front):
+    """(B, S, D) -> (B, n_front + S, D): zeros before the positions."""
+    if isinstance(eng, TridentEngine):
+        return AShare(torch.nn.functional.pad(x.data, (0, 0, n_front, 0)))
+    return torch.nn.functional.pad(x, (0, 0, n_front, 0))
+
+
+# ===========================================================================
+# Train step: smx-softmax cross-entropy gradient + manual backprop
+# ===========================================================================
+def loss_and_grads(eng: Engine, cfg: ModelConfig, params, ids, labels,
+                   frontend_embs=None, enc_inputs=None):
+    """Cross-entropy through the paper's smx softmax (``loss_head``), then
+    ``backward``.  Returns (loss_proxy, grads)."""
+    logits, cache = forward(eng, cfg, params, ids,
+                            frontend_embs=frontend_embs,
+                            enc_inputs=enc_inputs)
+    nf = eng.shape_of(frontend_embs)[1] \
+        if cfg.family == "vlm" and frontend_embs is not None else 0
+    loss, dlogits = loss_head(eng, cfg, logits, labels, nf)
+    del logits
+    return loss, backward(eng, cfg, params, cache, dlogits)
+
+
+def loss_head(eng: Engine, cfg: ModelConfig, logits, labels,
+              n_front: int = 0):
+    """The loss at the logits of every position: the smx softmax p over
+    the vocabulary, dlogits = (p - onehot) / N (N = labels.size; zeros at
+    the first `n_front` positions, the frontend's) and loss_proxy = mean(1
+    - p_correct), declassified (one Pi_Rec): a float32 scalar tensor.
+    Returns (loss_proxy, dlogits)."""
+    labels = torch.as_tensor(labels).to(dtype=torch.int64,
+                                        device=L._device(eng))
+    bsz, seq = labels.shape
+    if n_front:
+        logits = _drop_front(eng, logits, n_front)
+    p, _ = eng.softmax(logits, axis=-1)
+    del logits
+    onehot = torch.nn.functional.one_hot(labels, cfg.vocab).to(torch.float64)
+    dlogits = eng.scale(eng.add_public(p, -onehot), 1.0 / (bsz * seq))
+    del onehot
+    if n_front:
+        dlogits = _pad_front(eng, dlogits, n_front)
+    # monitoring loss: 1 - mean(p[label])  (a local gather + 1 declassify)
+    loss = eng.declassify(_mean_all(eng, _gather_labels(eng, p, labels)))
+    return 1.0 - loss.reshape(()), dlogits
+
+
+def _mean_all(eng, x):
+    n = 1
+    for s in eng.shape_of(x):
+        n *= s
+    s = eng.sum(eng.reshape(x, (n,)), axis=0, keepdims=True)
+    return eng.scale(s, 1.0 / n)
+
+
+def _gather_labels(eng, p, labels):
+    """p: (B,S,V), labels public (B,S) -> (B,S) share of p[label]."""
+    b, s, v = eng.shape_of(p)
+    flat_idx = torch.arange(b * s, device=labels.device) * v \
+        + labels.reshape(-1)
+    pf = eng.reshape(p, (b * s * v,))
+    return eng.reshape(eng.take(pf, flat_idx, axis=0), (b, s))
+
+
+def train_step(eng: Engine, cfg: ModelConfig, params, ids, labels, lr=0.01,
+               frontend_embs=None, enc_inputs=None, optimizer=None,
+               opt_state=None):
+    """One SGD step (forward, backward, update), microbatched where
+    cfg.microbatch > 1.  Returns (new_params, loss, opt_state)."""
+    if optimizer is not None or opt_state is not None:
+        raise NotImplementedError(
+            "train_step takes plain SGD only: the port's optimizers are "
+            "ROADMAP Queue 1, item 3")
+    if cfg.microbatch and cfg.microbatch > 1:
+        loss, grads = _microbatched_grads(eng, cfg, params, ids, labels,
+                                          frontend_embs, enc_inputs)
+    else:
+        loss, grads = loss_and_grads(eng, cfg, params, ids, labels,
+                                     frontend_embs=frontend_embs,
+                                     enc_inputs=enc_inputs)
+    return sgd_update(eng, params, grads, lr), loss, None
+
+
+def _microbatched_grads(eng, cfg, params, ids, labels, fe, enc):
+    """Gradient accumulation over cfg.microbatch slices of the batch
+    (activation memory / n_micro; the grads add locally, no
+    communication), then one scale by 1 / n_micro a leaf."""
+    n_micro = cfg.microbatch
+    mb = ids.shape[0] // n_micro
+    total_loss, acc = 0.0, None
+    for i in range(n_micro):
+        sl = slice(i * mb, (i + 1) * mb)
+        loss, grads = loss_and_grads(
+            eng, cfg, params, ids[sl], labels[sl],
+            frontend_embs=None if fe is None else _slice0(eng, fe, sl),
+            enc_inputs=None if enc is None else _slice0(eng, enc, sl))
+        total_loss = total_loss + loss
+        acc = grads if acc is None else tree_map(eng.add, acc, grads)
+    return total_loss / n_micro, _tree_scale(eng, acc, 1.0 / n_micro)
+
+
+def _slice0(eng, x, sl):
+    if isinstance(eng, TridentEngine):
+        return AShare(x.data[:, sl])
+    return x[sl]
+
+
+def _tree_scale(eng, grads, c: float):
+    """Each grads leaf times c (one truncation a leaf where c < 1), in the
+    JAX package's leaf order.  A segment's stacked leaf is scaled as one
+    (n, ...) share, as ``sgd_update`` updates it.  (The JAX package scales
+    the stacked (n, 4, ...) words as a share whose component axis is the
+    layer axis, and its new params come out (4, 4, ...): ROADMAP F5.)"""
+    out = {}
+    for key in sorted(grads):
+        if key == "segments":
+            out[key] = [None if g is None else
+                        tree_map(lambda x: _on_stacked(
+                            eng, lambda y: eng.scale(y, c), x), g)
+                        for g in grads[key]]
+        else:
+            out[key] = tree_map(lambda x: eng.scale(x, c), grads[key])
+    return out
+
+
+def _on_stacked(eng, fn, *xs):
+    """`fn` of shares over stacked segment leaves (a share's data (n, 4,
+    ...)) as (n, ...) shares: the component axis moved first and back."""
+    if isinstance(eng, TridentEngine):
+        r = fn(*(AShare(torch.movedim(x.data, 0, 1)) for x in xs))
+        return AShare(torch.movedim(r.data, 0, 1))
+    return fn(*xs)
+
+
+def sgd_update(eng: Engine, params, grads, lr: float):
+    """w <- w - lr * g, leaf by leaf in the JAX package's order (each
+    scale by lr < 1 draws a truncation's PRF words).  A stacked segment
+    leaf is updated as one (n, ...) share.  The grads tree is consumed:
+    each leaf is dropped once its new leaf exists."""
+    def upd(w, g):
+        return eng.sub(w, eng.scale(g, lr))
+
+    def stacked_upd(w, g):
+        return _on_stacked(eng, upd, w, g)
+
+    def consume(f, ps, gs, key):
+        out = tree_map(f, ps[key], gs[key])
+        gs[key] = None
+        return out
+
+    new = {key: consume(upd, params, grads, key)
+           for key in ("embed", "final_norm", "lm_head")}
+    gsegs = grads["segments"]
+    new["segments"] = [
+        None if stacked is None else consume(stacked_upd, params["segments"],
+                                             gsegs, i)
+        for i, stacked in enumerate(params["segments"])]
+    if "shared_attn" in params:
+        new["shared_attn"] = consume(upd, params, grads, "shared_attn")
+    return new
 
 
 # ===========================================================================

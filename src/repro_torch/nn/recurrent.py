@@ -26,11 +26,13 @@ first-order carry; only the projections, the state contractions and the
 gates pay for products.  Each chunk loop is a ``scan_loop`` (tags
 ``"ret_fwd"`` and ``"slstm_fwd"``), so a chunk's PRF draws are the JAX
 package's.  ``retention_step`` and ``slstm_step`` take one token against
-the carried state (decode).  The backward passes come with the LM
-training slice.
+the carried state (decode).  Their backward passes are still to port
+(ROADMAP Queue 1, item 2); the model's backward segment loop already
+runs on ``scan_loop``'s reverse order.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import zlib
@@ -81,27 +83,45 @@ def _layer_keys(eng, n: int, tag: str) -> list:
     return eng.ctx.keys.master.fold_in(tid).split(n)
 
 
-def scan_loop(eng, n: int, tag: str, body, carry=None):
+def scan_loop(eng, n: int, tag, body, carry=None, reverse: bool = False):
     """``lax.scan`` of ``body(carry, i) -> (carry, out)`` over i < n, as
     the JAX package traces it (module docstring); returns (carry, [out for
-    each i]).  On the plain engine a plain loop."""
+    each i]), the outs in index order.  `reverse`: ``lax.scan(...,
+    reverse=True)``, i from n - 1 down to 0; each iteration still takes
+    the key of its own index, and the first to run is tallied.
+
+    `tag` a tuple of tags: a body with several key sets, as the JAX
+    package's backward segment scan has (the remat forward under the
+    forward's keys, the backward under its own).  The body then runs under
+    none of them and is called as ``body(carry, i, scopes)``, where
+    ``scopes[j]`` is the context of tag j's key for iteration i.  On the
+    plain engine a plain loop (its scopes do nothing)."""
+    tags = tag if isinstance(tag, tuple) else None
+    order = range(n - 1, -1, -1) if reverse else range(n)
+    outs = [None] * n
     if not _is_triv(eng):
-        outs = []
-        for i in range(n):
-            carry, out = body(carry, i)
-            outs.append(out)
+        null = [contextlib.nullcontext] * len(tags or ())
+        for i in order:
+            carry, out = body(carry, i, null) if tags else body(carry, i)
+            outs[i] = out
         return carry, outs
     ctx = eng.ctx
-    keys = _layer_keys(eng, n, tag)
+    keys = [_layer_keys(eng, n, t) for t in (tags or (tag,))]
     c0 = ctx._counter
-    outs, oks = [], []
-    for i in range(n):
+    oks = [None] * n
+    for step, i in enumerate(order):
         ctx._counter = c0
         mark = _checks_begin(eng)
-        with ctx.tally.scaled(n if i == 0 else 0), ctx.scan_keys(keys[i]):
-            carry, out = body(carry, i)
-        oks.append(_checks_end(eng, mark))
-        outs.append(out)
+        with ctx.tally.scaled(n if step == 0 else 0):
+            if tags:
+                scopes = [lambda ks=ks, i=i: ctx.scan_keys(ks[i])
+                          for ks in keys]
+                carry, out = body(carry, i, scopes)
+            else:
+                with ctx.scan_keys(keys[0][i]):
+                    carry, out = body(carry, i)
+        oks[i] = _checks_end(eng, mark)
+        outs[i] = out
     _checks_absorb(eng, oks)
     return carry, outs
 

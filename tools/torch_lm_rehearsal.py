@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""How far the secure LM serve lies from float64: the rehearsal behind the
-logit tolerances of ``tests/test_torch_lm.py`` and ``chip_smoke.py``'s
-phases lm and lm-recurrent.
+"""How far the secure LM serve and train step lie from float64: the
+rehearsal behind the logit and gradient tolerances of
+``tests/test_torch_lm.py``, ``tests/test_torch_lm_train.py`` and
+``chip_smoke.py``'s phases lm, lm-recurrent and lm-train.
 
     PYTHONPATH=src python3 tools/torch_lm_rehearsal.py [--device cpu]
-        [--embed-scale 25] [--seeds 3]
+        [--embed-scale 25] [--seeds 3] [--train]
 
 Runs ``serve_prefill`` and decode steps through the port's
 ``TridentEngine`` (faithful and collapsed) and its ``PlainEngine``
@@ -34,6 +35,24 @@ the smoke's 1,024 ids (long_window half the prefill).  ``--cases full
 (``full_cases``: a card's size, 17 GB of zamba2 shares).  It prints first
 how far the secure rmsnorm's output lies from float64 at d_model 1,024,
 2,048 and 3,584 (``rmsnorm_scale``, ROADMAP N3).
+
+``--train``: the train step's ``loss_and_grads`` instead (``train_cases``:
+the four attention families' SMOKE at one layer, (2, 8) ids and labels;
+qwen3 at the middle width above, 2 layers, 128 ids; with ``--cases full``
+phi-3-vision-4.2b's CONFIG at 2 of 32 layers, 128 ids and 576 frontend
+embeddings, remat, chip_smoke.py phase lm-train's step).  For each case,
+seed and mode it prints the gradient's gap (``grad_gap``: the relative
+L2 error of all leaves together, the largest error over the largest
+reference entry, the worst leaf's relative L2) and the loss's and the
+dlogits' gaps, against float64 and against ``fixed_point_plain``, float64
+with fixed point's mean behaviour.  Each secure truncation errs by -1
+unit of 2^-13 on average, and the train step's sums pile that up: the
+smx softmax over a vocabulary of V entries sums to about 1 - V / 8192,
+and a weight gradient sums the bias of every token's dY.  So against
+float64 the secure gradient is off by a multiple of itself from a
+vocabulary of a few thousand on (ROADMAP N6); against the fixed-point
+model only the truncations' zero-mean noise is left, and chip_smoke.py
+phase lm-train holds the gradients there.
 
 The embedding table is multiplied by ``--embed-scale`` (25: entries of
 scale 0.5, as the tests and the smoke serve them).  At 1 (``init_params``'
@@ -121,6 +140,77 @@ def fixed_mean_plain(device: str):
     return FixedMeanPlain(device=device)
 
 
+def fixed_point_plain(device: str):
+    """A float64 PlainEngine with fixed point's mean behaviour (ROADMAP
+    N6): public constants and shared inputs rounded to units of 2^-13 as
+    they are encoded, the garbled reciprocal and rsqrt rounded to units as
+    their emulation rounds them, and each truncation (a truncating
+    product, a public scale below 1, a mean) lowered by one unit, the
+    mean error of the secure truncation (floor(z - r) + floor(r) - z over
+    uniform fractions).  What is left between it and a secure run is the
+    truncations' zero-mean noise; a plain float64 run also misses their
+    bias, which the sums over tokens in a weight gradient and over the
+    vocabulary in the softmax pile up."""
+    import torch
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn.engine import Engine, PlainEngine
+    unit = 1.0 / RING64.scale
+
+    def q(x):
+        return torch.round(x * RING64.scale) * unit
+
+    class FixedPointPlain(PlainEngine):
+        def from_plain(self, x):
+            return q(self._t(x))
+
+        def _encode_public(self, c):
+            return q(self._t(c))
+
+        def matmul(self, x, w):
+            return torch.matmul(x, w) - unit
+
+        def mul(self, x, y):
+            return x * y - unit
+
+        def _truncate(self, x):
+            return x - unit
+
+        def mean(self, x, axis, keepdims=False):
+            return Engine.mean(self, x, axis, keepdims)
+
+        def softmax(self, x, axis=-1, mask=None):
+            r, bit = self.relu(x)
+            if mask is not None:
+                r = r * self._t(mask)
+            inv = self.reciprocal(torch.sum(r, dim=axis, keepdim=True)
+                                  + self._encode_public(1e-2))
+            p = self.mul(r, inv)
+            return p, (p, inv, bit)
+
+        def softmax_bwd(self, cache, dp, mask=None):
+            p, inv, bit = cache
+            inner = torch.sum(self.mul(dp, p), dim=-1, keepdim=True)
+            dr = self.mul(dp - inner, inv)
+            if mask is not None:
+                dr = dr * self._t(mask)
+            return dr * bit.to(self.dtype)
+
+        def silu_bwd(self, cache, dy):
+            x, s, seg = cache
+            return self.mul(dy, s) + self.mul(dy, x) * seg.to(self.dtype)
+
+        def rsqrt(self, x):
+            y = q(torch.where(x <= 0, 0.0,
+                              torch.rsqrt(torch.clamp_min(x, unit))))
+            return y, (x, y)
+
+        def reciprocal(self, x):
+            return q(torch.where(x.abs() < unit, 0.0, 1.0 / torch.where(
+                x == 0, 1.0, x)))
+
+    return FixedPointPlain(device=device)
+
+
 def rmsnorm_scale(d: int, device: str) -> float:
     """The secure rmsnorm's output over the float64 one (median over 4 x
     d unit-normal entries): fixed point encodes rmsnorm's 1/d as
@@ -169,6 +259,142 @@ def frontend(cfg, batch: int):
     return None
 
 
+def train_cases(get, full: bool) -> list:
+    """(name, cfg, (batch, ids)) of the train rehearsal."""
+    if full:
+        cfg = dataclasses.replace(get("phi_3_vision_4_2b").CONFIG, n_layers=2)
+        return [("phi_3_vision_4_2b full width, 2 layers", cfg, (1, 128))]
+    cases = []
+    for arch in ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
+                 "phi_3_vision_4_2b"):
+        cfg = get(arch).SMOKE
+        cfg = dataclasses.replace(cfg, n_layers=1, n_encoder_layers=min(
+            cfg.n_encoder_layers, 1))
+        cases.append((f"{arch} SMOKE 1 layer", cfg, (2, 8)))
+    cases.append(("qwen3_1_7b middle width", middle_width(), (1, 128)))
+    return cases
+
+
+def loss_and_grads(eng, cfg, params, ids, labels, extra=None):
+    """``model.loss_and_grads`` from the plain weights, through its seams
+    (``forward``, ``loss_head``, ``backward``).  Returns (loss, {leaf path:
+    float64 numpy gradient}, dlogits opened as a float64 tensor)."""
+    from repro_torch.nn import model as M
+    pe = M.params_to_engine(eng, params)
+    kw = {} if extra is None else extra(eng)
+    logits, cache = M.forward(eng, cfg, pe, ids, **kw)
+    loss, dlogits = M.loss_head(eng, cfg, logits, labels,
+                                logits.shape[-2] - ids.shape[1])
+    del logits
+    grads = M.backward(eng, cfg, pe, cache, dlogits)
+    return float(loss), grads_plain(eng, grads), \
+        eng.to_plain(dlogits).double()
+
+
+def grads_plain(eng, grads) -> dict:
+    """A grads (or params) tree as {leaf path: float64 tensor on the
+    engine's device}; a secure stacked segment leaf (a share's data (n, 4,
+    ...)) opened as (n, ...)."""
+    import torch
+    from repro_torch.core.shares import AShare
+    out = {}
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}")
+        elif isinstance(t, (list, tuple)):
+            for i, x in enumerate(t):
+                walk(x, f"{path}[{i}]")
+        elif t is not None:
+            if isinstance(t, AShare) and path.startswith("/segments"):
+                t = AShare(torch.movedim(t.data, 0, 1))
+            out[path] = eng.to_plain(t).double()
+
+    walk(grads, "")
+    return out
+
+
+def grad_gap(want: dict, got: dict) -> dict:
+    """The gradient's gap, leaf by leaf (no copy of the whole tree): the
+    relative L2 error of all leaves together, the largest error over the
+    largest reference entry, the worst leaf's relative L2 (leaves with a
+    nonzero reference norm)."""
+    err2 = ref2 = err_max = ref_max = 0.0
+    leaves = {}
+    for k in sorted(want):
+        w, d = want[k], got[k].to(want[k].device) - want[k]
+        e2, r2 = float((d * d).sum()), float((w * w).sum())
+        err2, ref2 = err2 + e2, ref2 + r2
+        err_max = max(err_max, float(d.abs().max()))
+        ref_max = max(ref_max, float(w.abs().max()))
+        if r2 > 0:
+            leaves[k] = (e2 / r2) ** 0.5
+    worst = max(leaves, key=leaves.get)
+    return {"rel_l2": (err2 / ref2) ** 0.5, "err_per_max": err_max / ref_max,
+            "worst_leaf": worst, "worst_leaf_rel_l2": leaves[worst]}
+
+
+def shuffled(grads: dict, seed: int = 0) -> dict:
+    """Each leaf's entries permuted (a control the bounds must fail)."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    return {k: v.reshape(-1)[torch.randperm(v.numel(), generator=g).to(
+        v.device)].reshape(v.shape) for k, v in grads.items()}
+
+
+def train_main(args) -> int:
+    """The --train rehearsal (module docstring)."""
+    from repro_torch.configs import get
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn import model as M
+    from repro_torch.nn.engine import PlainEngine, TridentEngine
+    results = []
+    for name, cfg, shape in train_cases(get, args.cases == "full"):
+        for seed in range(args.seeds):
+            params = M.init_params(cfg, seed)
+            params["embed"]["table"] *= args.embed_scale
+            rs = np.random.RandomState(100 + seed)
+            ids = rs.randint(0, cfg.vocab, size=shape)
+            labels = rs.randint(0, cfg.vocab, size=shape)
+            extra = frontend(cfg, shape[0])
+            refs = {
+                "float64": loss_and_grads(PlainEngine(device=args.device),
+                                          cfg, params, ids, labels, extra),
+                "fixed_point": loss_and_grads(fixed_point_plain(args.device),
+                                              cfg, params, ids, labels,
+                                              extra)}
+            for mode in ("faithful", "collapsed"):
+                t0 = time.perf_counter()
+                ctx = make_context(RING64, seed=seed,
+                                   collapse=mode == "collapsed",
+                                   device=args.device)
+                loss, grads, dlogits = loss_and_grads(
+                    TridentEngine(ctx), cfg, params, ids, labels, extra)
+                r = {"case": name, "mode": mode, "seed": seed,
+                     "abort": ctx.abort_flag(), "loss": loss,
+                     "s": round(time.perf_counter() - t0, 1)}
+                for ref, (rloss, rgrads, rdl) in refs.items():
+                    r[ref] = dict(grad_gap(rgrads, grads),
+                                  loss_err=abs(rloss - loss),
+                                  dlogits_rel_l2=float(
+                                      (rdl - dlogits).norm() / rdl.norm()))
+                results.append(r)
+                print(f"{name} {mode} seed {seed}: loss {loss:.6f}; "
+                      + "; ".join(
+                          f"{ref}: rel L2 {r[ref]['rel_l2']:.4f}, "
+                          f"err/max {r[ref]['err_per_max']:.4f}, worst "
+                          f"{r[ref]['worst_leaf']} "
+                          f"{r[ref]['worst_leaf_rel_l2']:.4f}, loss err "
+                          f"{r[ref]['loss_err']:.2e}, dlogits rel L2 "
+                          f"{r[ref]['dlogits_rel_l2']:.4f}" for ref in refs)
+                      + f"; abort {r['abort']} ({r['s']} s)", flush=True)
+    print(json.dumps({"torch_lm_rehearsal_train": results,
+                      "embed_scale": args.embed_scale}))
+    return 0
+
+
 def errors(plain: list, secure: list, eng) -> list:
     rows = []
     for p, s in zip(plain, secure):
@@ -190,6 +416,8 @@ def main() -> int:
                     choices=("all", "recurrent", "full"))
     ap.add_argument("--widths", default="256")
     ap.add_argument("--prefill", type=int, default=128)
+    ap.add_argument("--train", action="store_true",
+                    help="the train step's gradients instead of the serve")
     args = ap.parse_args()
     import torch
     from repro_torch.configs import get
@@ -198,6 +426,8 @@ def main() -> int:
     from repro_torch.nn import model as M
     from repro_torch.nn.engine import PlainEngine, TridentEngine
     torch.set_num_threads(4)
+    if args.train:
+        return train_main(args)
 
     print(json.dumps({"rmsnorm_scale": {
         d: rmsnorm_scale(d, args.device) for d in (1024, 2048, 3584)}}),

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""The LM stack's serving path, port against the JAX package, bit for bit.
+"""The LM stack's serving path and its train step, port against the JAX
+package, bit for bit.
 
     PYTHONPATH=src python3 tools/torch_lm_vs_jax.py [--archs qwen3_1_7b,...]
-        [--layers 1] [--modes collapsed,faithful]
+        [--layers 1] [--modes collapsed,faithful] [--train]
 
 For each case's SMOKE config and each mode of the joint simulation
 (faithful, or collapsed), runs ``serve_prefill`` and ``serve_decode``
@@ -29,9 +30,26 @@ run's words (``digest``), then one JSON line.  The digests of the
 collapsed runs (at one layer for the attention families) are pinned in
 ``tests/test_torch_lm.py``, which holds the port's serve to them.
 
+``--train``: the train step instead (``TRAIN_CASES`` by default): each
+case's SMOKE config at ``--layers`` layers, ``init_params(cfg, 0)``, one
+``train_step`` of (2, 8) ids and labels (with the frontend's embeddings)
+at lr 2^-6 through both packages on the same context seed; asserts equal
+new params (every leaf's words), loss, ``totals()`` and abort flag.  The
+cases: the four attention families; ``qwen3_1_7b+remat`` (cfg.remat: the
+reverse loop re-runs each layer's forward); ``mixtral_8x7b+dense`` (dense
+routing); ``qwen3_1_7b+microbatch`` (cfg.microbatch 2).  The JAX
+package's microbatched step scales each stacked grads leaf as a share
+whose component axis is the layer axis (ROADMAP F5: its new params come
+out (4, 4, ...)); for that case the JAX run's ``_tree_scale`` is replaced,
+in this process only, by one that scales a stacked leaf as one (n, ...)
+share, as its ``_stacked_upd`` updates it and as the port does.  The
+collapsed runs' digests (``train_digest``) are pinned in
+``tests/test_torch_lm_train.py``.
+
 The JAX reference compiles every ``lax.scan`` body, so a run takes minutes
-(about 85 s for qwen3 collapsed at one layer on one CPU): too slow for the
-tier-1 tests, which run only the port and compare its digest.
+(about 85 s for qwen3 collapsed at one layer on one CPU, a train step
+about 155 s): too slow for the tier-1 tests, which run only the port and
+compare its digest.
 """
 from __future__ import annotations
 
@@ -57,6 +75,12 @@ LONG_WINDOW = 12
 CASES = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny", "phi_3_vision_4_2b",
          "zamba2_7b", "xlstm_350m", "zamba2_7b" + LONG,
          "mixtral_8x7b" + LONG)
+
+
+TRAIN_CASES = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
+               "phi_3_vision_4_2b", "qwen3_1_7b+remat",
+               "mixtral_8x7b+dense", "qwen3_1_7b+microbatch")
+TRAIN_LR = 2.0 ** -6
 
 
 def _words(x):
@@ -199,39 +223,170 @@ def compare(j, t) -> list:
     return bad
 
 
+def train_config(get, case: str, layers: int):
+    """A train case's SMOKE config at `layers` layers, with its variant
+    ("+remat", "+dense", "+microbatch")."""
+    arch, _, variant = case.partition("+")
+    cfg = get(arch).SMOKE
+    cfg = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=min(
+        cfg.n_encoder_layers, layers))
+    change = {"": {}, "remat": {"remat": True},
+              "dense": {"moe_routing": "dense"},
+              "microbatch": {"microbatch": 2}}[variant]
+    return dataclasses.replace(cfg, **change)
+
+
+def train_inputs(cfg, eng):
+    """(ids, labels, frontend kwargs) of a train case: (2, 8) each."""
+    rs = np.random.RandomState(1)
+    ids = rs.randint(0, cfg.vocab, size=IDS_SHAPE)
+    labels = rs.randint(0, cfg.vocab, size=IDS_SHAPE)
+    return ids, labels, _inputs(cfg, eng, False)[1]
+
+
+def _train(M, get, eng, case: str, layers: int) -> tuple:
+    cfg = train_config(get, case, layers)
+    ids, labels, kw = train_inputs(cfg, eng)
+    params = M.params_to_engine(eng, M.init_params(cfg, 0))
+    new, loss, _ = M.train_step(eng, cfg, params, ids, labels, lr=TRAIN_LR,
+                                **kw)
+    return new, np.float32(np.asarray(
+        loss.cpu() if hasattr(loss, "cpu") else loss))
+
+
+def _jax_tree_scale_f5(eng, grads, c):
+    """The JAX package's ``_tree_scale`` with ROADMAP F5 fixed: a stacked
+    segment leaf scaled as one (n, ...) share (its component axis moved
+    first and back, as ``_stacked_upd`` does), in the same leaf order."""
+    import jax
+    import jax.numpy as jnp
+    from repro.core.shares import AShare
+    from repro.nn import model as JM
+
+    def one(x):
+        return eng.scale(x, c)
+
+    def stacked(x):
+        r = eng.scale(AShare(jnp.moveaxis(x.data, 0, 1)), c)
+        return AShare(jnp.moveaxis(r.data, 0, 1))
+
+    out = {}
+    for key in sorted(grads):
+        if key == "segments":
+            out[key] = [None if g is None else jax.tree_util.tree_map(
+                stacked, g, is_leaf=JM._is_tensor) for g in grads[key]]
+        else:
+            out[key] = jax.tree_util.tree_map(one, grads[key],
+                                              is_leaf=JM._is_tensor)
+    return out
+
+
+def run_jax_train(case: str, layers: int, collapse: bool):
+    from repro.configs import get
+    from repro.core.context import make_context
+    from repro.core.ring import RING64
+    from repro.nn import model as JM
+    from repro.nn.engine import TridentEngine
+    ctx = make_context(RING64, seed=SEED, collapse=collapse)
+    orig = JM._tree_scale
+    if case.endswith("+microbatch"):
+        JM._tree_scale = _jax_tree_scale_f5
+    try:
+        run = _train(JM, get, TridentEngine(ctx), case, layers)
+    finally:
+        JM._tree_scale = orig
+    return run + (ctx.tally.totals(), bool(ctx.abort_flag()))
+
+
+def run_port_train(case: str, layers: int, collapse: bool):
+    from repro_torch.configs import get
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn import model as TM
+    from repro_torch.nn.engine import TridentEngine
+    ctx = make_context(RING64, seed=SEED, collapse=collapse, device="cpu")
+    run = _train(TM, get, TridentEngine(ctx), case, layers)
+    return run + (ctx.tally.totals(), ctx.abort_flag())
+
+
+def train_digest(run) -> str:
+    """sha256 of a train run: every new-params leaf's path, shape and
+    words (tree order), the loss's float32 bytes, ``totals()`` and the
+    abort flag."""
+    h = hashlib.sha256()
+    for path, x in _leaves(run[0]):
+        w = np.ascontiguousarray(_words(x))
+        h.update(f"{path}{w.shape}".encode())
+        h.update(w.tobytes())
+    h.update(np.float32(run[1]).tobytes())
+    h.update(json.dumps([run[2], run[3]], sort_keys=True).encode())
+    return h.hexdigest()
+
+
+def compare_train(j, t) -> list:
+    """The differences between two train runs (empty: equal)."""
+    bad = []
+    la, lb = list(_leaves(j[0])), list(_leaves(t[0]))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return ["new params: tree layouts differ"]
+    for (path, x), (_, y) in zip(la, lb):
+        wx, wy = _words(x), _words(y)
+        if wx.shape != wy.shape or not np.array_equal(wx, wy):
+            first = None if wx.shape != wy.shape else \
+                np.argwhere(wx != wy)[0].tolist()
+            bad.append(f"new params{path}: words differ (shapes {wx.shape} "
+                       f"/ {wy.shape}, first at {first})")
+    if np.float32(j[1]) != np.float32(t[1]):
+        bad.append(f"losses differ: {j[1]} / {t[1]}")
+    if j[2] != t[2]:
+        bad.append(f"totals() differ: {j[2]} / {t[2]}")
+    if j[3] != t[3]:
+        bad.append(f"abort flags differ: {j[3]} / {t[3]}")
+    return bad
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--archs", default=",".join(CASES),
-                    help="cases: arch ids, an arch + '+long_ctx'")
+    ap.add_argument("--archs", default=None,
+                    help="cases: arch ids, an arch + '+long_ctx' (with "
+                         "--train: + '+remat', '+dense', '+microbatch')")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--modes", default="collapsed,faithful")
+    ap.add_argument("--train", action="store_true",
+                    help="the train step instead of the serve")
     args = ap.parse_args()
     import torch
     torch.set_num_threads(1)
+    if args.train:
+        runs = (run_jax_train, run_port_train, compare_train, train_digest,
+                TRAIN_CASES)
+    else:
+        runs = (run_jax, run_port, compare, digest, CASES)
+    jax_run, port_run, cmp, dig, cases = runs
     results = []
-    for arch in args.archs.split(","):
+    for arch in (args.archs.split(",") if args.archs else cases):
         for mode in args.modes.split(","):
             collapse = mode == "collapsed"
             t0 = time.perf_counter()
-            j = run_jax(arch, args.layers, collapse)
+            j = jax_run(arch, args.layers, collapse)
             t1 = time.perf_counter()
-            t = run_port(arch, args.layers, collapse)
+            t = port_run(arch, args.layers, collapse)
             t2 = time.perf_counter()
-            bad = compare(j, t)
+            bad = cmp(j, t)
             results.append({"arch": arch, "mode": mode,
                             "layers": args.layers, "equal": not bad,
                             "differences": bad[:10],
-                            "totals": t[4], "abort": t[5],
-                            "jax_digest": digest(j),
+                            "totals": t[-2], "abort": t[-1],
+                            "jax_digest": dig(j),
                             "jax_s": round(t1 - t0, 1),
                             "port_s": round(t2 - t1, 1)})
             print(f"{arch} {mode}: {'EQUAL' if not bad else 'DIFFER'} "
                   f"(JAX {t1 - t0:.1f} s, port {t2 - t1:.1f} s; abort "
-                  f"{t[5]}; totals {t[4]}; JAX digest {digest(j)})",
+                  f"{t[-1]}; totals {t[-2]}; JAX digest {dig(j)})",
                   flush=True)
             for line in bad[:10]:
                 print(f"  {line}", flush=True)
-    print(json.dumps({"torch_lm_vs_jax": results}))
+    print(json.dumps({"torch_lm_vs_jax": results, "train": args.train}))
     return 0 if all(r["equal"] for r in results) else 1
 
 
