@@ -290,6 +290,27 @@ from the root of a checkout.  In order, it
      ROADMAP N6).  It prints the sharing time, the steps' walls, the busy
      share and top device operations, launches per step and the peak
      device memory.
+ 17. LM training of the recurrent families (phase "lm-recurrent-train"):
+     (a) with the kernel rows of step 3, K2 held against ``torch.matmul``
+     on the CPU at the training shapes not timed before (the retention
+     backward's new chunk products at zamba2's and xlstm's widths, the
+     sLSTM backward's public contractions, zamba2's shared block at 512
+     positions, phase lm-train's attention at 704), each timed beside its
+     bound; (b) zamba2's and xlstm's SMOKE configs uncut (zamba2's shared
+     block applied twice), (2, 16) ids and labels (two chunks): one
+     ``train_step`` each on the card and on the CPU, faithful and
+     collapsed, and two steps of xlstm through ``train.optim.Momentum``,
+     collapsed: equal new params and momentum buffers, losses,
+     ``totals()``, no abort, the card's launches the CPU run's wrapper
+     calls; (c) zamba2-7b's CONFIG (d_model 3,584, 32 heads, ssm_state 64,
+     d_ff 14,336, vocab 32,000, remat) cut to 2 of 81 layers with the
+     shared block after each (its gradient summed over two uses) and (d)
+     xlstm-350m's CONFIG whole (24 layers), 512 ids and labels each (two
+     chunks of 256), batch 1, faithful, the embedding at scale 0.5: per
+     model two driven steps and a profiled one, as step 16's main path,
+     with the gradients held against the fixed-point model within the
+     bounds of ``tools/torch_lm_rehearsal.py --train --cases
+     full-recurrent``.  It prints the same figures as step 16 for each.
 
 Each path (the deal and the online-only run of steps 5 and 10 and the
 offline and online runs of step 8 being two each; step 11's, 12's and
@@ -306,7 +327,8 @@ last lines come
 ``{"runtime_train": {...}}`` (step 10's), ``{"cluster": {...}}`` (step
 11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's),
 ``{"lm": {...}}`` (step 14's), ``{"lm_recurrent": {...}}`` (step 15's),
-``{"lm_train": {...}}`` (step 16's) and ``{"kernels": [...]}``, then
+``{"lm_train": {...}}`` (step 16's), ``{"lm_recurrent_train": {...}}``
+(step 17's) and ``{"kernels": [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -1116,6 +1138,8 @@ def kernel_phase(rng, ptxas: dict, prf_instructions: int | None) -> list:
     rows.update(batched_rows(rng, dev))
     rows[ops.RING_MATMUL_BATCHED.name]["recurrent_shapes"] = \
         recurrent_k2_rows(np.random.RandomState(LM_SEED))
+    rows[ops.RING_MATMUL_BATCHED.name]["train_shapes"] = recurrent_k2_rows(
+        np.random.RandomState(LM_SEED), LMRT_K2_SHAPES, "lm-recurrent-train")
     # the 2-D entry at the LM's shapes (phases lm and lm-train)
     rows[ops.RING_MATMUL.name]["lm_shapes"] = lm_matmul_rows(
         np.random.RandomState(LM_SEED))
@@ -4256,18 +4280,19 @@ LMR_K2_SHAPES = (
     ("slstm_last_weighted", (1, 1, 4, 1, 256), (4, 1, 4, 256, 256)))
 
 
-def recurrent_k2_rows(rng) -> list:
-    """K2 at LMR_K2_SHAPES against torch.matmul of the same words on the
-    CPU (``torch.equal``), each timed (device ms by the profiler, the
-    wrapper call by CUDA events, the CPU's torch.matmul on the host clock)
-    beside its bound: phase lm-recurrent's part (a), run with the kernel
-    rows.  No launch here counts toward a path."""
+def recurrent_k2_rows(rng, shapes: tuple = LMR_K2_SHAPES,
+                      phase: str = "lm-recurrent") -> list:
+    """K2 at `shapes` against torch.matmul of the same words on the CPU
+    (``torch.equal``), each timed (device ms by the profiler, the wrapper
+    call by CUDA events, the CPU's torch.matmul on the host clock) beside
+    its bound: part (a) of phases lm-recurrent and lm-recurrent-train,
+    run with the kernel rows.  No launch here counts toward a path."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ring_matmul as RM
     dev = torch.device(LM_DEVICE)
     rows = []
-    for name, sa, sb in LMR_K2_SHAPES:
+    for name, sa, sb in shapes:
         a = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=sa,
                                          dtype=np.int64))
         b = torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=sb,
@@ -4277,7 +4302,7 @@ def recurrent_k2_rows(rng) -> list:
         torch.cuda.synchronize()
         want = torch.matmul(a, b)
         check(torch.equal(got.cpu(), want),
-              f"lm-recurrent: ring_matmul_batched disagrees with "
+              f"{phase}: ring_matmul_batched disagrees with "
               f"torch.matmul at {name} {sa} @ {sb}")
         rows.append({
             "shape": name, "a": list(sa), "b": list(sb), "max_abs_err": 0,
@@ -4287,7 +4312,7 @@ def recurrent_k2_rows(rng) -> list:
             "plain_ms": host_ms(lambda: torch.matmul(a, b), reps=2),
             **batched_bound(sa, sb)})
         r = rows[-1]
-        print(f"lm-recurrent: K2 {name} {sa} @ {sb} equal to "
+        print(f"{phase}: K2 {name} {sa} @ {sb} equal to "
               f"torch.matmul: {r['ms']:.5f} ms on the device, call "
               f"{r['call_ms']:.5f} ms (CPU {r['plain_ms']:.3f} ms); bound "
               f"{r['bound_ms']:.5f} ms by {r['bound_by']}")
@@ -4674,8 +4699,10 @@ def lmt_labels(cfg, shape: tuple) -> tuple:
             rs.randint(0, cfg.vocab, size=shape))
 
 
-def lmt_secure(device: str, cfg, params, ids, labels, collapse: bool):
-    """One train_step on a fresh context; (ctx, new params, loss)."""
+def lmt_secure(device: str, cfg, params, ids, labels, collapse: bool,
+               optimizer=None, steps: int = 1):
+    """`steps` train_steps (plain SGD, or `optimizer`'s) on a fresh
+    context; (ctx, (new params, optimizer state), [each step's loss])."""
     from repro_torch.core.context import make_context
     from repro_torch.core.ring import RING64
     from repro_torch.nn import model as LM
@@ -4684,57 +4711,72 @@ def lmt_secure(device: str, cfg, params, ids, labels, collapse: bool):
                        device=device)
     eng = TridentEngine(ctx)
     extra = lm_frontend(cfg, ids.shape[0])
-    new, loss, _ = LM.train_step(eng, cfg, LM.params_to_engine(eng, params),
-                                 ids, labels, lr=LMT_LR,
-                                 **(extra(eng) if extra else {}))
-    return ctx, new, loss
+    pe, state, losses = LM.params_to_engine(eng, params), None, []
+    for _ in range(steps):
+        pe, loss, state = LM.train_step(
+            eng, cfg, pe, ids, labels, lr=LMT_LR, optimizer=optimizer,
+            opt_state=state, **(extra(eng) if extra else {}))
+        losses.append(float(loss))
+    return ctx, (pe, state), losses
+
+
+def same_words(a, b) -> bool:
+    """Two trees of shares (a share's data, or None) hold the same words,
+    leaf for leaf; `b` on the CPU."""
+    import torch
+    la, lb = list(lm_leaves(a)), list(lm_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        (x is None and y is None) or (x is not None and y is not None
+                                      and torch.equal(x.cpu(), y))
+        for (_, x), (_, y) in zip(la, lb))
 
 
 def lmt_card_vs_cpu(path: str, kernels: list, needed: tuple, cfg, params,
-                    ids, labels, collapse: bool, card: str) -> dict:
-    """One train step on the card (a driven path) and on the CPU: equal
-    new params words, loss, totals(), no abort, the card's launches the
-    CPU run's wrapper calls."""
-    import torch
+                    ids, labels, collapse: bool, card: str,
+                    optimizer=None, steps: int = 1) -> dict:
+    """Train steps (``lmt_secure``) on the card (a driven path) and on the
+    CPU: equal new params and optimizer state words, losses, totals(), no
+    abort, the card's launches the CPU run's wrapper calls."""
     from repro_torch.kernels import ops
     (ctx, new, loss), wall = drive(
         path, kernels, needed,
-        lambda: lmt_secure(LM_DEVICE, cfg, params, ids, labels, collapse), 1,
-        unit="step")
+        lambda: lmt_secure(LM_DEVICE, cfg, params, ids, labels, collapse,
+                           optimizer, steps), steps, unit="step")
     card_launches = {k["name"]: k["launches_by_path"][path] for k in kernels}
     ops.reset_launches()
     t0 = time.perf_counter()
-    rctx, rnew, rloss = lmt_secure("cpu", cfg, params, ids, labels, collapse)
+    rctx, rnew, rloss = lmt_secure("cpu", cfg, params, ids, labels, collapse,
+                                   optimizer, steps)
     cpu_s = time.perf_counter() - t0
     calls = {k.name: k.calls for k in ops.KERNELS}
     check(not ctx.abort_flag() and not rctx.abort_flag(), f"{path}: aborted")
-    la, lb = list(lm_leaves(new)), list(lm_leaves(rnew))
-    check([p for p, _ in la] == [p for p, _ in lb] and all(
-        torch.equal(a.cpu(), b) for (_, a), (_, b) in zip(la, lb)),
-        f"{path}: new params words differ between the card and the CPU")
-    check(float(loss) == float(rloss),
-          f"{path}: loss {float(loss)} on the card, {float(rloss)} on the "
-          f"CPU")
+    check(same_words(new, rnew), f"{path}: new params or optimizer state "
+          f"words differ between the card and the CPU")
+    check(loss == rloss, f"{path}: losses {loss} on the card, {rloss} on "
+          f"the CPU")
     check(ctx.tally.totals() == rctx.tally.totals(),
           f"{path}: totals() differ between the card and the CPU")
     check(card_launches == calls,
           f"{path}: launches on the card {card_launches}, wrapper calls on "
           f"the CPU {calls}")
-    print(f"{path} [{card}]: new params, loss {float(loss):.6f} and "
-          f"totals() equal to the CPU run, no abort; launches = the CPU "
-          f"run's wrapper calls; card {wall:.2f} s, CPU {cpu_s:.2f} s")
-    return {"wall_s": wall, "cpu_s": cpu_s, "loss": float(loss),
-            "totals": ctx.tally.totals(),
+    print(f"{path} [{card}]: new params{', optimizer state' * bool(optimizer)}"
+          f", losses {[round(v, 6) for v in loss]} and totals() equal to the "
+          f"CPU run, no abort; launches = the CPU run's wrapper calls; card "
+          f"{wall:.2f} s, CPU {cpu_s:.2f} s ({steps} step(s))")
+    return {"wall_s": wall, "cpu_s": cpu_s, "loss": loss[-1], "losses": loss,
+            "steps": steps, "totals": ctx.tally.totals(),
             "launches": {n: c for n, c in card_launches.items() if c}}
 
 
 def lmt_grads_vs_float64(cfg, params, ids, labels, secure_loss: float,
-                         secure: dict, card: str) -> dict:
-    """The main path's first step's loss and gradients (opened, float64
-    on the card) against the fixed-point model from the same weights
-    (held, LMT_GRAD_BOUNDS and LMT_LOSS_ATOL; all-zero and shuffled
-    gradients must fail) and against plain float64 (ROADMAP N6,
-    reported)."""
+                         secure: dict, card: str, phase: str = "lm-train",
+                         bounds: tuple = LMT_GRAD_BOUNDS,
+                         loss_atol: float = LMT_LOSS_ATOL) -> dict:
+    """A main path's first step's loss and gradients (opened, float64)
+    against the fixed-point model from the same weights on the card (held
+    within `bounds` (relative L2, error per largest entry) and
+    `loss_atol`; all-zero and shuffled gradients must fail) and against
+    plain float64 (ROADMAP N6, reported)."""
     import torch
     import torch_lm_rehearsal as RH
     from repro_torch.nn.engine import PlainEngine
@@ -4750,56 +4792,68 @@ def lmt_grads_vs_float64(cfg, params, ids, labels, secure_loss: float,
                          s=time.perf_counter() - t0)
         if name == "fixed_point":
             def within(g):
-                return g["rel_l2"] <= LMT_GRAD_BOUNDS[0] and \
-                    g["err_per_max"] <= LMT_GRAD_BOUNDS[1]
-            check(within(gap), f"lm-train: the gradients lie {gap} from the "
-                  f"fixed-point model; bounds {LMT_GRAD_BOUNDS}")
-            check(out[name]["loss_err"] <= LMT_LOSS_ATOL,
-                  f"lm-train: loss {secure_loss} against the fixed-point "
+                return g["rel_l2"] <= bounds[0] and \
+                    g["err_per_max"] <= bounds[1]
+            check(within(gap), f"{phase}: the gradients lie {gap} from the "
+                  f"fixed-point model; bounds {bounds}")
+            check(out[name]["loss_err"] <= loss_atol,
+                  f"{phase}: loss {secure_loss} against the fixed-point "
                   f"model's {loss}")
             zeros = RH.grad_gap(want, {k: torch.zeros_like(v)
                                        for k, v in want.items()})
             mixed = RH.grad_gap(want, RH.shuffled(want))
             check(not within(zeros) and not within(mixed),
-                  f"lm-train: all-zero ({zeros}) or shuffled ({mixed}) "
+                  f"{phase}: all-zero ({zeros}) or shuffled ({mixed}) "
                   f"gradients pass the bounds")
             out[name]["zeros_rel_l2"] = zeros["rel_l2"]
             out[name]["shuffled_rel_l2"] = mixed["rel_l2"]
         del want
         torch.cuda.empty_cache()
-    print(f"lm-train [{card}]: loss {secure_loss:.6f}; gradients against "
-          f"the fixed-point model {out['fixed_point']} (held: "
-          f"{LMT_GRAD_BOUNDS}, loss {LMT_LOSS_ATOL}); against plain "
-          f"float64 {out['float64']} (ROADMAP N6, not held)")
+    print(f"{phase} [{card}]: {cfg.name}: loss {secure_loss:.6f}; "
+          f"gradients against the fixed-point model {out['fixed_point']} "
+          f"(held: {bounds}, loss {loss_atol}); against plain float64 "
+          f"{out['float64']} (ROADMAP N6, not held)")
     return out
 
 
 def lmt_main_path(kernels: list, card: str) -> dict:
-    """phi-3-vision-4.2b at full width (LMT_LAYERS of its layers):
-    init_params, params_to_engine on the card, LMT_STEPS driven steps
-    (``loss_and_grads`` then ``sgd_update``, the first's gradients opened,
-    the second's walls kept), one more step through ``train_step``
-    profiled; ring_matmul and and_level at every shape the steps gave
-    them, exact; the first step's loss and gradients against float64."""
-    import torch
+    """phi-3-vision-4.2b at full width (LMT_LAYERS of its layers), through
+    ``train_main_path``."""
     from repro_torch.configs import get
+    full = get("phi_3_vision_4_2b").CONFIG
+    cfg = lm_cut(full, LMT_LAYERS)
+    return train_main_path(
+        kernels, card, "lm-train", "lmt", "phi_3_vision_4_2b", cfg,
+        {"heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads, "d_head": cfg.dh,
+         "frontend_tokens": cfg.frontend_tokens, "layers": LMT_LAYERS,
+         "of_layers": full.n_layers,
+         "cuts": [f"layers {LMT_LAYERS} of {full.n_layers}"]},
+        LMT_IDS, LMT_GRAD_BOUNDS, LMT_LOSS_ATOL)
+
+
+def train_main_path(kernels: list, card: str, phase: str, prefix: str,
+                    arch: str, cfg, about: dict, n_ids: int, bounds: tuple,
+                    loss_atol: float) -> dict:
+    """A training main path at full width: init_params, params_to_engine
+    on the card, LMT_STEPS driven steps of `n_ids` ids and labels at batch
+    1, faithful (paths ``{prefix}_step{i}``: ``loss_and_grads`` then
+    ``sgd_update``, the first's gradients opened, each part's wall kept),
+    one more step through ``train_step`` profiled; ring_matmul and
+    and_level at every shape the steps gave them, exact; the first step's
+    loss and gradients against float64 (``lmt_grads_vs_float64``).
+    `about`: the config's facts and cuts for the report."""
+    import torch
     from repro_torch.core.context import make_context
     from repro_torch.core.ring import RING64
     from repro_torch.nn import model as LM
     from repro_torch.nn.engine import TridentEngine
     import torch_lm_rehearsal as RH
-    cfg = lm_cut(get("phi_3_vision_4_2b").CONFIG, LMT_LAYERS)
     rep = {"config": {
-        "arch": cfg.name, "layers": LMT_LAYERS,
-        "of_layers": get("phi_3_vision_4_2b").CONFIG.n_layers,
-        "d_model": cfg.d_model, "heads": cfg.n_heads,
-        "kv_heads": cfg.n_kv_heads, "d_head": cfg.dh, "d_ff": cfg.d_ff,
-        "vocab": cfg.vocab, "frontend_tokens": cfg.frontend_tokens,
-        "ids": LMT_IDS, "batch": 1, "remat": cfg.remat, "mode": "faithful",
-        "lr": LMT_LR, "embed_scale": LM_EMBED_SCALE, "steps": LMT_STEPS,
-        "cuts": [f"layers {LMT_LAYERS} of "
-                 f"{get('phi_3_vision_4_2b').CONFIG.n_layers}"]}}
-    print(f"lm-train [{card}]: main path {rep['config']}")
+        "arch": cfg.name, "segments": cfg.segments(), "d_model": cfg.d_model,
+        "d_ff": cfg.d_ff, "vocab": cfg.vocab, "ids": n_ids, "batch": 1,
+        "remat": cfg.remat, "mode": "faithful", "lr": LMT_LR,
+        "embed_scale": LM_EMBED_SCALE, "steps": LMT_STEPS, **about}}
+    print(f"{phase} [{card}]: main path {rep['config']}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -4807,18 +4861,20 @@ def lmt_main_path(kernels: list, card: str) -> dict:
     params["embed"]["table"] *= LM_EMBED_SCALE
     rep["init_params_s"] = time.perf_counter() - t0
     rep["parameters"] = int(sum(np.asarray(leaf).size
-                                for _, leaf in lm_leaves(params)))
-    ids, labels = lmt_labels(cfg, (1, LMT_IDS))
+                                for _, leaf in lm_leaves(params)
+                                if leaf is not None))
+    ids, labels = lmt_labels(cfg, (1, n_ids))
     ctx = make_context(RING64, seed=LM_SEED, device=LM_DEVICE)
     eng = TridentEngine(ctx)
-    extra = lm_frontend(cfg, 1)(eng)
+    front = lm_frontend(cfg, 1)
+    extra = front(eng) if front else {}
     t0 = time.perf_counter()
     pe = LM.params_to_engine(eng, params)
     torch.cuda.synchronize()
     rep["share_s"] = time.perf_counter() - t0
-    print(f"lm-train [{card}]: {rep['parameters']} parameters, init_params "
-          f"{rep['init_params_s']:.1f} s on the host, shared on the card in "
-          f"{rep['share_s']:.2f} s; "
+    print(f"{phase} [{card}]: {cfg.name}: {rep['parameters']} parameters, "
+          f"init_params {rep['init_params_s']:.1f} s on the host, shared on "
+          f"the card in {rep['share_s']:.2f} s; "
           f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
     needed = ("prf_mask", "ring_matmul", "ring_matmul_batched", "and_level")
     seen = {"ring_matmul": set(), "and_level": set()}
@@ -4832,7 +4888,9 @@ def lmt_main_path(kernels: list, card: str) -> dict:
         torch.cuda.synchronize()
         walls["loss_and_grads_s"] = time.perf_counter() - t0
         if not first:
-            first["grads"] = RH.grads_plain(eng, grads)
+            # opened on the host: the card holds the trees
+            first["grads"] = {k: v.cpu() for k, v in
+                              RH.grads_plain(eng, grads).items()}
         t0 = time.perf_counter()
         pe = LM.sgd_update(eng, pe, grads, LMT_LR)
         torch.cuda.synchronize()
@@ -4843,45 +4901,45 @@ def lmt_main_path(kernels: list, card: str) -> dict:
 
     for i in range(LMT_STEPS):
         _, wall = record_shapes(seen, lambda: drive(
-            f"lmt_step{i + 1}", kernels, needed, step, 1, unit="step"))
+            f"{prefix}_step{i + 1}", kernels, needed, step, 1, unit="step"))
         steps[-1]["wall_s"] = wall
-        check(np.isfinite(losses[-1]), f"lm-train: step {i + 1}'s loss "
-              f"{losses[-1]}")
-    check(not ctx.abort_flag(), "lm-train: the full-width step aborted")
+        check(np.isfinite(losses[-1]), f"{phase}: {cfg.name} step {i + 1}'s "
+              f"loss {losses[-1]}")
+    check(not ctx.abort_flag(), f"{phase}: the {cfg.name} step aborted")
     rep["steps"] = steps
     rep["losses"] = losses
-    last = f"lmt_step{LMT_STEPS}"
+    last = f"{prefix}_step{LMT_STEPS}"
     rep["launches_per_step"] = {
         k["name"]: k["launches_by_path"][last] for k in kernels
         if k["launches_by_path"][last]}
     rep["totals"] = ctx.tally.totals()
     by_name = {}
     busy, dops = profile_batch(
-        "lm-train", lambda: LM.train_step(eng, cfg, pe, ids, labels,
-                                          lr=LMT_LR, **extra),
+        f"{phase} {cfg.name}", lambda: LM.train_step(
+            eng, cfg, pe, ids, labels, lr=LMT_LR, **extra),
         steps[-1]["wall_s"], unit="training step", by_name=by_name)
     top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
     rep["profile_step"] = {
         "busy_ms": busy, "device_ops": dops, "wall_s": steps[-1]["wall_s"],
         "busy_share": busy / (steps[-1]["wall_s"] * 1e3),
         "top_ms": {k[:80]: v for k, v in top}}
-    check(not ctx.abort_flag(), "lm-train: the profiled step aborted")
+    check(not ctx.abort_flag(), f"{phase}: the profiled {cfg.name} step "
+          f"aborted")
     rep["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() \
         / 2**30
-    print(f"lm-train [{card}]: phi-3-vision-4.2b at full width "
-          f"({LMT_LAYERS} of {rep['config']['of_layers']} layers), "
-          f"{LMT_IDS} ids + {cfg.frontend_tokens} frontend positions: "
-          f"steps {[{k: round(v, 3) for k, v in s.items()} for s in steps]}"
+    print(f"{phase} [{card}]: {cfg.name} at full width ({about['cuts']}), "
+          f"{n_ids} ids: steps "
+          f"{[{k: round(v, 3) for k, v in s.items()} for s in steps]}"
           f"; losses {losses}; launches per step "
           f"{rep['launches_per_step']}; busy share "
           f"{rep['profile_step']['busy_share']:.3f}; peak device memory "
           f"{rep['max_memory_allocated_gib']:.1f} GiB; no abort")
     del pe, eng, extra
     torch.cuda.empty_cache()
-    rep["exact"] = lmr_exact_words("phi_3_vision_4_2b", seen, card,
-                                   phase="lm-train")
+    rep["exact"] = lmr_exact_words(arch, seen, card, phase=phase)
     rep["grads_vs_float64"] = lmt_grads_vs_float64(
-        cfg, params, ids, labels, losses[0], first.pop("grads"), card)
+        cfg, params, ids, labels, losses[0], first.pop("grads"), card, phase,
+        bounds, loss_atol)
     torch.cuda.empty_cache()
     return rep
 
@@ -4917,6 +4975,105 @@ def lm_train_phase(kernels: list, card: str) -> dict:
                                 "ring_matmul_batched"), cfg, params, ids,
                 labels, collapse, card)
     report["main_path"] = lmt_main_path(kernels, card)
+    return report
+
+
+# --- phase lm-recurrent-train: LM training of the recurrent families ----
+# (b) the SMOKE configs uncut (zamba2: two retention groups of 2, the
+# shared block applied twice; xlstm: one mLSTM + sLSTM pair), one
+# train_step of LMRT_SMOKE_IDS ids and labels (two chunks of seq_chunk 8)
+# each, faithful and collapsed, and LMRT_MOMENTUM_STEPS steps of xlstm
+# through train.optim.Momentum, collapsed
+LMRT_SMOKE_IDS = (2, 16)
+LMRT_MOMENTUM_STEPS = 2
+# (c), (d) the main paths (tools/torch_lm_rehearsal.py
+# full_recurrent_train_cases): zamba2-7b's CONFIG at 2 of 81 layers with
+# its shared block after each, and xlstm-350m's whole, 512 ids and labels
+# each (two chunks of 256), batch 1, faithful, remat, LMT_STEPS steps.
+# The gradients against the fixed-point model, as phase lm-train's
+# (relative L2, error per largest entry): tools/torch_lm_rehearsal.py
+# --train --cases recurrent on the CPU (3 seeds, faithful and collapsed):
+# at d_model 256 zamba2 0.099-0.163 (0.051-0.172), xlstm 0.055-0.063
+# (0.045-0.089); SMOKE up to 0.359 (0.377), zamba2 at one seed, where
+# one gate of a 32-wide model flips; --cases full-recurrent --device
+# cuda on an H100 80GB HBM3 at 700 W (these main paths, 3 seeds, both
+# modes): zamba2 0.125-0.161 (0.054-0.131), xlstm 0.037-0.039
+# (0.050-0.074), the loss within 8.7e-5; in this phase, at its own seed,
+# zamba2 0.163 (0.192) and xlstm 0.038 (0.045).  Held within
+# LMRT_GRAD_BOUNDS, the loss within LMRT_LOSS_ATOL; all-zero gradients
+# (relative L2 1) and shuffled ones (about 1.41) fail.  Against plain
+# float64 they lie 246-334x (zamba2) and 13,036-15,490x (xlstm) their
+# norm away (ROADMAP N6: xlstm's softmax sums 50,304 entries' bias).
+LMRT_GRAD_BOUNDS = {"zamba2_7b": (0.25, 0.35), "xlstm_350m": (0.1, 0.15)}
+LMRT_LOSS_ATOL = 1e-3
+# K2 at the training shapes not timed before: the retention backward's
+# new products (zamba2: 32 heads, C 256, d_k 64, d_v 112; xlstm: 4 heads,
+# d_v 256): dY V^T, dS_qk K (and dS_qk^T Q), dY Sm^T (and V dS^T);
+# sLSTM's backward public contractions (the transposed decay matrix
+# broadcast over the components and the batch, and the carry gradient's
+# weights a^{i+1}, M = 1); zamba2's shared block at 512 positions
+# (scores, and probs @ v, the shapes of its backward products too); and
+# phase lm-train's attention at phi-3-vision's 704 positions
+LMRT_K2_SHAPES = (
+    ("zamba2_bwd_dy_vT", (1, 32, 256, 112), (1, 32, 112, 256)),
+    ("zamba2_bwd_dsqk_k", (1, 32, 256, 256), (1, 32, 256, 64)),
+    ("zamba2_bwd_dy_SmT", (1, 32, 256, 112), (1, 32, 112, 64)),
+    ("xlstm_bwd_dsqk_k", (1, 4, 256, 256), (1, 4, 256, 64)),
+    ("slstm_bwd_pub_left_Dt", (1, 1, 4, 256, 256), (4, 1, 4, 256, 256)),
+    ("slstm_bwd_weighted_sum", (1, 1, 4, 1, 256), (4, 1, 4, 256, 256)),
+    ("zamba2_shared_train_scores", (1, 32, 512, 112), (1, 32, 112, 512)),
+    ("zamba2_shared_train_probs_v", (1, 32, 512, 512), (1, 32, 512, 112)),
+    ("phi3v_train_scores", (1, 32, 704, 96), (1, 32, 96, 704)),
+    ("phi3v_train_probs_v", (1, 32, 704, 704), (1, 32, 704, 96)))
+
+
+def lm_recurrent_train_phase(kernels: list, card: str) -> dict:
+    """(a) K2 at the training shapes (taken with the kernel rows:
+    ``recurrent_k2_rows``); (b) zamba2's and xlstm's SMOKE uncut, a train
+    step each on the card against the CPU, faithful and collapsed, and
+    xlstm's Momentum steps; (c), (d) the main paths: a train step of
+    zamba2-7b (2 of 81 layers, the shared block after each) and of
+    xlstm-350m whole, at full width (``train_main_path``)."""
+    from repro_torch.configs import get
+    from repro_torch.nn import model as LM
+    from repro_torch.train.optim import Momentum
+    import torch_lm_rehearsal as RH
+    phase = "lm-recurrent-train"
+    report = {"card": card, "smoke": {}}
+    rows = next(k for k in kernels if k["name"] == "ring_matmul_batched")[
+        "train_shapes"]
+    check([r["shape"] for r in rows] == [n for n, _, _ in LMRT_K2_SHAPES],
+          f"{phase}: K2 was not held at every training shape")
+    report["k2_shapes"] = [r["shape"] for r in rows]
+    needed = ("prf_mask", "ring_matmul", "ring_matmul_batched")
+    runs = [(arch, False, None, 1) for arch in LMR_SMOKE_ARCHS]
+    runs += [(arch, True, None, 1) for arch in LMR_SMOKE_ARCHS]
+    runs.append(("xlstm_350m", True, Momentum(lr=LMT_LR),
+                 LMRT_MOMENTUM_STEPS))
+    for arch, collapse, opt, steps in runs:
+        cfg = get(arch).SMOKE
+        params = LM.init_params(cfg, LM_SEED)
+        ids, labels = lmt_labels(cfg, LMRT_SMOKE_IDS)
+        path = f"lmrt_{arch}_{'collapsed' if collapse else 'faithful'}" + \
+            ("_momentum" if opt else "")
+        report["smoke"][path] = lmt_card_vs_cpu(
+            path, kernels, needed, cfg, params, ids, labels, collapse, card,
+            opt, steps)
+    for _, cfg, shape in RH.full_recurrent_train_cases(get):
+        arch = "zamba2_7b" if cfg.family == "hybrid" else "xlstm_350m"
+        full = get(arch).CONFIG
+        rc = cfg.ret_cfg()
+        cuts = [] if cfg.n_layers == full.n_layers else \
+            [f"layers {cfg.n_layers} of {full.n_layers}"]
+        if cfg.family == "hybrid":
+            cuts.append(f"shared_attn_every {cfg.shared_attn_every} of "
+                        f"{full.shared_attn_every}")
+        report[arch] = train_main_path(
+            kernels, card, phase, f"lmrt_{arch}", arch, cfg,
+            {"layers": cfg.n_layers, "of_layers": full.n_layers,
+             "heads": cfg.n_heads, "d_k": rc.d_k, "d_v": rc.d_v,
+             "seq_chunk": cfg.seq_chunk, "cuts": cuts},
+            shape[1], LMRT_GRAD_BOUNDS[arch], LMRT_LOSS_ATOL)
     return report
 
 
@@ -5250,6 +5407,11 @@ def main() -> int:
     lm_train = lm_train_phase(kernels, card)
     lap("lm-train")
 
+    # --- LM training of the recurrent families -----------------------------
+    print("phase lm-recurrent-train")
+    lm_recurrent_train = lm_recurrent_train_phase(kernels, card)
+    lap("lm-recurrent-train")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
@@ -5262,6 +5424,7 @@ def main() -> int:
     print(json.dumps({"lm": lm}))
     print(json.dumps({"lm_recurrent": lm_recurrent}))
     print(json.dumps({"lm_train": lm_train}))
+    print(json.dumps({"lm_recurrent_train": lm_recurrent_train}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -32,14 +32,14 @@ layer backward under keys of its own (tags ``seg_{kind}`` and
 forward starts from the backward loop's PRF counter, not the forward's:
 its masks, and so its truncations' rounding, may differ from the forward
 run's; the JAX package's do too, so the words are the same.
-``train_step`` is one step of plain SGD: ``loss_and_grads`` (the smx
+The shared block's backward runs outside any loop, at its place in the
+reversed segment order, and its gradients are summed over its uses into
+``grads["shared_attn"]`` (its segment's entry stays None).
+``train_step`` is one step of training: ``loss_and_grads`` (the smx
 softmax's cross-entropy gradient (p - onehot) / N, one declassified
-monitoring loss), optionally summed over microbatches, then
-``sgd_update``.  Training covers the attention kinds (attn_mlp,
-attn_moe, enc, xattn_mlp); the recurrent kinds' backward passes
-(retention, ret_slstm_pair, shared_attn) are still to port
-(ROADMAP Queue 1, item 2), and so are optimizers other than SGD (Queue 1,
-item 3).
+monitoring loss), optionally summed over microbatches, then plain SGD
+(``sgd_update``) or an optimizer of ``train.optim`` (``SGD``,
+``Momentum``).  Every segment kind trains.
 """
 from __future__ import annotations
 
@@ -300,7 +300,7 @@ def _seg_fwd(eng, cfg: ModelConfig, kind: str, stacked, x, count: int,
 def _block_bwd(eng, cfg: ModelConfig, kind: str, p, cache, dy):
     """One layer's backward pass: (dx, grads), and for xattn_mlp
     (dx, grads, d_enc)."""
-    if kind in ("attn_mlp", "enc", "attn_moe"):
+    if kind in ("attn_mlp", "enc", "attn_moe", "shared_attn"):
         c1, ca, c2, cm = cache
         if kind == "attn_moe":
             dm, g_m = B.moe_bwd(eng, p["moe"], cfg.moe_cfg(), cm, dy)
@@ -328,17 +328,22 @@ def _block_bwd(eng, cfg: ModelConfig, kind: str, p, cache, dy):
         grads = {"n1": g_n1, "attn": g_a, "nx": g_nx, "xattn": g_x,
                  "n2": g_n2, "mlp": g_m}
         return dx, grads, d_enc
-    _no_backward(kind)
-
-
-# the segment kinds with a backward pass in the port
-TRAINED_KINDS = ("attn_mlp", "attn_moe", "enc", "xattn_mlp")
-
-
-def _no_backward(kind: str):
-    raise NotImplementedError(
-        f"the {kind} kind has no backward pass in the port yet (ROADMAP "
-        f"Queue 1, item 2: LM training of the recurrent families)")
+    if kind == "retention":
+        c1, cr = cache
+        dr, g_r = R.retention_bwd(eng, p["ret"], cfg.ret_cfg(), cr, dy)
+        dh1, g_n1 = L.rmsnorm_bwd(eng, p["n1"], c1, dr)
+        return eng.add(dy, dh1), {"n1": g_n1, "ret": g_r}
+    if kind == "ret_slstm_pair":
+        # the sLSTM half first, then the retention half on its dx
+        c1, cr, c2, cs = cache
+        ds, g_s = R.slstm_bwd(eng, p["sl"], cfg.slstm_cfg(), cs, dy)
+        dh2, g_n2 = L.rmsnorm_bwd(eng, p["n2"], c2, ds)
+        dx1 = eng.add(dy, dh2)
+        dr, g_r = R.retention_bwd(eng, p["ret"], cfg.ret_cfg(), cr, dx1)
+        dh1, g_n1 = L.rmsnorm_bwd(eng, p["n1"], c1, dr)
+        return eng.add(dx1, dh1), {"n1": g_n1, "ret": g_r, "n2": g_n2,
+                                   "sl": g_s}
+    raise ValueError(kind)
 
 
 def _stack_layers(eng, trees: list):
@@ -422,20 +427,26 @@ def forward(eng: Engine, cfg: ModelConfig, params, ids,
 
 
 def backward(eng: Engine, cfg: ModelConfig, params, cache, dlogits):
-    """Returns the grads tree, laid out as params (segments stacked)."""
-    for kind, _ in cfg.segments():
-        if kind not in TRAINED_KINDS:
-            _no_backward(kind)
+    """Returns the grads tree, laid out as params (segments stacked; a
+    shared_attn segment's entry None, the shared block's gradients summed
+    over its uses in ``grads["shared_attn"]``)."""
     c_emb, n_front, seg_caches, c_fn, c_head, enc_out = cache
     dxn, g_head = L.linear_bwd(eng, params["lm_head"], c_head, dlogits)
     dx, g_fn = L.rmsnorm_bwd(eng, params["final_norm"], c_fn, dxn)
     grads = {"lm_head": g_head, "final_norm": g_fn}
     seg_grads = []
-    d_enc_total = None
+    d_enc_total = shared = None
     for (kind, count), stacked, cs in zip(
             reversed(cfg.segments()), reversed(params["segments"]),
             reversed(seg_caches)):
-        if kind == "enc":
+        if kind == "shared_attn":
+            # outside any loop, under the context's own keys and counter
+            dx, g_seg = _block_bwd(eng, cfg, kind, params["shared_attn"], cs,
+                                   dx)
+            shared = g_seg if shared is None else tree_map(eng.add, shared,
+                                                           g_seg)
+            g_seg = None
+        elif kind == "enc":
             # the encoder's grads come after the decoder's d_enc is summed
             _, g_seg = _seg_bwd(eng, cfg, kind, stacked, cs, d_enc_total,
                                 count)
@@ -448,6 +459,8 @@ def backward(eng: Engine, cfg: ModelConfig, params, cache, dlogits):
             dx, g_seg = _seg_bwd(eng, cfg, kind, stacked, cs, dx, count)
         seg_grads.append(g_seg)
     grads["segments"] = list(reversed(seg_grads))
+    if shared is not None:
+        grads["shared_attn"] = shared
     if n_front:
         dx = _drop_front(eng, dx, n_front)
     _, grads["embed"] = L.embedding_bwd(eng, params["embed"], c_emb, dx)
@@ -530,12 +543,11 @@ def _gather_labels(eng, p, labels):
 def train_step(eng: Engine, cfg: ModelConfig, params, ids, labels, lr=0.01,
                frontend_embs=None, enc_inputs=None, optimizer=None,
                opt_state=None):
-    """One SGD step (forward, backward, update), microbatched where
-    cfg.microbatch > 1.  Returns (new_params, loss, opt_state)."""
-    if optimizer is not None or opt_state is not None:
-        raise NotImplementedError(
-            "train_step takes plain SGD only: the port's optimizers are "
-            "ROADMAP Queue 1, item 3")
+    """One training step (forward, backward, update), microbatched where
+    cfg.microbatch > 1: plain SGD at `lr` (``sgd_update``), or
+    `optimizer`'s update (``train.optim``; its state from
+    ``optimizer.init`` where `opt_state` is None).  Returns (new_params,
+    loss, opt_state)."""
     if cfg.microbatch and cfg.microbatch > 1:
         loss, grads = _microbatched_grads(eng, cfg, params, ids, labels,
                                           frontend_embs, enc_inputs)
@@ -543,7 +555,12 @@ def train_step(eng: Engine, cfg: ModelConfig, params, ids, labels, lr=0.01,
         loss, grads = loss_and_grads(eng, cfg, params, ids, labels,
                                      frontend_embs=frontend_embs,
                                      enc_inputs=enc_inputs)
-    return sgd_update(eng, params, grads, lr), loss, None
+    if optimizer is None:
+        return sgd_update(eng, params, grads, lr), loss, None
+    if opt_state is None:
+        opt_state = optimizer.init(eng, params)
+    new_params, opt_state = optimizer.update(eng, params, grads, opt_state)
+    return new_params, loss, opt_state
 
 
 def _microbatched_grads(eng, cfg, params, ids, labels, fe, enc):
@@ -572,19 +589,28 @@ def _slice0(eng, x, sl):
 
 def _tree_scale(eng, grads, c: float):
     """Each grads leaf times c (one truncation a leaf where c < 1), in the
-    JAX package's leaf order.  A segment's stacked leaf is scaled as one
-    (n, ...) share, as ``sgd_update`` updates it.  (The JAX package scales
+    JAX package's leaf order (``map_params``).  (The JAX package scales
     the stacked (n, 4, ...) words as a share whose component axis is the
     layer axis, and its new params come out (4, 4, ...): ROADMAP F5.)"""
+    return map_params(eng, lambda x: eng.scale(x, c), grads)
+
+
+def map_params(eng, fn, *trees):
+    """`fn` over the aligned leaves of trees laid out as params, in the
+    JAX package's leaf order (sorted keys, the segments in order).  Which
+    leaves are stacked is read from the tree's structure: each leaf under
+    ``"segments"`` is a share's data (n, 4, ...), taken by `fn` as one
+    (n, ...) share (``_on_stacked``), whatever n is.  (The JAX package
+    tells a stacked leaf by its shape and takes one of 4 layers for a
+    plain share: ROADMAP F5, F6.)"""
     out = {}
-    for key in sorted(grads):
+    for key in sorted(trees[0]):
+        sub = [t[key] for t in trees]
         if key == "segments":
-            out[key] = [None if g is None else
-                        tree_map(lambda x: _on_stacked(
-                            eng, lambda y: eng.scale(y, c), x), g)
-                        for g in grads[key]]
+            out[key] = [tree_map(lambda *xs: _on_stacked(eng, fn, *xs), *segs)
+                        for segs in zip(*sub)]
         else:
-            out[key] = tree_map(lambda x: eng.scale(x, c), grads[key])
+            out[key] = tree_map(fn, *sub)
     return out
 
 

@@ -26,9 +26,15 @@ first-order carry; only the projections, the state contractions and the
 gates pay for products.  Each chunk loop is a ``scan_loop`` (tags
 ``"ret_fwd"`` and ``"slstm_fwd"``), so a chunk's PRF draws are the JAX
 package's.  ``retention_step`` and ``slstm_step`` take one token against
-the carried state (decode).  Their backward passes are still to port
-(ROADMAP Queue 1, item 2); the model's backward segment loop already
-runs on ``scan_loop``'s reverse order.
+the carried state (decode).  ``retention_bwd`` and ``slstm_bwd`` run the
+chunks in reverse (``scan_loop(..., reverse=True)``, tags ``"ret_bwd"``
+and ``"slstm_bwd"``), carrying the state's gradient back a chunk at a
+time.  Inside the model's backward segment loop these chunk loops nest
+in a loop of their own: their keys come from the master key and the tag
+alone, so their masks repeat from layer to layer, as the JAX package's do
+(ROADMAP N2).  The public decay contractions (``_pub_left``) take the
+engine's encoding and truncation hooks on every engine, so a plain
+engine that models fixed point reaches them too.
 """
 from __future__ import annotations
 
@@ -40,7 +46,6 @@ import zlib
 import numpy as np
 import torch
 
-from ..core import protocols as PR
 from ..core.shares import AShare
 from ..kernels import ops
 from . import layers as L
@@ -296,6 +301,68 @@ def retention_fwd(eng: Engine, params, cfg: RetentionConfig, x):
     return out, cache, _wrap(eng, final_state)
 
 
+def retention_bwd(eng: Engine, params, cfg: RetentionConfig, cache, dy):
+    """The chunks in reverse, carrying dL/dS back from the last chunk's
+    state (zero: the final state is not an output); each chunk recomputes
+    its masked scores rather than keeping them.  Returns (dx, grads)."""
+    cq, ck, cv, q, k, v, Sm_list, gate_cache, co = cache
+    H, dk, dv = cfg.n_heads, cfg.d_k, cfg.d_v
+    b, _, s, _ = eng.shape_of(q)
+    C = min(cfg.seq_chunk, s)
+    D, u, w, ac = _decay_tables(head_decays(H), C)
+    scale = 1.0 / math.sqrt(dk)
+
+    # the silu gate: out = wo(y_flat * g), g = silu(x wg)
+    dflat, g_o = L.linear_bwd(eng, {"w": params["wo"]}, co, dy)
+    cg, cact, g, y_pre = gate_cache
+    dg = eng.mul(dflat, y_pre)
+    dflat = eng.mul(dflat, g)
+    dx_gate, g_g = L.linear_bwd(eng, {"w": params["wg"]}, cg,
+                                eng.silu_bwd(cact, dg))
+    grads = {"wo": g_o["w"], "wg": g_g["w"]}
+
+    dyc, nc = _chunks(eng, _split_like(eng, dflat, H, dv), C)
+    qc, _ = _chunks(eng, q, C)
+    kc, _ = _chunks(eng, k, C)
+    vc, _ = _chunks(eng, v, C)
+
+    Dp = D[None] * scale                            # (1,H,C,C) public
+    up = u[None, :, :, None] * scale                # (1,H,C,1)
+    wp = w[None, :, :, None]
+    acp = ac[None, :, None, None]
+
+    def tr(t):
+        return eng.transpose(t, (0, 1, 3, 2))
+
+    def body(carry, i):
+        dS = _wrap(eng, carry)                      # dL/dS' (after chunk i)
+        qi, ki, vi, dyi = (L._chunk(eng, t, i) for t in (qc, kc, vc, dyc))
+        Sm = _wrap(eng, Sm_list[i])
+        # recomputed (cheaper than keeping S x C scores a chunk)
+        s_m = eng.mul_public(eng.matmul(qi, tr(ki)), Dp)
+        kw = eng.mul_public(ki, wp)
+        q_u = eng.mul_public(qi, up)
+        # S' = ac Sm + kw^T v  |  y = s_m v + q_u Sm
+        dvi = eng.add(eng.matmul(tr(s_m), dyi), eng.matmul(kw, dS))
+        ds_qk = eng.mul_public(eng.matmul(dyi, tr(vi)), Dp)
+        dq = eng.add(eng.matmul(ds_qk, ki),
+                     eng.mul_public(eng.matmul(dyi, tr(Sm)), up))
+        dkw = eng.matmul(vi, tr(dS))
+        dki = eng.add(eng.matmul(tr(ds_qk), qi), eng.mul_public(dkw, wp))
+        dSm = eng.add(eng.mul_public(dS, acp), eng.matmul(tr(q_u), dyi))
+        return _leaf(eng, dSm), tuple(_leaf(eng, t) for t in (dq, dki, dvi))
+
+    _, outs = scan_loop(eng, nc, "ret_bwd", body,
+                        _leaf(eng, eng.zeros((b, H, dk, dv))), reverse=True)
+    for j, (name, c) in enumerate((("wq", cq), ("wk", ck), ("wv", cv))):
+        d = _unproj_heads(eng, _unchunks(eng, _stack_chunks(
+            eng, [o[j] for o in outs])))
+        dxj, gj = L.linear_bwd(eng, {"w": params[name]}, c, d)
+        grads[name] = gj["w"]
+        dx = dxj if j == 0 else eng.add(dx, dxj)
+    return eng.add(dx, dx_gate), grads
+
+
 def retention_step(eng: Engine, params, cfg: RetentionConfig, x, state):
     """Single-token decode: x (B,1,D), state (B,H,dk,dv).
     y_t = q_t (a S + k_t^T v_t);  S' = a S + k_t^T v_t  (O(1) memory)."""
@@ -340,20 +407,19 @@ def slstm_fwd(eng: Engine, params, cfg: SLSTMConfig, x):
     izc, nc = _chunks(eng, _split_like(eng, iz, H, dh), C)  # (nc,B,H,C,dh)
     state = eng.zeros((b, H, 1, dh))
 
-    Dp = Dh[None]                                 # (1,H,C,C) public
     up = u[None, :, :, None]                      # (1,H,C,1)
     acp = ac[None, :, None, None]
 
     def body(carry, i):
         c_prev = _wrap(eng, carry)                # (B,H,1,dh)
         izi = L._chunk(eng, izc, i)
-        # intra: c_rel = Dp @ iz  (public matmul: local, no communication)
-        c_intra = _pub_left(eng, Dp, izi)
+        # intra: c_rel = Dh @ iz  (public matmul: local, no communication)
+        c_intra = _pub_left(eng, Dh, izi)
         c_inter = eng.mul_public(_bcast_chunk(eng, c_prev, C), up)
         c = eng.add(c_intra, c_inter)
-        c_last = eng.add(
-            eng.mul_public(c_prev, acp),
-            _last_of_chunk_weighted(eng, izi, wgt))
+        # the carry: c_last = a^C c_prev + sum_j a^{C-1-j} iz_j
+        c_last = eng.add(eng.mul_public(c_prev, acp),
+                         _pub_left(eng, wgt[:, None], izi))
         return _leaf(eng, c_last), _leaf(eng, c)
 
     final_c, cs = scan_loop(eng, nc, "slstm_fwd", body, _leaf(eng, state))
@@ -365,20 +431,67 @@ def slstm_fwd(eng: Engine, params, cfg: SLSTMConfig, x):
     return y, cache, _wrap(eng, final_c)
 
 
-def _pub_left(eng, Dp, x):
-    """(1,H,C,C) public @ (B,H,C,dh) share: a local contraction with the
-    encoded public matrix (the ring matmul, broadcast over the components
-    and the batch) + one truncation for the fixed-point rescale."""
+def slstm_bwd(eng: Engine, params, cfg: SLSTMConfig, cache, dy):
+    """Backward through the gate products and the public recurrence: its
+    transpose is again a local public contraction, the chunks in reverse
+    carrying dL/dc_last back (zero after the last chunk).  Returns (dx,
+    grads)."""
+    ci, cz, c_o, ci_act, co_act, i_g, z, o_g, c_full, c_out = cache
+    d, H = cfg.d_model, cfg.n_heads
+    b, s, _ = eng.shape_of(c_full)
+    C = min(cfg.seq_chunk, s)
+    Dh, u, wgt, ac = _decay_tables(head_decays(H), C)
+
+    dh_, g_out = L.linear_bwd(eng, {"w": params["wout"]}, c_out, dy)
+    do = eng.mul(dh_, c_full)
+    dc_full = eng.mul(dh_, o_g)
+
+    dhd = d // H
+    dcc, nc = _chunks(eng, _split_like(eng, dc_full, H, dhd), C)
+    Dt = np.swapaxes(Dh, -1, -2)                   # (H,C,C) upper-tri
+    wlast = wgt[None, :, :, None]                  # (1,H,C,1): iz_j in c_last
+    acp = ac[None, :, None, None]
+
+    def body(carry, i):
+        dcarry = _wrap(eng, carry)                 # (B,H,1,dh) dL/dc_last
+        dci = L._chunk(eng, dcc, i)
+        # diz_j = sum_{i>=j} a^{i-j} dc_i + a^{C-1-j} dcarry
+        diz = eng.add(_pub_left(eng, Dt, dci),
+                      eng.mul_public(_bcast_chunk(eng, dcarry, C), wlast))
+        # dc_prev = a^C dcarry + sum_i a^{i+1} dc_i
+        dc_prev = eng.add(eng.mul_public(dcarry, acp),
+                          _pub_left(eng, u[:, None], dci))
+        return _leaf(eng, dc_prev), _leaf(eng, diz)
+
+    _, dizc = scan_loop(eng, nc, "slstm_bwd", body,
+                        _leaf(eng, eng.zeros((b, H, 1, dhd))), reverse=True)
+    diz = _unproj_heads(eng, _unchunks(eng, _stack_chunks(eng, dizc)))
+
+    di = eng.mul(diz, z)
+    dz = eng.mul(diz, i_g)
+    di_lin = eng.sigmoid_bwd(ci_act, di)
+    do_lin = eng.sigmoid_bwd(co_act, do)
+    dx1, g_i = L.linear_bwd(eng, {"w": params["wi"]}, ci, di_lin)
+    dx2, g_z = L.linear_bwd(eng, {"w": params["wz"]}, cz, dz)
+    dx3, g_o = L.linear_bwd(eng, {"w": params["wo"]}, c_o, do_lin)
+    grads = {"wout": g_out["w"], "wi": g_i["w"], "wz": g_z["w"],
+             "wo": g_o["w"]}
+    return eng.add(eng.add(dx1, dx2), dx3), grads
+
+
+def _pub_left(eng, P, x):
+    """P (H,M,C) public @ x (B,H,C,dh) share -> (B,H,M,dh): a local
+    contraction with the encoded public matrix (on shares the ring
+    matmul, P broadcast over the components and the batch) and one
+    truncation for the fixed-point rescale, through the engine's encoding
+    and truncation hooks (the plain engine's cast and identity).  The
+    decay matrices (M = C), the carry's weights a^{C-1-j} and the carry
+    gradient's a^{i+1} (M = 1, one row a head)."""
+    enc = eng._encode_public(P)
     if _is_triv(eng):
-        enc = eng.ctx.encode(Dp[0])                    # (H,C,C) fixed point
-        return _trunc_pub(eng, ops.ring_matmul(enc[None, None], x.data))
-    return torch.matmul(torch.as_tensor(Dp[0], dtype=x.dtype,
-                                        device=x.device), x)
-
-
-def _trunc_pub(eng, prod_data):
-    """Truncate a public-matrix contraction result (one Pi_Trunc)."""
-    return PR.truncate_share(eng.ctx, AShare(prod_data))
+        return eng._truncate(AShare(ops.ring_matmul(enc[None, None],
+                                                    x.data)))
+    return eng._truncate(torch.matmul(enc, x))
 
 
 def _bcast_chunk(eng, c_prev, C):
@@ -387,18 +500,6 @@ def _bcast_chunk(eng, c_prev, C):
         d = c_prev.data
         return AShare(d.expand(d.shape[:3] + (C,) + d.shape[4:]))
     return c_prev.expand(c_prev.shape[:2] + (C,) + c_prev.shape[3:])
-
-
-def _last_of_chunk_weighted(eng, izi, wgt):
-    """sum_j a^{C-1-j} iz_j  -> (B,H,1,dh): the public weights wgt (H,C)
-    (``_decay_tables``' w), local (the ring matmul of the encoded (H,1,C)
-    weights, one row a head)."""
-    if _is_triv(eng):
-        enc = eng.ctx.encode(wgt)
-        return _trunc_pub(eng, ops.ring_matmul(enc[None, None, :, None],
-                                               izi.data))
-    return torch.matmul(torch.as_tensor(wgt, dtype=izi.dtype,
-                                        device=izi.device)[:, None], izi)
 
 
 def slstm_step(eng: Engine, params, cfg: SLSTMConfig, x, state):

@@ -5,8 +5,10 @@
 backward passes and the reverse loop seam run live against JAX, bit for
 bit; the model's train step is held to the JAX package's pinned digests
 (``JAX_TRAIN_DIGESTS``, printed by ``tools/torch_lm_vs_jax.py --train``):
-a JAX LM train step compiles every scan body, too slow to run here.  Two
-items: the suite's wall time is held near its limit."""
+a JAX LM train step compiles every scan body, too slow to run here.  The
+recurrent blocks' backward passes run live in one item a mode, the
+optimizers beside the collapsed one; four items: the suite's wall time is
+held near its limit."""
 import dataclasses
 import importlib.util
 import pathlib
@@ -45,8 +47,12 @@ from test_torch_lm import (_attn, _both, _conv, _pair, _same,  # noqa: E402
 # embeddings) at lr 2^-6; "+remat" with cfg.remat (the reverse loop
 # re-runs the layer forward), "+dense" with dense MoE routing,
 # "+microbatch" with cfg.microbatch 2 (the JAX run's _tree_scale fixed as
-# ROADMAP F5 says, in the tool's process only).  The sha256 of the new
-# params' words, the loss, totals() and the abort flag, as
+# ROADMAP F5 says, in the tool's process only); zamba2 and xlstm uncut
+# (zamba2: two retention groups of 2, the shared block applied twice;
+# xlstm: one mLSTM + sLSTM pair) with (2, 16) ids and labels (two
+# chunks); "+momentum": two steps through train.optim.Momentum (lr 2^-6,
+# beta 0.875), the buffers hashed beside the params.  The sha256 of the
+# new params' words, the losses, totals() and the abort flag, as
 # tools/torch_lm_vs_jax.py --train prints it (JAX 0.9.0 on the CPU; the
 # tool holds the port's words to JAX's leaf by leaf, both modes).
 JAX_TRAIN_DIGESTS = {
@@ -64,6 +70,12 @@ JAX_TRAIN_DIGESTS = {
         "25f46b2a0a32c00a1005c460ffe089b25fd49d35c44d9b709f658929d29f5d4e",
     "qwen3_1_7b+microbatch":
         "e9b560e2dec37f1912fdd983a0ab622b7302cde1323f20a4d49ffa9853c33a9b",
+    "zamba2_7b":
+        "83a288c4299d836ef2ccff17f9da1845926ecdf78ed8bd3bf20c1e0dd13be5c1",
+    "xlstm_350m":
+        "70fc0d209c5a55a1ea202025fbc5108cb5fac62cba3988c9d587f3038730b7f3",
+    "qwen3_1_7b+momentum":
+        "b724221c28795027e81649cd50b93abb017949982e57d8a5d13b6fcbbe4b4440",
 }
 # The secure gradients against tools/torch_lm_rehearsal.py's
 # fixed_point_plain (float64 with fixed point's mean behaviour: each
@@ -245,6 +257,178 @@ def _check_moe_bwd():
         _same_ctx(jc, tc, f"moe_bwd {routing}")
 
 
+def _check_recurrent_bwd(collapse: bool):
+    """retention_bwd and slstm_bwd live against the JAX package in one
+    mode: x of (2, 16, 32) (4 heads, d_k = d_v = 8, seq_chunk 8: two
+    chunks, so the reverse chunk loop carries the state's gradient across
+    a boundary), each from its own package's forward cache; dx and the
+    grads' words, totals(), the PRF counter and the abort flag."""
+    mode = "collapsed" if collapse else "faithful"
+    rng = np.random.RandomState(13)
+    x, dy = rng.randn(2, 16, 32) * 0.5, rng.randn(2, 16, 32) * 0.5
+    jc, tc, je, te = _pair(collapse)
+    jx, tx = je.from_plain(x), te.from_plain(x)
+    jdy, tdy = je.from_plain(dy), te.from_plain(dy)
+    for name, (init, c) in _RECURRENT_BLOCKS.items():
+        jcfg, tcfg = getattr(JR, c[0])(**c[1]), getattr(TR, c[0])(**c[1])
+        p = getattr(JR, init)(np.random.RandomState(14), jcfg)
+        jp, tp = _conv(je, p), _conv(te, p)
+        _, jcache, _ = getattr(JR, f"{name}_fwd")(je, jp, jcfg, jx)
+        _, tcache, _ = getattr(TR, f"{name}_fwd")(te, tp, tcfg, tx)
+        jdx, jg = getattr(JR, f"{name}_bwd")(je, jp, jcfg, jcache, jdy)
+        tdx, tg = getattr(TR, f"{name}_bwd")(te, tp, tcfg, tcache, tdy)
+        _same(jdx, tdx, f"{name}_bwd {mode} dx")
+        _grads_same(jg, tg, f"{name}_bwd {mode}")
+        _same_ctx(jc, tc, f"{name}_bwd {mode}")
+
+
+# the recurrent blocks of the backward checks: {name: (init, (config
+# class, its fields))}
+_RECURRENT_BLOCKS = {
+    "retention": ("retention_init", ("RetentionConfig", dict(
+        d_model=32, n_heads=4, d_k=8, d_v=8, seq_chunk=8))),
+    "slstm": ("slstm_init", ("SLSTMConfig", dict(d_model=32, n_heads=4,
+                                                 seq_chunk=8)))}
+# the central difference's step and its tolerance, relative to the
+# directional derivative: the PlainEngine's gates are piecewise linear
+# (the clamp sigmoid), so away from a kink the float64 difference
+# quotient of these piecewise-polynomial blocks is exact up to rounding
+# (about 1e-10 here)
+FD_EPS = 1e-6
+FD_RTOL = 1e-6
+
+
+def _check_recurrent_directional():
+    """The port's retention_bwd and slstm_bwd on the PlainEngine
+    (float64) against a central difference of their forward: for random
+    directions v_x of the input and v_p of every weight, <dx, v_x> + sum
+    <g, v_p> equals (L(+eps) - L(-eps)) / (2 eps) with L(t) = <y(x + t
+    v_x, p + t v_p), dy>, within FD_RTOL: the backward is the forward's
+    gradient, independently of the JAX package."""
+    pe = TPlain(device="cpu")
+    rng = np.random.RandomState(15)
+    x, dy = (torch.from_numpy(rng.randn(2, 16, 32) * 0.5) for _ in range(2))
+    for name, (init, c) in _RECURRENT_BLOCKS.items():
+        cfg = getattr(TR, c[0])(**c[1])
+        p = {k: torch.from_numpy(v) for k, v in
+             getattr(TR, init)(np.random.RandomState(16), cfg).items()}
+        fwd, bwd = getattr(TR, f"{name}_fwd"), getattr(TR, f"{name}_bwd")
+        _, cache, _ = fwd(pe, p, cfg, x)
+        dx, g = bwd(pe, p, cfg, cache, dy)
+        assert sorted(g) == sorted(p), name
+        vx = torch.from_numpy(rng.randn(*x.shape))
+        vp = {k: torch.from_numpy(rng.randn(*v.shape)) for k, v in p.items()}
+
+        def loss(t):
+            y, _, _ = fwd(pe, {k: p[k] + t * vp[k] for k in p}, cfg,
+                          x + t * vx)
+            return float((y * dy).sum())
+
+        fd = (loss(FD_EPS) - loss(-FD_EPS)) / (2 * FD_EPS)
+        parts = [float((dx * vx).sum())] + [float((g[k] * vp[k]).sum())
+                                            for k in sorted(g)]
+        assert all(abs(t) > 1e-3 for t in parts), (name, parts)
+        assert abs(fd - sum(parts)) <= FD_RTOL * abs(fd), (name, fd, parts)
+
+
+def _stacked_tree(eng, w, n):
+    """{"lm_head": {"w": a share of w[0]}, "segments": [{"w": n layers of
+    w stacked, a share's data (n, 4, ...)}]}: the layout of
+    params_to_engine."""
+    lone, st = eng.from_plain(w[0]), eng.from_plain(w[:n])
+    if isinstance(st, JShare):
+        st = JShare(jax.numpy.moveaxis(st.data, 0, 1))
+    else:
+        st = TShare(torch.movedim(st.data, 0, 1))
+    return {"lm_head": {"w": lone}, "segments": [{"w": st}]}
+
+
+def _jax_on_layout(fn, *trees):
+    """`fn` over _stacked_tree trees of the JAX package in its leaf order,
+    the stacked leaf taken as one (n, ...) share (ROADMAP F6 fixed)."""
+    def move(x):
+        return JShare(jax.numpy.moveaxis(x.data, 0, 1))
+
+    head = fn(*(t["lm_head"]["w"] for t in trees))
+    st = move(fn(*(move(t["segments"][0]["w"]) for t in trees)))
+    return {"lm_head": {"w": head}, "segments": [{"w": st}]}
+
+
+def _check_optimizers():
+    """SGD and Momentum (two updates) of the port against the JAX package
+    on a tree with a plain leaf and a stacked leaf of n layers
+    (``_stacked_tree``), faithful, lr 2^-2: the new params' and the
+    momentum buffers' words, totals() and the PRF counter.  n = 3: against
+    the JAX package's optimizers.  n = 4 (ROADMAP F6): against the JAX
+    engine's updates of each leaf laid out as one (n, ...) share; the JAX
+    package's own optimizers take the layer axis for the component axis
+    there, and their layers open far from w - lr g.  Each layer of the
+    port's opens to its float64 update within 4 units of 2^-13."""
+    from repro.train import optim as JO
+    from repro_torch.train import optim as TO
+    leaves = _vs_jax()._leaves
+    lr, beta, unit = 2.0 ** -2, 0.875, 2.0 ** -13
+    rng = np.random.RandomState(17)
+    w, g = rng.randn(4, 2, 3) * 0.5, rng.randn(4, 2, 3) * 0.5
+    for n in (3, 4):
+        for opt in ("SGD", "Momentum"):
+            what = f"{opt} at n = {n}"
+            jc, tc, je, te = _pair()
+            jo, to = getattr(JO, opt)(lr=lr), getattr(TO, opt)(lr=lr)
+            jw, tw = _stacked_tree(je, w, n), _stacked_tree(te, w, n)
+            jg, tg = _stacked_tree(je, g, n), _stacked_tree(te, g, n)
+            js, ts = jo.init(je, jw), to.init(te, tw)
+            want_w, want_m = w[:n], np.zeros_like(w[:n])
+            for _ in range(2 if opt == "Momentum" else 1):
+                tw, ts = to.update(te, tw, tg, ts)
+                if n == 3:
+                    jw, js = jo.update(je, jw, jg, js)
+                elif opt == "SGD":
+                    jw = _jax_on_layout(
+                        lambda a, b: je.sub(a, je.scale(b, lr)), jw, jg)
+                else:
+                    js = _jax_on_layout(
+                        lambda m, b: je.add(je.scale(m, beta), b), js, jg)
+                    jw = _jax_on_layout(
+                        lambda a, m: je.sub(a, je.scale(m, lr)), jw, js)
+                want_m = beta * want_m + g[:n]
+                want_w = want_w - lr * (want_m if opt == "Momentum"
+                                        else g[:n])
+            pairs = list(zip(leaves(jw), leaves(tw)))
+            if opt == "Momentum":
+                pairs += list(zip(leaves(js), leaves(ts)))
+            for (path, a), (_, b) in pairs:
+                _same(a, b, f"{what} {path}")
+            _same_ctx(jc, tc, what)
+            got = te.to_plain(TShare(torch.movedim(
+                tw["segments"][0]["w"].data, 0, 1))).numpy()
+            assert np.abs(got - want_w).max() <= 4 * unit, what
+        # the JAX package's own SGD on the 4-layer leaf (ROADMAP F6)
+        jc, _, je, _ = _pair()
+        jw = _stacked_tree(je, w, n)
+        bad, _ = JO.SGD(lr=lr).update(je, jw, _stacked_tree(je, g, n), None)
+        bad = np.asarray(je.to_plain(JShare(jax.numpy.moveaxis(
+            bad["segments"][0]["w"].data, 0, 1))))
+        assert (np.abs(bad - (w[:n] - lr * g[:n])).max() > 1) == (n == 4), \
+            f"ROADMAP F6 at n = {n}"
+
+
+def test_lm_recurrent_bwd_faithful_matches_jax():
+    """retention_bwd and slstm_bwd live against the JAX package, faithful
+    (``_check_recurrent_bwd``), and against a central difference of their
+    forward on the PlainEngine (``_check_recurrent_directional``)."""
+    _check_recurrent_bwd(collapse=False)
+    _check_recurrent_directional()
+
+
+def test_lm_recurrent_bwd_collapsed_and_optimizers_match_jax():
+    """retention_bwd and slstm_bwd live against the JAX package,
+    collapsed (``_check_recurrent_bwd``); SGD and Momentum against the
+    JAX package's, and ROADMAP F6 (``_check_optimizers``)."""
+    _check_recurrent_bwd(collapse=True)
+    _check_optimizers()
+
+
 def test_lm_train_layers_and_reverse_seam_match_jax():
     """The reverse loop seam (``_check_reverse_seam``) and the dense
     layers' and attention's backward passes (``_check_dense_layers``)
@@ -265,12 +449,13 @@ def test_lm_train_step_matches_jax_digests():
     train_step (collapsed, one layer) for qwen3 (dense, qk_norm), mixtral
     (public and dense routing), whisper (encdec: the encoder's grads from
     the decoder's summed d_enc) and phi-3-vision (vlm: the frontend's
-    positions dropped and padded back), qwen3 with remat and with
-    microbatch 2, hashed against JAX_TRAIN_DIGESTS; on the PlainEngine at
-    two layers, remat equal to no remat (new params and loss) and
-    microbatch 2's grads within 1e-12 of the whole batch's, the recurrent
-    kinds' backward and an optimizer refused (NotImplementedError naming
-    their ROADMAP items); the secure
+    positions dropped and padded back), qwen3 with remat, with microbatch
+    2 and with two Momentum steps, and zamba2 and xlstm uncut (the
+    recurrent kinds and the shared block), hashed against
+    JAX_TRAIN_DIGESTS; on the PlainEngine, remat equal to no remat (new
+    params and loss) for zamba2 and xlstm uncut (two chunks) and qwen3 at
+    two layers, and microbatch 2's grads within 1e-12 of the whole
+    batch's; the secure
     gradients (qwen3 SMOKE at one layer, collapsed, the embedding at scale
     0.5) within the rehearsal's bounds of the fixed-point model, which
     all-zero and shuffled gradients fail, the loss within LOSS_ATOL."""
@@ -281,23 +466,26 @@ def test_lm_train_step_matches_jax_digests():
             JAX_TRAIN_DIGESTS[case], \
             f"{case}: the train step's words differ from the JAX package's"
 
-    cfg = tget("qwen3_1_7b").SMOKE
-    params = TM.init_params(cfg, 0)
     pe = TPlain(device="cpu")
-    rs = np.random.RandomState(3)
-    ids = rs.randint(0, cfg.vocab, (2, 8))
-    labels = rs.randint(0, cfg.vocab, (2, 8))
-    runs = {}
-    for remat in (False, True):
-        c = dataclasses.replace(cfg, remat=remat)
-        runs[remat] = TM.train_step(pe, c, TM.params_to_engine(pe, params),
-                                    ids, labels, lr=2.0 ** -6)
-    assert float(runs[False][1]) == float(runs[True][1])
     rh = _rehearsal()
-    a, b = rh.grads_plain(pe, runs[False][0]), rh.grads_plain(pe,
-                                                             runs[True][0])
-    assert sorted(a) == sorted(b) and all(
-        torch.equal(a[k], b[k]) for k in a), "remat changed the step"
+    for arch, seq in (("zamba2_7b", 16), ("xlstm_350m", 16),
+                      ("qwen3_1_7b", 8)):
+        cfg = tget(arch).SMOKE
+        params = TM.init_params(cfg, 0)
+        rs = np.random.RandomState(3)
+        ids = rs.randint(0, cfg.vocab, (2, seq))
+        labels = rs.randint(0, cfg.vocab, (2, seq))
+        runs = {}
+        for remat in (False, True):
+            c = dataclasses.replace(cfg, remat=remat)
+            runs[remat] = TM.train_step(pe, c,
+                                        TM.params_to_engine(pe, params),
+                                        ids, labels, lr=2.0 ** -6)
+        assert float(runs[False][1]) == float(runs[True][1]), arch
+        a, b = (rh.grads_plain(pe, runs[r][0]) for r in (False, True))
+        assert sorted(a) == sorted(b) and all(
+            torch.equal(a[k], b[k]) for k in a), f"{arch}: remat changed " \
+            "the step"
     whole = TM.loss_and_grads(pe, cfg, TM.params_to_engine(pe, params), ids,
                               labels)
     micro = TM._microbatched_grads(
@@ -308,14 +496,6 @@ def test_lm_train_step_matches_jax_digests():
     assert all(float((a[k] - b[k]).abs().max()) <= 1e-12 for k in a), \
         "microbatch"
 
-    for arch in ("zamba2_7b", "xlstm_350m"):
-        rc = tget(arch).SMOKE
-        with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-            TM.loss_and_grads(pe, rc, TM.params_to_engine(
-                pe, TM.init_params(rc, 0)), ids, labels)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        TM.train_step(pe, cfg, TM.params_to_engine(pe, params), ids, labels,
-                      optimizer=object())
 
     one = dataclasses.replace(cfg, n_layers=1)
     params = TM.init_params(one, 0)

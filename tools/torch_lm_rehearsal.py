@@ -38,9 +38,16 @@ how far the secure rmsnorm's output lies from float64 at d_model 1,024,
 
 ``--train``: the train step's ``loss_and_grads`` instead (``train_cases``:
 the four attention families' SMOKE at one layer, (2, 8) ids and labels;
-qwen3 at the middle width above, 2 layers, 128 ids; with ``--cases full``
-phi-3-vision-4.2b's CONFIG at 2 of 32 layers, 128 ids and 576 frontend
-embeddings, remat, chip_smoke.py phase lm-train's step).  For each case,
+qwen3 at the middle width above, 2 layers, 128 ids; the recurrent
+families' SMOKE uncut at (2, 16) ids (two chunks) and their middle widths
+(``recurrent_middle`` at d_model 256, zamba2's shared block after each of
+its 2 layers, 128 ids: two chunks); ``--cases recurrent`` only the
+recurrent ones; with ``--cases full`` phi-3-vision-4.2b's CONFIG at 2 of
+32 layers, 128 ids and 576 frontend embeddings, remat, chip_smoke.py
+phase lm-train's step; with ``--cases full-recurrent``
+(``full_recurrent_train_cases``) phase lm-recurrent-train's steps:
+zamba2-7b's CONFIG at 2 of 81 layers with the shared block after each,
+and xlstm-350m's whole (24 layers), 512 ids each, remat).  For each case,
 seed and mode it prints the gradient's gap (``grad_gap``: the relative
 L2 error of all leaves together, the largest error over the largest
 reference entry, the worst leaf's relative L2) and the loss's and the
@@ -52,7 +59,10 @@ and a weight gradient sums the bias of every token's dY.  So against
 float64 the secure gradient is off by a multiple of itself from a
 vocabulary of a few thousand on (ROADMAP N6); against the fixed-point
 model only the truncations' zero-mean noise is left, and chip_smoke.py
-phase lm-train holds the gradients there.
+phases lm-train and lm-recurrent-train hold the gradients there.  The
+model reaches every truncation of the secure step: the recurrent blocks'
+public decay contractions (``nn.recurrent._pub_left``) take the engine's
+encoding and truncation hooks, which ``fixed_point_plain`` overrides.
 
 The embedding table is multiplied by ``--embed-scale`` (25: entries of
 scale 0.5, as the tests and the smoke serve them).  At 1 (``init_params``'
@@ -259,20 +269,54 @@ def frontend(cfg, batch: int):
     return None
 
 
-def train_cases(get, full: bool) -> list:
-    """(name, cfg, (batch, ids)) of the train rehearsal."""
-    if full:
+# phase lm-recurrent-train's main paths: the ids of a step (two chunks
+# of the full configs' seq_chunk 256), and zamba2-7b's depth (its shared
+# block after each layer)
+RECURRENT_TRAIN_IDS = 512
+RECURRENT_TRAIN_ZAMBA2_LAYERS = 2
+
+
+def full_recurrent_train_cases(get) -> list:
+    """(name, cfg, (batch, ids)) of chip_smoke.py phase lm-recurrent-
+    train's main paths (a card's size): zamba2-7b's CONFIG at 2 of 81
+    layers with ``shared_attn_every=1`` (retention 1, the shared block,
+    retention 1, the shared block: its gradient summed over two uses) and
+    xlstm-350m's CONFIG whole (24 layers: 12 pairs), full width, remat,
+    RECURRENT_TRAIN_IDS ids at batch 1."""
+    z = dataclasses.replace(get("zamba2_7b").CONFIG,
+                            n_layers=RECURRENT_TRAIN_ZAMBA2_LAYERS,
+                            shared_attn_every=1)
+    shape = (1, RECURRENT_TRAIN_IDS)
+    return [(f"zamba2_7b full width, {z.n_layers} layers, shared block "
+             f"after each", z, shape),
+            ("xlstm_350m full width, 24 layers", get("xlstm_350m").CONFIG,
+             shape)]
+
+
+def train_cases(get, cases: str) -> list:
+    """(name, cfg, (batch, ids)) of the train rehearsal (``--cases``)."""
+    if cases == "full":
         cfg = dataclasses.replace(get("phi_3_vision_4_2b").CONFIG, n_layers=2)
         return [("phi_3_vision_4_2b full width, 2 layers", cfg, (1, 128))]
-    cases = []
-    for arch in ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
-                 "phi_3_vision_4_2b"):
-        cfg = get(arch).SMOKE
-        cfg = dataclasses.replace(cfg, n_layers=1, n_encoder_layers=min(
-            cfg.n_encoder_layers, 1))
-        cases.append((f"{arch} SMOKE 1 layer", cfg, (2, 8)))
-    cases.append(("qwen3_1_7b middle width", middle_width(), (1, 128)))
-    return cases
+    if cases == "full-recurrent":
+        return full_recurrent_train_cases(get)
+    out = []
+    if cases == "all":
+        for arch in ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
+                     "phi_3_vision_4_2b"):
+            cfg = get(arch).SMOKE
+            cfg = dataclasses.replace(cfg, n_layers=1, n_encoder_layers=min(
+                cfg.n_encoder_layers, 1))
+            out.append((f"{arch} SMOKE 1 layer", cfg, (2, 8)))
+        out.append(("qwen3_1_7b middle width", middle_width(), (1, 128)))
+    for arch in ("zamba2_7b", "xlstm_350m"):
+        out.append((f"{arch} SMOKE", get(arch).SMOKE, (2, 16)))
+    out.append(("zamba2_7b d_model 256, shared block after each",
+                dataclasses.replace(recurrent_middle("zamba2_7b"),
+                                    shared_attn_every=1), (1, 128)))
+    out.append(("xlstm_350m d_model 256", recurrent_middle("xlstm_350m"),
+                (1, 128)))
+    return out
 
 
 def loss_and_grads(eng, cfg, params, ids, labels, extra=None):
@@ -351,7 +395,7 @@ def train_main(args) -> int:
     from repro_torch.nn import model as M
     from repro_torch.nn.engine import PlainEngine, TridentEngine
     results = []
-    for name, cfg, shape in train_cases(get, args.cases == "full"):
+    for name, cfg, shape in train_cases(get, args.cases):
         for seed in range(args.seeds):
             params = M.init_params(cfg, seed)
             params["embed"]["table"] *= args.embed_scale
@@ -413,7 +457,8 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, default=3)
     ap.add_argument("--embed-scale", type=float, default=25.0)
     ap.add_argument("--cases", default="all",
-                    choices=("all", "recurrent", "full"))
+                    choices=("all", "recurrent", "full",
+                             "full-recurrent"))
     ap.add_argument("--widths", default="256")
     ap.add_argument("--prefill", type=int, default=128)
     ap.add_argument("--train", action="store_true",
@@ -426,6 +471,8 @@ def main() -> int:
     from repro_torch.nn import model as M
     from repro_torch.nn.engine import PlainEngine, TridentEngine
     torch.set_num_threads(4)
+    if args.cases == "full-recurrent" and not args.train:
+        ap.error("--cases full-recurrent is a --train case")
     if args.train:
         return train_main(args)
 

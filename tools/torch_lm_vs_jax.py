@@ -31,13 +31,19 @@ collapsed runs (at one layer for the attention families) are pinned in
 ``tests/test_torch_lm.py``, which holds the port's serve to them.
 
 ``--train``: the train step instead (``TRAIN_CASES`` by default): each
-case's SMOKE config at ``--layers`` layers, ``init_params(cfg, 0)``, one
-``train_step`` of (2, 8) ids and labels (with the frontend's embeddings)
-at lr 2^-6 through both packages on the same context seed; asserts equal
-new params (every leaf's words), loss, ``totals()`` and abort flag.  The
-cases: the four attention families; ``qwen3_1_7b+remat`` (cfg.remat: the
-reverse loop re-runs each layer's forward); ``mixtral_8x7b+dense`` (dense
-routing); ``qwen3_1_7b+microbatch`` (cfg.microbatch 2).  The JAX
+case's SMOKE config at ``--layers`` layers (the recurrent families
+uncut, as above), ``init_params(cfg, 0)``, one ``train_step`` of (2, 8)
+ids and labels (the recurrent families (2, 16): two chunks; with the
+frontend's embeddings) at lr 2^-6 through both packages on the same
+context seed; asserts equal new params (every leaf's words), loss,
+``totals()`` and abort flag.  The cases: the four attention families;
+``qwen3_1_7b+remat`` (cfg.remat: the reverse loop re-runs each layer's
+forward); ``mixtral_8x7b+dense`` (dense routing);
+``qwen3_1_7b+microbatch`` (cfg.microbatch 2); zamba2 (the shared
+block's gradient summed over its two uses) and xlstm;
+``qwen3_1_7b+momentum``: two steps through each package's
+``train.optim.Momentum`` (lr 2^-6, beta 0.875), the new params and the
+momentum buffers compared, both losses.  The JAX
 package's microbatched step scales each stacked grads leaf as a share
 whose component axis is the layer axis (ROADMAP F5: its new params come
 out (4, 4, ...)); for that case the JAX run's ``_tree_scale`` is replaced,
@@ -79,8 +85,10 @@ CASES = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny", "phi_3_vision_4_2b",
 
 TRAIN_CASES = ("qwen3_1_7b", "mixtral_8x7b", "whisper_tiny",
                "phi_3_vision_4_2b", "qwen3_1_7b+remat",
-               "mixtral_8x7b+dense", "qwen3_1_7b+microbatch")
+               "mixtral_8x7b+dense", "qwen3_1_7b+microbatch",
+               "zamba2_7b", "xlstm_350m", "qwen3_1_7b+momentum")
 TRAIN_LR = 2.0 ** -6
+MOMENTUM_STEPS = 2
 
 
 def _words(x):
@@ -224,34 +232,54 @@ def compare(j, t) -> list:
 
 
 def train_config(get, case: str, layers: int):
-    """A train case's SMOKE config at `layers` layers, with its variant
-    ("+remat", "+dense", "+microbatch")."""
+    """A train case's SMOKE config at `layers` layers (the recurrent
+    families uncut), with its variant ("+remat", "+dense", "+microbatch",
+    "+momentum")."""
     arch, _, variant = case.partition("+")
     cfg = get(arch).SMOKE
-    cfg = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=min(
-        cfg.n_encoder_layers, layers))
+    if arch not in RECURRENT:
+        cfg = dataclasses.replace(cfg, n_layers=layers, n_encoder_layers=min(
+            cfg.n_encoder_layers, layers))
     change = {"": {}, "remat": {"remat": True},
               "dense": {"moe_routing": "dense"},
-              "microbatch": {"microbatch": 2}}[variant]
+              "microbatch": {"microbatch": 2}, "momentum": {}}[variant]
     return dataclasses.replace(cfg, **change)
 
 
 def train_inputs(cfg, eng):
-    """(ids, labels, frontend kwargs) of a train case: (2, 8) each."""
+    """(ids, labels, frontend kwargs) of a train case: (2, 8) each, the
+    recurrent families' (2, 16)."""
     rs = np.random.RandomState(1)
-    ids = rs.randint(0, cfg.vocab, size=IDS_SHAPE)
-    labels = rs.randint(0, cfg.vocab, size=IDS_SHAPE)
+    shape = _ids_shape(cfg, False)
+    ids = rs.randint(0, cfg.vocab, size=shape)
+    labels = rs.randint(0, cfg.vocab, size=shape)
     return ids, labels, _inputs(cfg, eng, False)[1]
 
 
-def _train(M, get, eng, case: str, layers: int) -> tuple:
+def _train(M, O, get, eng, case: str, layers: int) -> tuple:
+    """One case through model module `M` (optimizer module `O`): (the new
+    params, or for "+momentum" {"params": ..., "momentum": ...}, the
+    loss, or the steps' losses, float32)."""
     cfg = train_config(get, case, layers)
     ids, labels, kw = train_inputs(cfg, eng)
     params = M.params_to_engine(eng, M.init_params(cfg, 0))
-    new, loss, _ = M.train_step(eng, cfg, params, ids, labels, lr=TRAIN_LR,
-                                **kw)
-    return new, np.float32(np.asarray(
-        loss.cpu() if hasattr(loss, "cpu") else loss))
+
+    def f32(loss):
+        return np.float32(np.asarray(
+            loss.cpu() if hasattr(loss, "cpu") else loss))
+
+    if not case.endswith("+momentum"):
+        new, loss, _ = M.train_step(eng, cfg, params, ids, labels,
+                                    lr=TRAIN_LR, **kw)
+        return new, f32(loss)
+    opt = O.Momentum(lr=TRAIN_LR)
+    state, losses = opt.init(eng, params), []
+    for _ in range(MOMENTUM_STEPS):
+        params, loss, state = M.train_step(eng, cfg, params, ids, labels,
+                                           optimizer=opt, opt_state=state,
+                                           **kw)
+        losses.append(f32(loss))
+    return {"params": params, "momentum": state}, np.float32(losses)
 
 
 def _jax_tree_scale_f5(eng, grads, c):
@@ -287,12 +315,13 @@ def run_jax_train(case: str, layers: int, collapse: bool):
     from repro.core.ring import RING64
     from repro.nn import model as JM
     from repro.nn.engine import TridentEngine
+    from repro.train import optim as JO
     ctx = make_context(RING64, seed=SEED, collapse=collapse)
     orig = JM._tree_scale
     if case.endswith("+microbatch"):
         JM._tree_scale = _jax_tree_scale_f5
     try:
-        run = _train(JM, get, TridentEngine(ctx), case, layers)
+        run = _train(JM, JO, get, TridentEngine(ctx), case, layers)
     finally:
         JM._tree_scale = orig
     return run + (ctx.tally.totals(), bool(ctx.abort_flag()))
@@ -304,17 +333,21 @@ def run_port_train(case: str, layers: int, collapse: bool):
     from repro_torch.core.ring import RING64
     from repro_torch.nn import model as TM
     from repro_torch.nn.engine import TridentEngine
+    from repro_torch.train import optim as TO
     ctx = make_context(RING64, seed=SEED, collapse=collapse, device="cpu")
-    run = _train(TM, get, TridentEngine(ctx), case, layers)
+    run = _train(TM, TO, get, TridentEngine(ctx), case, layers)
     return run + (ctx.tally.totals(), ctx.abort_flag())
 
 
 def train_digest(run) -> str:
     """sha256 of a train run: every new-params leaf's path, shape and
-    words (tree order), the loss's float32 bytes, ``totals()`` and the
-    abort flag."""
+    words (tree order; "+momentum": the params' and the buffers'), the
+    losses' float32 bytes, ``totals()`` and the abort flag."""
     h = hashlib.sha256()
     for path, x in _leaves(run[0]):
+        if x is None:                    # a shared_attn segment's entry
+            h.update(f"{path}None".encode())
+            continue
         w = np.ascontiguousarray(_words(x))
         h.update(f"{path}{w.shape}".encode())
         h.update(w.tobytes())
@@ -336,7 +369,7 @@ def compare_train(j, t) -> list:
                 np.argwhere(wx != wy)[0].tolist()
             bad.append(f"new params{path}: words differ (shapes {wx.shape} "
                        f"/ {wy.shape}, first at {first})")
-    if np.float32(j[1]) != np.float32(t[1]):
+    if not np.array_equal(np.float32(j[1]), np.float32(t[1])):
         bad.append(f"losses differ: {j[1]} / {t[1]}")
     if j[2] != t[2]:
         bad.append(f"totals() differ: {j[2]} / {t[2]}")
@@ -349,7 +382,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default=None,
                     help="cases: arch ids, an arch + '+long_ctx' (with "
-                         "--train: + '+remat', '+dense', '+microbatch')")
+                         "--train: + '+remat', '+dense', '+microbatch', "
+                         "'+momentum')")
     ap.add_argument("--layers", type=int, default=1)
     ap.add_argument("--modes", default="collapsed,faithful")
     ap.add_argument("--train", action="store_true",
