@@ -305,12 +305,33 @@ from the root of a checkout.  In order, it
      calls; (c) zamba2-7b's CONFIG (d_model 3,584, 32 heads, ssm_state 64,
      d_ff 14,336, vocab 32,000, remat) cut to 2 of 81 layers with the
      shared block after each (its gradient summed over two uses) and (d)
-     xlstm-350m's CONFIG whole (24 layers), 512 ids and labels each (two
+     xlstm-350m's CONFIG at 8 of 24 layers (whole until PR 28; cut for
+     the run's time limit), 512 ids and labels each (two
      chunks of 256), batch 1, faithful, the embedding at scale 0.5: per
      model two driven steps and a profiled one, as step 16's main path,
      with the gradients held against the fixed-point model within the
      bounds of ``tools/torch_lm_rehearsal.py --train --cases
      full-recurrent``.  It prints the same figures as step 16 for each.
+ 18. The LM launcher (phase "launch"), ``repro_torch.launch.train``
+     through the entry points a user calls (``parse_args``, ``build``,
+     ``Trainer.run``), collapsed, garbled, each step under its own
+     context (``seed_for_step``): (a) whisper-tiny's and phi-3-vision's
+     SMOKE configs, 2 steps each on the card and on the CPU: equal losses,
+     final params words, ``totals()``, no abort, the card's launches the
+     CPU run's wrapper calls; (b) the main path: whisper-tiny's CONFIG
+     whole (4 encoder and 4 decoder layers, d_model 384, 6 heads, d_ff
+     1,536, vocab 51,865, 1,500 encoder frames, remat) with
+     ``--no-smoke --steps 4 --batch 2 --seq 64``, uninterrupted (a driven
+     path), then crashed after step 1's checkpoint (at step 2) and resumed
+     from it: the resumed run's final params equal the uninterrupted run's
+     bit for bit, no abort, ``latest()`` verifies; (c) the dry run's
+     argument bytes for that cell equal the parameter tree and inputs on
+     the card; (d) ``mpc_matmul_fused`` (every collapsed 2-D product: the
+     weight gradients) and ``ring_matmul`` (2-D and K2) at every shape the
+     steps gave them, exact against the CPU; each fused shape timed beside
+     its bound.  It prints the steps' walls, a profiled step's busy share,
+     launches per step, the peak device memory and the checkpoints' save
+     and restore walls and bytes.
 
 Each path (the deal and the online-only run of steps 5 and 10 and the
 offline and online runs of step 8 being two each; step 11's, 12's and
@@ -328,7 +349,8 @@ last lines come
 11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's),
 ``{"lm": {...}}`` (step 14's), ``{"lm_recurrent": {...}}`` (step 15's),
 ``{"lm_train": {...}}`` (step 16's), ``{"lm_recurrent_train": {...}}``
-(step 17's) and ``{"kernels": [...]}``, then
+(step 17's), ``{"launch": {...}}`` (step 18's) and ``{"kernels":
+[...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
 and prints no result.
@@ -338,9 +360,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1183,6 +1207,10 @@ def kernel_phase(rng, ptxas: dict, prf_instructions: int | None) -> list:
             got, MF.mpc_matmul_fused_plain(*ones))),
             f"mpc_matmul_fused disagrees on all-ones words at K = {K} in "
             f"chunks of {top} ({dt})")
+    # phase launch's shapes (the whisper-tiny step's weight gradients),
+    # timed here, where the profiler reads a kernel's device time reliably
+    rows[ops.MPC_MATMUL_FUSED.name]["launch_shapes"] = launch_fused_rows(
+        launch_fused_shapes())
 
     # and_level: the main path's launches are whole chains on smx's words
     # of (128, 1) -- the Sklansky adder (A2B's subtractor, cin = 1) and the
@@ -4988,8 +5016,10 @@ LMRT_SMOKE_IDS = (2, 16)
 LMRT_MOMENTUM_STEPS = 2
 # (c), (d) the main paths (tools/torch_lm_rehearsal.py
 # full_recurrent_train_cases): zamba2-7b's CONFIG at 2 of 81 layers with
-# its shared block after each, and xlstm-350m's whole, 512 ids and labels
-# each (two chunks of 256), batch 1, faithful, remat, LMT_STEPS steps.
+# its shared block after each, and xlstm-350m's at 8 of 24 layers (whole
+# until PR 28, whose launch phase needed the time; the xlstm readings
+# below are the whole model's), 512 ids and labels each (two chunks of
+# 256), batch 1, faithful, remat, LMT_STEPS steps.
 # The gradients against the fixed-point model, as phase lm-train's
 # (relative L2, error per largest entry): tools/torch_lm_rehearsal.py
 # --train --cases recurrent on the CPU (3 seeds, faithful and collapsed):
@@ -5033,7 +5063,7 @@ def lm_recurrent_train_phase(kernels: list, card: str) -> dict:
     step each on the card against the CPU, faithful and collapsed, and
     xlstm's Momentum steps; (c), (d) the main paths: a train step of
     zamba2-7b (2 of 81 layers, the shared block after each) and of
-    xlstm-350m whole, at full width (``train_main_path``)."""
+    xlstm-350m at 8 of 24 layers, at full width (``train_main_path``)."""
     from repro_torch.configs import get
     from repro_torch.nn import model as LM
     from repro_torch.train.optim import Momentum
@@ -5074,6 +5104,396 @@ def lm_recurrent_train_phase(kernels: list, card: str) -> dict:
              "heads": cfg.n_heads, "d_k": rc.d_k, "d_v": rc.d_v,
              "seq_chunk": cfg.seq_chunk, "cuts": cuts},
             shape[1], LMRT_GRAD_BOUNDS[arch], LMRT_LOSS_ATOL)
+    return report
+
+
+# --- phase launch: the LM launcher (repro_torch.launch.train) ------------
+# (a) SMOKE configs through the launcher, card against CPU
+LAUNCH_SMOKE_ARCHS = ("whisper_tiny", "phi_3_vision_4_2b")
+LAUNCH_SMOKE_STEPS = 2
+# (b) the main path: whisper-tiny's CONFIG whole, the launcher's flags
+# --no-smoke --steps 4 --batch 2 --seq 64; crashed at step 2, after step
+# 1's checkpoint (ckpt_every = steps // 2), and resumed
+LAUNCH_ARCH = "whisper_tiny"
+LAUNCH_STEPS = 4
+LAUNCH_BATCH, LAUNCH_SEQ = 2, 64
+LAUNCH_CRASH_AT = 2
+LAUNCH_KERNELS = ("prf_mask", "ring_matmul", "ring_matmul_batched",
+                  "mpc_matmul_fused")
+
+
+def launch_argv(arch: str, steps: int, ckpt: str, device: str,
+                smoke: bool = True, batch: int = 2, seq: int = 8) -> list:
+    return ["--arch", arch, "--steps", str(steps), "--batch", str(batch),
+            "--seq", str(seq), "--ckpt", ckpt, "--device", device,
+            "--smoke" if smoke else "--no-smoke"]
+
+
+def launch_run(argv: list, crash_at: int | None = None,
+               walls: list | None = None):
+    """``launch.train.build`` then ``Trainer.run`` (an injected crash
+    caught); each step's wall (synchronized) into `walls`."""
+    import torch
+    from repro_torch.launch import train as LT
+    launch = LT.build(LT.parse_args(argv))
+    tr = launch.trainer
+    if walls is not None:
+        inner = tr.step_fn
+
+        def timed(params, step, *batch):
+            t0 = time.perf_counter()
+            out = inner(params, step, *batch)
+            if launch.device.type == "cuda":
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            return out
+
+        tr.step_fn = timed
+    try:
+        tr.run(crash_at=crash_at)
+    except RuntimeError as e:
+        if crash_at is None or "injected crash" not in str(e):
+            raise
+    return launch
+
+
+def same_tree_words(a, b) -> bool:
+    """Two trees of shares hold the same words, leaf for leaf, on any
+    devices."""
+    import torch
+    la, lb = list(lm_leaves(a)), list(lm_leaves(b))
+    return [p for p, _ in la] == [p for p, _ in lb] and all(
+        (x is None and y is None) or (
+            x is not None and y is not None and x.dtype == y.dtype
+            and torch.equal(x, y.to(x.device)))
+        for (_, x), (_, y) in zip(la, lb))
+
+
+class checkpoint_timer:
+    """While active, ``train.checkpoint``'s save, latest, restore and
+    rewrap (as the trainer calls them) log (name, wall s, shard bytes)."""
+
+    NAMES = ("save", "latest", "restore", "rewrap")
+
+    def __init__(self):
+        self.log = []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.train import checkpoint as CK
+        self.orig = {n: getattr(CK, n) for n in self.NAMES}
+        depth = [0]
+
+        def wrap(name):
+            def call(*args, **kw):
+                if depth[0]:                 # rewrap's own recursion
+                    return self.orig[name](*args, **kw)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                depth[0] += 1
+                try:
+                    out = self.orig[name](*args, **kw)
+                finally:
+                    depth[0] -= 1
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                path = out if name in ("save", "latest") else (
+                    args[0] if name == "restore" else None)
+                shard = None if not isinstance(path, str) else \
+                    os.path.join(path, "shard_0.npz")
+                self.log.append((name, wall, os.path.getsize(shard)
+                                 if shard and os.path.exists(shard)
+                                 else None))
+                return out
+            return call
+
+        for n in self.NAMES:
+            setattr(CK, n, wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.train import checkpoint as CK
+        for n, f in self.orig.items():
+            setattr(CK, n, f)
+        return False
+
+
+def launch_smoke(arch: str, kernels: list, card: str) -> dict:
+    """(a) one SMOKE config through the launcher on the card (a driven
+    path) and on the CPU: equal losses, final params words, totals(), no
+    abort; the card's launches the CPU run's wrapper calls."""
+    from repro_torch.kernels import ops
+    path = f"launch_{arch}_smoke"
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs["cuda"], wall = drive(
+            path, kernels, LAUNCH_KERNELS, lambda: launch_run(launch_argv(
+                arch, LAUNCH_SMOKE_STEPS, os.path.join(tmp, "cuda"),
+                "cuda")), LAUNCH_SMOKE_STEPS, unit="step")
+        card_launches = {k["name"]: k["launches_by_path"][path]
+                         for k in kernels}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        runs["cpu"] = launch_run(launch_argv(
+            arch, LAUNCH_SMOKE_STEPS, os.path.join(tmp, "cpu"), "cpu"))
+        cpu_s = time.perf_counter() - t0
+        calls = {k.name: k.calls for k in ops.KERNELS}
+    dev, host = runs["cuda"], runs["cpu"]
+    check(not any(dev.step_aborts.values())
+          and not any(host.step_aborts.values()), f"{path}: aborted")
+    check(dev.trainer.losses == host.trainer.losses,
+          f"{path}: losses {dev.trainer.losses} on the card, "
+          f"{host.trainer.losses} on the CPU")
+    check(same_tree_words(dev.trainer.params, host.trainer.params),
+          f"{path}: final params words differ between the card and the CPU")
+    check(dev.totals() == host.totals(),
+          f"{path}: totals() differ between the card and the CPU")
+    check(card_launches == calls, f"{path}: launches on the card "
+          f"{card_launches}, wrapper calls on the CPU {calls}")
+    print(f"{path} [{card}]: losses {dev.trainer.losses}, final params "
+          f"words and totals() equal to the CPU run, no abort; launches = "
+          f"the CPU run's wrapper calls; card {wall:.2f} s, CPU "
+          f"{cpu_s:.2f} s ({LAUNCH_SMOKE_STEPS} steps, events "
+          f"{dev.trainer.events})")
+    return {"wall_s": wall, "cpu_s": cpu_s, "losses": dev.trainer.losses,
+            "totals": dev.totals(), "events": dev.trainer.events,
+            "launches": {n: c for n, c in card_launches.items() if c}}
+
+
+def fused_plain_threaded(mx, lx, my, ly) -> tuple:
+    """``mpc_matmul_fused_plain`` with each quadrant's product by
+    ``cpu_matmul`` (threads over the columns)."""
+    from repro_torch.kernels import mpc_matmul_fused as MF
+    xs = (mx, lx[0] + lx[1] + lx[2])
+    ys = (my, ly[0] + ly[1] + ly[2])
+    return MF._combine(lambda i, j: cpu_matmul(xs[i], ys[j]),
+                       mx.shape[0], my.shape[1], mx.dtype, mx.device)
+
+
+def launch_fused_shapes() -> list:
+    """The operand shapes phase launch's steps give ``mpc_matmul_fused``:
+    the weight gradients x^T dY (every collapsed 2-D product; the forward
+    and dx products are 3-D) of whisper-tiny's CONFIG at the launcher's
+    batch and ids, K the decoder's tokens or the encoder's frames."""
+    from repro_torch.configs import get
+    cfg = get(LAUNCH_ARCH).CONFIG
+    d, f, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    dec, enc = LAUNCH_BATCH * LAUNCH_SEQ, LAUNCH_BATCH * cfg.frontend_tokens
+    mkn = [(d, dec, d), (d, dec, f), (d, dec, V), (f, dec, d), (d, enc, d),
+           (d, enc, f), (f, enc, d)]
+    return [((M, K), (3, M, K), (K, N), (3, K, N)) for M, K, N in mkn]
+
+
+def launch_fused_rows(shapes: list) -> list:
+    """``mpc_matmul_fused`` at each of `shapes` (its four operands'):
+    random words on the card against the plain version on the CPU
+    (exact), the kernel's device time (profiler), the wrapper call's
+    (CUDA events), beside its bound.  No launch here counts toward a
+    path."""
+    import torch
+    from repro_torch.kernels import mpc_matmul_fused as MF
+    from repro_torch.kernels import ring_matmul as RM
+    dev = torch.device(LM_DEVICE)
+    rng = np.random.RandomState(LM_SEED + 3)
+    rows = []
+    for ops_shapes in shapes:
+        (M, K), N = ops_shapes[0], ops_shapes[2][1]
+        ins = [torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=sh,
+                                            dtype=np.int64))
+               for sh in ops_shapes]
+        ins_d = [t.to(dev) for t in ins]
+        got = [g.cpu() for g in MF.mpc_matmul_fused_cuda(*ins_d)]
+        t0 = time.perf_counter()
+        want = fused_plain_threaded(*ins)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"launch: mpc_matmul_fused disagrees with its plain version "
+              f"at the main path's {M}x{K}x{N}")
+        chunk = MF.quadrant_chunk(M, N, K, RM._sm_count(dev))
+        rows.append({
+            "shape": f"{M}x{K}x{N}", "max_abs_err": 0,
+            "ms": device_ms(lambda: MF.mpc_matmul_fused_cuda(*ins_d),
+                            "mpc_matmul_fused_kernel", reps=10),
+            "call_ms": cuda_ms(lambda: MF.mpc_matmul_fused_cuda(*ins_d),
+                               reps=10, warmup=1),
+            "plain_ms": plain_ms, "plain": "CPU torch.matmul, 8 threads",
+            "k_chunk": chunk, "blocks": 4 * -(-M // RM.TILE)
+            * -(-N // RM.TILE) * -(-K // chunk),
+            **fused_bound(M, K, N)})
+        r = rows[-1]
+        print(f"launch: mpc_matmul_fused {r['shape']} exact: "
+              f"{r['ms']:.5f} ms on the device, call {r['call_ms']:.5f} ms "
+              f"(CPU {plain_ms:.1f} ms); bound {r['bound_ms']:.5f} ms by "
+              f"{r['bound_by']} (bytes {r['bound_ms_bytes']:.5f}, int8 "
+              f"operations {r['bound_ms_int8_ops']:.5f}); {r['blocks']} "
+              f"blocks, k_chunk {chunk}")
+        del ins_d, got
+    torch.cuda.empty_cache()
+    return rows
+
+
+def launch_phase(kernels: list, card: str) -> dict:
+    """(a) the SMOKE configs through the launcher, card against CPU; (b)
+    whisper-tiny's CONFIG whole through the launcher: 4 steps, then a
+    crashed run and its resume, equal words; (c) the dry run's bytes
+    against the trees on the card; (d) the kernels at the steps' shapes."""
+    import torch
+    from repro_torch.configs import get
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import specs as SP
+    from repro_torch.train import checkpoint as CK
+    report = {"card": card, "smoke": {}}
+    for arch in LAUNCH_SMOKE_ARCHS:
+        report["smoke"][arch] = launch_smoke(arch, kernels, card)
+
+    cfg = get(LAUNCH_ARCH).CONFIG
+    report["config"] = {
+        "arch": cfg.name, "segments": cfg.segments(), "d_model": cfg.d_model,
+        "heads": cfg.n_heads, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+        "frontend_tokens": cfg.frontend_tokens, "remat": cfg.remat,
+        "steps": LAUNCH_STEPS, "batch": LAUNCH_BATCH, "seq": LAUNCH_SEQ,
+        "mode": "collapsed", "cuts": []}
+    print(f"launch [{card}]: main path {report['config']}")
+    tmp = tempfile.mkdtemp(prefix="trident_launch_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        path = "launch_whisper_full"
+        seen = {"mpc_matmul_fused": set(), "ring_matmul": set(),
+                "and_level": set()}
+        walls = []
+        with checkpoint_timer() as ck_full:
+            full, wall = record_shapes(seen, lambda: drive(
+                path, kernels, LAUNCH_KERNELS, lambda: launch_run(
+                    launch_argv(LAUNCH_ARCH, LAUNCH_STEPS,
+                                os.path.join(tmp, "full"), "cuda", False,
+                                LAUNCH_BATCH, LAUNCH_SEQ), walls=walls),
+                LAUNCH_STEPS, unit="step"))
+        tr = full.trainer
+        check(tr.events == ["ckpt@1", "ckpt@3"] and not any(
+            full.step_aborts.values()), f"launch: the uninterrupted run's "
+            f"events {tr.events}, aborts {full.step_aborts}")
+        check(all(np.isfinite(v) for v in tr.losses)
+              and len(tr.losses) == LAUNCH_STEPS,
+              f"launch: losses {tr.losses}")
+        report["run_wall_s"] = wall
+        report["step_walls_s"] = list(walls)
+        steady = min(walls)
+        report["losses"] = tr.losses
+        report["totals"] = full.totals()
+        report["max_memory_allocated_gib"] = \
+            torch.cuda.max_memory_allocated() / 2**30
+        report["checkpoints_uninterrupted"] = ck_full.log
+
+        # (c) the dry run's argument bytes against the trees on the card
+        cell = DR.run_cell(LAUNCH_ARCH, "launch", cfg=cfg,
+                           dims=(LAUNCH_SEQ, LAUNCH_BATCH, "train"),
+                           collapse=True, verbose=False)
+        on_card = SP.tree_bytes(tr.params)
+        ids, labels = tr.batch_fn(0)
+        inputs = SP.tree_bytes(full.inputs) + ids.nbytes + labels.nbytes
+        check(all(x is None or x.device.type == "cuda"
+                  for _, x in lm_leaves(tr.params)),
+              "launch: a parameter leaf is not on the card")
+        check(cell["mem"]["param_bytes"] == on_card
+              and cell["mem"]["input_bytes"] == inputs,
+              f"launch: the dry run's bytes {cell['mem']} against "
+              f"{on_card} of params and {inputs} of inputs on the card")
+        report["dryrun"] = {"mem": cell["mem"], "fits": cell["fits"],
+                            "params_on_card_bytes": on_card,
+                            "inputs_bytes": inputs,
+                            "t_compute_limb": cell["t_compute_limb"],
+                            "t_memory": cell["t_memory"]}
+        print(f"launch [{card}]: the dry run's argument bytes "
+              f"{cell['mem']['argument_size_bytes']} = the params on the "
+              f"card ({on_card}) + the inputs ({inputs}); its bound "
+              f"t_compute_limb {cell['t_compute_limb']:.4f} s a step")
+
+        # one more step (step index LAUNCH_STEPS), profiled and driven:
+        # a step's launches without the sharing's
+        by_name = {}
+        step_path = "launch_whisper_profiled_step"
+        (busy, dops), _ = drive(step_path, kernels, LAUNCH_KERNELS,
+                                lambda: profile_batch(
+            f"launch {cfg.name}", lambda: tr.step_fn(
+                tr.params, LAUNCH_STEPS, *tr.batch_fn(LAUNCH_STEPS)),
+            steady, unit="training step", by_name=by_name), 1, unit="step")
+        report["launches_per_step"] = {
+            k["name"]: k["launches_by_path"][step_path] for k in kernels
+            if k["launches_by_path"][step_path]}
+        check(all(k["launches_by_path"][path] >= LAUNCH_STEPS
+                  * k["launches_by_path"][step_path] for k in kernels),
+              "launch: the uninterrupted run launched less than its steps")
+        top = sorted(by_name.items(), key=lambda kv_: -kv_[1])[:8]
+        report["profile_step"] = {
+            "busy_ms": busy, "device_ops": dops, "wall_s": steady,
+            "busy_share": busy / (steady * 1e3),
+            "top_ms": {k[:80]: v for k, v in top}}
+        check(not full.step_aborts[LAUNCH_STEPS],
+              "launch: the profiled step aborted")
+
+        # the same run crashed at step 2 (after step 1's checkpoint), then
+        # resumed from it
+        ck_dir = os.path.join(tmp, "crash")
+        crash_walls, resume_walls = [], []
+        with checkpoint_timer() as ck_crash:
+            crashed = launch_run(launch_argv(
+                LAUNCH_ARCH, LAUNCH_STEPS, ck_dir, "cuda", False,
+                LAUNCH_BATCH, LAUNCH_SEQ), crash_at=LAUNCH_CRASH_AT,
+                walls=crash_walls)
+        check(crashed.trainer.events == ["ckpt@1", "crash@2"],
+              f"launch: the crashed run's events {crashed.trainer.events}")
+        del crashed
+        torch.cuda.empty_cache()
+        with checkpoint_timer() as ck_resume:
+            resumed = launch_run(launch_argv(
+                LAUNCH_ARCH, LAUNCH_STEPS, ck_dir, "cuda", False,
+                LAUNCH_BATCH, LAUNCH_SEQ), walls=resume_walls)
+        rtr = resumed.trainer
+        check(rtr.events == ["resumed@2", "ckpt@3"] and not any(
+            resumed.step_aborts.values()), f"launch: the resumed run's "
+            f"events {rtr.events}, aborts {resumed.step_aborts}")
+        check(same_tree_words(rtr.params, tr.params),
+              "launch: the resumed run's final params differ from the "
+              "uninterrupted run's")
+        check(rtr.losses == tr.losses[LAUNCH_CRASH_AT:],
+              f"launch: resumed losses {rtr.losses}, uninterrupted "
+              f"{tr.losses}")
+        last = CK.latest(ck_dir)
+        check(last is not None and last.endswith(
+            f"step_{LAUNCH_STEPS - 1:08d}") and CK.verify(last),
+              f"launch: latest() {last} does not verify")
+        report["resume"] = {"events": rtr.events, "crash_step_walls_s":
+                            crash_walls, "resume_step_walls_s": resume_walls,
+                            "checkpoints_crashed": ck_crash.log,
+                            "checkpoints_resumed": ck_resume.log}
+        print(f"launch [{card}]: {cfg.name} whole at full width: steps "
+              f"{[round(w, 3) for w in report['step_walls_s']]} s; losses {tr.losses}; "
+              f"launches per step {report['launches_per_step']}; busy share "
+              f"{report['profile_step']['busy_share']:.3f}; peak device "
+              f"memory {report['max_memory_allocated_gib']:.1f} GiB; "
+              f"checkpoints (name, s, bytes): uninterrupted {ck_full.log}, "
+              f"crashed {ck_crash.log}, resumed {ck_resume.log}; the "
+              f"resumed run (steps {[round(w, 3) for w in resume_walls]} s) "
+              f"ends with the uninterrupted run's words, no abort, latest() "
+              f"verifies")
+        del full, resumed, tr, rtr
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (d) the kernels at every shape the main path's steps gave them: the
+    # ring matmul's here, mpc_matmul_fused's with the kernel rows
+    report["exact"] = lmr_exact_words(LAUNCH_ARCH, seen, card, phase="launch")
+    fused = sorted(seen["mpc_matmul_fused"])
+    check(fused == sorted(launch_fused_shapes()),
+          f"launch: mpc_matmul_fused was held at {launch_fused_shapes()}, "
+          f"the steps gave it {fused}")
+    report["fused_shapes"] = [f"{s[0][0]}x{s[0][1]}x{s[2][1]}"
+                              for s in fused]
+    print(f"launch [{card}]: mpc_matmul_fused exact at all {len(fused)} "
+          f"shapes of the steps (the kernel rows' launch_shapes): "
+          f"{report['fused_shapes']}")
     return report
 
 
@@ -5412,6 +5832,11 @@ def main() -> int:
     lm_recurrent_train = lm_recurrent_train_phase(kernels, card)
     lap("lm-recurrent-train")
 
+    # --- the LM launcher ----------------------------------------------------
+    print("phase launch")
+    launch = launch_phase(kernels, card)
+    lap("launch")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
@@ -5425,6 +5850,7 @@ def main() -> int:
     print(json.dumps({"lm_recurrent": lm_recurrent}))
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_recurrent_train": lm_recurrent_train}))
+    print(json.dumps({"launch": launch}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -41,6 +41,7 @@ from .tracer import (
     Stopwatch,
     TRACE_ENV,
     Tracer,
+    ensure_tracer,
     get_tracer,
     install_tracer,
     stopwatch,
@@ -62,6 +63,7 @@ __all__ = [
     "TRACE_ENV",
     "Tracer",
     "get_registry",
+    "ensure_tracer",
     "get_tracer",
     "install_registry",
     "install_tracer",

@@ -245,6 +245,17 @@ def install_tracer(tracer):
     return prev
 
 
+def ensure_tracer(label: str, rank: int | None = None):
+    """Idempotently make sure the process traces: installs a fresh labeled
+    ``Tracer`` unless an enabled one is already in place; returns the
+    process tracer."""
+    tr = get_tracer()
+    if not tr.enabled:
+        tr = Tracer(label, rank=rank)
+        install_tracer(tr)
+    return tr
+
+
 # ---------------------------------------------------------------------------
 # Instrumentation helpers.
 # ---------------------------------------------------------------------------

@@ -334,11 +334,11 @@ class ClusterSGD:
         steps (0 with prep -- the acceptance check)."""
         return sum(res[0].totals["offline"]["bits"] for res in self.results)
 
-    def health(self) -> dict:
+    def health(self, **kw) -> dict:
         """One cluster health document between steps: the four party
         exporters and the attached dealer's (``PartyCluster`` built with
-        ``metrics=True``)."""
-        return self.cluster.health(dealer=self.dealer)
+        ``metrics=True``); `kw` goes to ``PartyCluster.health``."""
+        return self.cluster.health(dealer=self.dealer, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -414,3 +414,9 @@ class ShardedClusterSGD:
         """Offline-phase bits across every member's mesh."""
         return sum(res[0].totals["offline"]["bits"]
                    for step in self.results for res in step)
+
+    def health(self, **kw) -> dict:
+        """One cluster health document a member (``PartyCluster.health``,
+        `kw` passed on), keyed by member index: "0", "1", ...."""
+        return {str(m): c.health(**kw)
+                for m, c in enumerate(self.clusters)}

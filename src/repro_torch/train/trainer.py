@@ -3,7 +3,10 @@
 Fault tolerance: an abort flag from the malicious checks discards the
 step and resumes from the latest checkpoint; an injected crash point
 stands in for a lost process.  PRF seeds are step-indexed
-(``seed_for_step``), so a replayed step is bit-identical.  The step
+(``seed_for_step``), so a replayed step is bit-identical.  Restored words
+go back into the params' own containers (a share around its words, on
+its device), on resume and on the abort path alike.  (The JAX trainer's
+abort path keeps the bare restored arrays: ROADMAP F8.)  The step
 function is engine-agnostic and returns ``(new_params, loss, abort)``;
 ``secure_sgd.run_step`` (inline, in either world) and
 ``secure_sgd.PrepAheadSGD`` (online-only from a ``ContinuousDealer``)
@@ -20,8 +23,6 @@ import dataclasses
 import os
 import tempfile
 from typing import Callable
-
-import numpy as np
 
 from ..core.context import make_context
 from ..core.ring import RING64
@@ -68,7 +69,7 @@ class Trainer:
         if path is None:
             return
         restored, manifest = ckpt_lib.restore(path, self.params)
-        self.params = {k: np.asarray(v) for k, v in restored.items()}
+        self.params = ckpt_lib.rewrap(self.params, restored)
         self.start_step = manifest["step"] + 1
         self.events.append(f"resumed@{self.start_step}")
 
@@ -85,7 +86,7 @@ class Trainer:
                 path = ckpt_lib.latest(self.cfg.ckpt_dir)
                 if path is not None:
                     restored, manifest = ckpt_lib.restore(path, self.params)
-                    self.params = restored
+                    self.params = ckpt_lib.rewrap(self.params, restored)
                     step = manifest["step"] + 1
                 continue
             self.params = new_params

@@ -12,7 +12,9 @@ replayed step poisons the cluster; a dealer that fails mid-stream (its
 program raises) or dies hard (killed while it deals) fails the blocked
 step within 30 s, naming its traceback or its death;
 ``serve_over_sockets`` serves the same words inline, dealt ahead and live;
-a ``ShardedClusterSGD`` step is the mean of its members.  The shared
+a ``ShardedClusterSGD`` step is the mean of its members, and its
+``health`` one document a member, each passing
+``scripts/check_health.py``.  The shared
 cluster traces and serves its metrics (``trace=True, metrics=True``), so
 the same words also show that tracing changes no word: each daemon's
 registry and trace hold its ``per_link()`` bits, the four exporters
@@ -378,7 +380,18 @@ def _check_observed(cluster, dealer, tmp_path) -> None:
     assert cluster.merged_trace(dealer_chunks) == merged
 
 
-def _check_sharded(J, cluster) -> None:
+def _check_health_script():
+    """scripts/check_health.py as a module (its ``check`` gate)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts", "check_health.py")
+    spec = importlib.util.spec_from_file_location("check_health", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_sharded(J, cluster, tmp_path) -> None:
     params = TASK.init_params(seed=0)
     batch = DATA.batch(0, BATCH)
     shards = TS.shard_batch(batch, 2)
@@ -395,6 +408,15 @@ def _check_sharded(J, cluster) -> None:
                        for k in params}, "sharded step")
     assert loss == float(np.mean([m[1] for m in members]))
     assert abort is False
+    # one health document a member, keyed as JAX's ShardedClusterSGD keys
+    # them, each passing scripts/check_health.py's gate (one scrape)
+    docs = sgd.health(stall_s=60.0)
+    assert sorted(docs) == ["0", "1"]
+    gate = _check_health_script()
+    for m, doc in docs.items():
+        path = tmp_path / f"member_{m}_health.json"
+        path.write_text(json.dumps({**doc, "scrapes": 1}))
+        assert gate.check(str(path))["ranks"] == 4
 
 
 def _check_live_training(J, cluster, dealer) -> None:
@@ -518,7 +540,7 @@ def test_cluster_matches_jax(tmp_path):
                 streams = {None: serve_over_sockets(
                     serve_predict, QUERIES, batch_size=4, seed=SERVE_SEED,
                     cluster=cluster, device="cpu")}
-                _check_sharded(J, cluster)
+                _check_sharded(J, cluster, tmp_path)
                 _check_observed(cluster, dealer, tmp_path)
                 _check_live_training(J, cluster, dealer)
         streams.update({prep: f.result(timeout=300)

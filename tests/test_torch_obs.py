@@ -426,6 +426,18 @@ def _check_switches(monkeypatch) -> None:
         with TO.stopwatch() as sw:
             time.sleep(0.01)
         assert sw.s >= 0.01
+        # ensure_tracer keeps an enabled tracer and installs one where
+        # tracing is off, as JAX's does
+        assert TO.ensure_tracer("other", rank=3) is tr
+        for pkg in (TO, JO):
+            jprev = pkg.install_tracer(pkg.NULL_TRACER)
+            try:
+                made = pkg.ensure_tracer("ens", rank=1)
+                assert made.enabled and pkg.get_tracer() is made
+                assert (made.label, made.rank) == ("ens", 1)
+                assert pkg.ensure_tracer("again") is made
+            finally:
+                pkg.install_tracer(jprev)
     finally:
         TO.install_tracer(prev)
 

@@ -3,7 +3,7 @@
 package, bit for bit.
 
     PYTHONPATH=src python3 tools/torch_lm_vs_jax.py [--archs qwen3_1_7b,...]
-        [--layers 1] [--modes collapsed,faithful] [--train]
+        [--layers 1] [--modes collapsed,faithful] [--train | --launch]
 
 For each case's SMOKE config and each mode of the joint simulation
 (faithful, or collapsed), runs ``serve_prefill`` and ``serve_decode``
@@ -52,6 +52,21 @@ share, as its ``_stacked_upd`` updates it and as the port does.  The
 collapsed runs' digests (``train_digest``) are pinned in
 ``tests/test_torch_lm_train.py``.
 
+``--launch``: the LM launcher (``repro_torch.launch.train``) against
+the JAX package.  (1) Its whisper-tiny SMOKE steps (``LAUNCH_STEPS``, batch
+2, seq 8, lr 2^-6, ``TokenStream(vocab, 0)``, encoder inputs
+``RandomState(0)`` x 0.1), run in JAX as the port's launcher runs them:
+the parameters and inputs shared under seed 0, step k under its own
+context seeded ``seed_for_step(1, k)``, collapsed, garbled; prints step
+k's ``train_digest`` (new params, loss, the step's ``totals()``, abort)
+and holds the port's launcher on the CPU to it; the digests are pinned in
+``tests/test_torch_launch.py``.  (2) ROADMAP F7 in the reference: the JAX
+launcher run for 1 step (it checkpoints step 0), then for 2 from the same
+directory (it resumes at step 1): the new params' lambda words (every
+component but m) of step 1 equal step 0's while their m words differ, the
+same masks over other values; the port's launcher run the same way draws
+other lambda words at step 1.
+
 The JAX reference compiles every ``lax.scan`` body, so a run takes minutes
 (about 85 s for qwen3 collapsed at one layer on one CPU, a train step
 about 155 s): too slow for the tier-1 tests, which run only the port and
@@ -63,6 +78,7 @@ import argparse
 import dataclasses
 import hashlib
 import json
+import os
 import sys
 import time
 
@@ -378,6 +394,156 @@ def compare_train(j, t) -> list:
     return bad
 
 
+LAUNCH_ARCH = "whisper_tiny"
+LAUNCH_STEPS = 2
+LAUNCH_BATCH, LAUNCH_SEQ = 2, 8
+
+
+def run_jax_launch(steps: int = LAUNCH_STEPS) -> list:
+    """The port launcher's PRF discipline in the JAX package: [(new
+    params, loss, totals(), abort)] a step."""
+    from repro.configs import get
+    from repro.core.context import make_context
+    from repro.core.ring import RING64
+    from repro.nn import model as JM
+    from repro.nn.engine import TridentEngine
+    from repro.train.data import TokenStream
+    from repro.train.trainer import seed_for_step
+    cfg = get(LAUNCH_ARCH).SMOKE
+    share = TridentEngine(make_context(RING64, seed=0, collapse=True))
+    params = JM.params_to_engine(share, JM.init_params(cfg, seed=0))
+    stream = TokenStream(vocab=cfg.vocab, seed=0)
+    enc = share.from_plain(np.random.RandomState(0).randn(
+        LAUNCH_BATCH, cfg.frontend_tokens, cfg.d_model) * 0.1)
+    out = []
+    for step in range(steps):
+        ctx = make_context(RING64, seed=seed_for_step(1, step),
+                           collapse=True)
+        ids, labels = stream.batch(step, LAUNCH_BATCH, LAUNCH_SEQ)
+        params, loss, _ = JM.train_step(TridentEngine(ctx), cfg, params, ids,
+                                        labels, lr=TRAIN_LR, enc_inputs=enc)
+        out.append((params, np.float32(np.asarray(loss)),
+                    ctx.tally.totals(), bool(ctx.abort_flag())))
+    return out
+
+
+def launch_argv(ckpt: str, steps: int = LAUNCH_STEPS) -> list:
+    return ["--arch", LAUNCH_ARCH, "--steps", str(steps), "--batch",
+            str(LAUNCH_BATCH), "--seq", str(LAUNCH_SEQ), "--ckpt", ckpt]
+
+
+def run_port_launch(ckpt: str, steps: int = LAUNCH_STEPS,
+                    crash_at: int | None = None) -> tuple:
+    """The port's launcher on the CPU: (launch, [(new params, loss,
+    totals(), abort)] a step this process ran)."""
+    from repro_torch.launch import train as LT
+    launch = LT.build(LT.parse_args(launch_argv(ckpt, steps)
+                                    + ["--device", "cpu"]))
+    tr, runs = launch.trainer, []
+    step_fn = tr.step_fn
+
+    def recording(params, step, *batch):
+        new, loss, abort = step_fn(params, step, *batch)
+        runs.append((new, np.float32(loss), launch.step_totals[step], abort))
+        return new, loss, abort
+
+    tr.step_fn = recording
+    try:
+        tr.run(crash_at=crash_at)
+    except RuntimeError as e:
+        if crash_at is None or "injected crash" not in str(e):
+            raise
+    return launch, runs
+
+
+def _update_words(before: list, after: list, ax: list) -> list:
+    """Each leaf's update t = w - w' (the step subtracts t = lr * g from
+    every weight, component by component): (lambda words, m words)."""
+    out = []
+    for x, y, a in zip(before, after, ax):
+        t = x - y                        # uint64 words wrap
+        out.append((np.take(t, [1, 2, 3], axis=a), np.take(t, 0, axis=a)))
+    return out
+
+
+def f7_demo(tmp: str) -> dict:
+    """ROADMAP F7: each launcher run for 1 step (a checkpoint of step 0),
+    then for 2 from the same directory (it resumes at step 1).  Step k's
+    update words are the checkpoints' differences (step 0's from the
+    shared initial params, which the port's sharing under seed 0 gives as
+    the JAX package's does): the JAX launcher's step 1 reuses step 0's
+    lambda words over other m words; the port's draws others."""
+    from repro.launch import train as JL
+    from repro_torch.configs import get
+    from repro_torch.core.context import make_context
+    from repro_torch.core.ring import RING64
+    from repro_torch.nn import model as TM
+    from repro_torch.nn.engine import TridentEngine
+    from repro_torch.train import checkpoint as TCK
+    cfg = get(LAUNCH_ARCH).SMOKE
+    eng = TridentEngine(make_context(RING64, seed=0, collapse=True,
+                                     device="cpu"))
+    init = TM.params_to_engine(eng, TM.init_params(cfg, seed=0))
+    leaves, _ = TCK._flatten(init)
+    words = [TCK._host(x) for x in leaves]
+    # the leaves in sorted key order: embed, final_norm, lm_head, then the
+    # segments, whose data is (n, 4, ...): their component axis is 1
+    first = len(TCK._flatten([init[k] for k in ("embed", "final_norm",
+                                                "lm_head")])[0])
+    n_seg = len(TCK._flatten(init["segments"])[0])
+    ax = [1 if first <= i < first + n_seg else 0 for i in range(len(words))]
+    out = {}
+    for pkg in ("jax", "port"):
+        d = os.path.join(tmp, pkg)
+        for steps in (1, 2):
+            if pkg == "jax":
+                JL.main(launch_argv(d, steps))
+            else:
+                run_port_launch(d, steps)
+        ck = []
+        for k in (0, 1):
+            with np.load(os.path.join(d, f"step_{k:08d}",
+                                      "shard_0.npz")) as f:
+                ck.append([f[f"leaf_{i}"] for i in range(len(words))])
+        t0, t1 = _update_words(words, ck[0], ax), _update_words(ck[0], ck[1],
+                                                                 ax)
+        lam = sum(np.array_equal(a[0], b[0]) for a, b in zip(t0, t1))
+        m = sum(np.array_equal(a[1], b[1]) for a, b in zip(t0, t1))
+        out[pkg] = {"leaves": len(words), "lambda_equal": int(lam),
+                    "m_equal": int(m)}
+        print(f"F7 {pkg}: step 1's update against step 0's, {len(words)} "
+              f"leaves: lambda words equal in {lam}, m words equal in {m}",
+              flush=True)
+    return out
+
+
+def launch_main() -> int:
+    """``--launch``: the digests, the port against them, F7."""
+    import tempfile
+    t0 = time.perf_counter()
+    jruns = run_jax_launch()
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, truns = run_port_launch(os.path.join(tmp, "ck"))
+        ok = True
+        for step, (j, t) in enumerate(zip(jruns, truns)):
+            bad = compare_train(j, t)
+            ok = ok and not bad
+            print(f"launch step {step}: {'EQUAL' if not bad else 'DIFFER'} "
+                  f"(JAX digest {train_digest(j)}; totals {t[2]})",
+                  flush=True)
+            for line in bad[:10]:
+                print(f"  {line}", flush=True)
+        print(f"JAX {t1 - t0:.1f} s, port {time.perf_counter() - t1:.1f} s")
+        f7 = f7_demo(tmp)
+    shown = f7["jax"]["lambda_equal"] == f7["jax"]["leaves"] \
+        and f7["jax"]["m_equal"] < f7["jax"]["leaves"] \
+        and f7["port"]["lambda_equal"] == 0
+    print(json.dumps({"launch_digests": [train_digest(j) for j in jruns],
+                      "equal": ok, "f7": f7, "f7_shown": shown}))
+    return 0 if ok and shown else 1
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--archs", default=None,
@@ -388,9 +554,13 @@ def main() -> int:
     ap.add_argument("--modes", default="collapsed,faithful")
     ap.add_argument("--train", action="store_true",
                     help="the train step instead of the serve")
+    ap.add_argument("--launch", action="store_true",
+                    help="the LM launcher's steps and ROADMAP F7")
     args = ap.parse_args()
     import torch
     torch.set_num_threads(1)
+    if args.launch:
+        return launch_main()
     if args.train:
         runs = (run_jax_train, run_port_train, compare_train, train_digest,
                 TRAIN_CASES)
