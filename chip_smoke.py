@@ -5,7 +5,12 @@
 
 from the root of a checkout.  In order, it
 
-  1. prints the card's name and power limit (nvidia-smi);
+  1. prints the card's name and power limit (nvidia-smi), then runs
+     tridentlint over the shipped port (phase "lint": every rule of
+     ``repro_torch.analysis`` over ``src/repro_torch`` against
+     ``analysis/baseline_torch.json``), prints ``{"lint": {...}}`` (the
+     findings per rule, new, matched and stale counts, the wall and the
+     card) and fails on any new finding or stale baseline entry;
   2. builds every Hopper kernel from ``src/repro_torch/kernels/csrc`` (one
      nvcc per source, all at once);
   3. holds each kernel against its plain PyTorch version at the shapes the
@@ -409,6 +414,32 @@ def gpu_name_and_limit() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def lint_phase(card: str) -> dict:
+    """tridentlint over the shipped port against its committed baseline:
+    any new finding or stale entry fails the run."""
+    from collections import Counter
+    from pathlib import Path
+
+    from repro_torch.analysis import (baseline_diff, baseline_load,
+                                      load_tree, run_rules)
+    t0 = time.perf_counter()
+    modules = load_tree(Path(ROOT, "src", "repro_torch"))
+    findings = run_rules(modules)
+    new, matched, stale = baseline_diff(findings, baseline_load(
+        Path(ROOT, "analysis", "baseline_torch.json")))
+    wall = time.perf_counter() - t0
+    out = {"files": len(modules),
+           "findings_by_rule": dict(sorted(
+               Counter(f.rule for f in findings).items())),
+           "new": len(new), "matched": matched, "stale": len(stale),
+           "wall_s": wall, "card": card}
+    print(json.dumps({"lint": out}))
+    check(not new, "lint: new findings against analysis/baseline_torch."
+          "json:\n" + "\n".join(f.render() for f in new))
+    check(not stale, f"lint: stale baseline entries {stale}")
+    return out
 
 
 def cuda_ms(fn, reps: int = 50, warmup: int = 3) -> float:
@@ -5520,6 +5551,10 @@ def main() -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
+
+    print("phase lint")
+    lint_phase(card)
+    lap("lint")
 
     t0 = time.perf_counter()
     build.build_all()

@@ -128,6 +128,10 @@ def test_port_imports_neither_jax_nor_repro():
     assert {f.name for f in files if f.parent.name == "train"} >= {
         "paper_ml.py", "secure_sgd.py", "data.py", "checkpoint.py",
         "trainer.py"}
+    # tridentlint over the port: its own copy of the analyzer's modules
+    assert {f.name for f in files if f.parent.name == "analysis"} == {
+        "__init__.py", "core.py", "baseline.py", "cli.py", "rules_prep.py",
+        "rules_phase.py", "rules_obs.py", "rules_concurrency.py"}
     for f in files:
         bad = _imported_roots(f) & {"jax", "jaxlib", "repro"}
         assert not bad, f"{f.relative_to(ROOT)} imports {sorted(bad)}"
