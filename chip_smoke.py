@@ -262,7 +262,9 @@ from the root of a checkout.  In order, it
      long run's shared block 512 positions throughout), ``ring_matmul``
      at every shape the driven runs gave it (among them zamba2's (1,
      1,024, 3,584) @ (3,584, 14,336) projections and both lm_heads) equal
-     to ``torch.matmul`` on the CPU and ``and_level`` at every n they gave
+     to ``card_matmul``, an exact float64 product of 16-bit limbs on the
+     card (the smallest shape also to ``torch.matmul`` on the CPU), and
+     ``and_level`` at every n they gave
      it (zamba2's shared MLP: 14.7 M words) equal to its plain version,
      the logits
      against ``PlainEngine`` in float64 on the card within the bounds of
@@ -287,10 +289,11 @@ from the root of a checkout.  In order, it
      the embedding at scale 0.5: two driven steps (``loss_and_grads``
      then ``sgd_update``, each part's wall kept) and a profiled
      ``train_step``, no abort, ``ring_matmul`` (2-D and K2) and
-     ``and_level`` at every shape the steps gave them exact against the
-     CPU and the plain version, and the first step's loss and gradients
-     against float64 with fixed point's mean error on the card
-     (``tools/torch_lm_rehearsal.py``'s model; all-zero and shuffled
+     ``and_level`` at every shape the steps gave them exact (the ring
+     matmul against ``card_matmul``, an exact float64 limb product on the
+     card; ``and_level`` against its plain version), and the first step's
+     loss and gradients against float64 with fixed point's mean error on
+     the card (``tools/torch_lm_rehearsal.py``'s model; all-zero and shuffled
      gradients fail its bounds) and against plain float64 (printed:
      ROADMAP N6).  It prints the sharing time, the steps' walls, the busy
      share and top device operations, launches per step and the peak
@@ -333,10 +336,34 @@ from the root of a checkout.  In order, it
      argument bytes for that cell equal the parameter tree and inputs on
      the card; (d) ``mpc_matmul_fused`` (every collapsed 2-D product: the
      weight gradients) and ``ring_matmul`` (2-D and K2) at every shape the
-     steps gave them, exact against the CPU; each fused shape timed beside
+     steps gave them, exact (the fused shapes against the CPU, the ring
+     matmul against ``card_matmul``); each fused shape timed beside
      its bound.  It prints the steps' walls, a profiled step's busy share,
      launches per step, the peak device memory and the checkpoints' save
-     and restore walls and bytes.
+     and restore walls and bytes.  Its dry run sizes the cell whole on one
+     card (mesh "1xH100", ROADMAP D5).
+ 19. The pod meshes' sharding rules (phase "shard"): (a) the sharded dry
+     run (``repro_torch.launch.dryrun``) of the 33 run cells on the 16x16
+     and the 2x16x16 mesh, no device: the largest per-device bytes and the
+     hill climb's C1/C0 argument-bytes ratio printed; (b) rank 0's
+     parameter shard of qwen3-moe-235b-a22b x train_4k on 16x16 with FSDP
+     (15 tensors, 31.8 GB by the rules) allocated with ``torch.empty`` on
+     the card: the allocator's growth equals the dry run's per-device
+     parameter bytes up to its rounding; (c) qwen3-1.7b's w_up (2,048 x
+     6,144) split column-wise and w_down row-wise over the 16 model ranks
+     by ``param_shardings``, each rank's products through the ring matmul
+     kernel (a driven path, "shard_partition": 34 launches): the column
+     blocks equal x @ w_up and the row-parallel partials summed mod 2^64
+     equal the whole product, bit for bit, before any truncation.
+ 20. The examples (phase "examples"): the nine ``examples_torch/``
+     scripts on the card at their own sizes (``secure_training --steps
+     3``); the six in-process ones through their ``main``, the three
+     that spawn a ``PartyCluster`` (sockets, training over the mesh with
+     a dealt bank, live prep from a dealer process) as scripts, the three
+     at once.  Each
+     passes its own checks (bit identity across worlds, measured traffic
+     equal to the tally, ``malicious checks passed: True``); any failure
+     fails the run.  Each example's wall is printed.
 
 Each path (the deal and the online-only run of steps 5 and 10 and the
 offline and online runs of step 8 being two each; step 11's, 12's and
@@ -354,7 +381,8 @@ last lines come
 11's), ``{"obs": {...}}`` (step 12's), ``{"gateway": {...}}`` (step 13's),
 ``{"lm": {...}}`` (step 14's), ``{"lm_recurrent": {...}}`` (step 15's),
 ``{"lm_train": {...}}`` (step 16's), ``{"lm_recurrent_train": {...}}``
-(step 17's), ``{"launch": {...}}`` (step 18's) and ``{"kernels":
+(step 17's), ``{"launch": {...}}`` (step 18's), ``{"shard": {...}}``
+(step 19's), ``{"examples": {...}}`` (step 20's) and ``{"kernels":
 [...]}``, then
 the card's name and power limit; the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA, or outside a checkout, it exits nonzero
@@ -4444,18 +4472,39 @@ def cpu_matmul(a, b, threads: int = 8):
     return torch.cat(parts, dim=-1)
 
 
+def card_matmul(a, b):
+    """A @ B mod 2^64 of int64 words on their device, exact, by another
+    road than the kernel's: 16-bit limbs, each diagonal's limb products
+    summed by float64 ``torch.matmul`` (cuBLAS), exact while every sum
+    stays below 2^53 (4 K 2^32 < 2^53: K < 2^19), then shifted and added
+    mod 2^64."""
+    import torch
+    check(a.shape[-1] < 2**19, f"card_matmul: K = {a.shape[-1]} too long")
+    la = [((a >> (16 * i)) & 0xFFFF).to(torch.float64) for i in range(4)]
+    lb = [((b >> (16 * i)) & 0xFFFF).to(torch.float64) for i in range(4)]
+    out = None
+    for s in range(4):
+        t = sum(torch.matmul(la[i], lb[s - i]) for i in range(s + 1))
+        t = t.to(torch.int64) << (16 * s)
+        out = t if out is None else out + t
+    return out
+
+
 def lmr_exact_words(arch: str, seen: dict, card: str,
                     phase: str = "lm-recurrent") -> dict:
     """The kernels at every shape a main path's driven runs gave them
     (``record_shapes``), exact: ``ops.ring_matmul`` at each distinct (A,
-    B) shape, 2-D and batched, equal to torch.matmul of the same random
-    words on the CPU; ``ops.and_level`` at each distinct n against its
-    plain version on the card.  No launch here counts toward a path."""
+    B) shape, 2-D and batched, equal to ``card_matmul`` of the same random
+    words (on the card; the smallest shape also to torch.matmul on the
+    CPU, which anchors it); ``ops.and_level`` at each distinct n against
+    its plain version on the card.  No launch here counts toward a
+    path."""
     import torch
     from repro_torch.kernels import ops
     from repro_torch.kernels import ppa_msb as PPA
     dev = torch.device(LM_DEVICE)
     rng = np.random.RandomState(LM_SEED)
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
 
     def words(shape):
         return torch.from_numpy(rng.randint(-2**63, 2**63 - 1, size=shape,
@@ -4463,13 +4512,23 @@ def lmr_exact_words(arch: str, seen: dict, card: str,
 
     out = {"ring_matmul": [], "and_level": []}
     t0 = time.perf_counter()
-    for sa, sb in sorted(seen["ring_matmul"]):
-        a, b = words(sa), words(sb)
-        got = ops.ring_matmul(a.to(dev), b.to(dev)).cpu()
-        check(torch.equal(got, cpu_matmul(a, b)),
-              f"{phase} {arch}: ring_matmul disagrees with "
-              f"torch.matmul at the main path's {sa} @ {sb}")
+    shapes = sorted(seen["ring_matmul"],
+                    key=lambda ab: (int(np.prod(ab[0])), ab))
+    for i, (sa, sb) in enumerate(shapes):
+        a, b = (torch.randint(-2**63, 2**63 - 1, sh, generator=gen,
+                              device=dev, dtype=torch.int64)
+                for sh in (sa, sb))
+        got = ops.ring_matmul(a, b)
+        check(torch.equal(got, card_matmul(a, b)),
+              f"{phase} {arch}: ring_matmul disagrees with the exact "
+              f"product at the main path's {sa} @ {sb}")
+        if i == 0:
+            check(torch.equal(got.cpu(), torch.matmul(a.cpu(), b.cpu())),
+                  f"{phase} {arch}: ring_matmul disagrees with "
+                  f"torch.matmul on the CPU at {sa} @ {sb}")
         out["ring_matmul"].append([list(sa), list(sb)])
+        del a, b, got
+    torch.cuda.synchronize()
     out["ring_matmul_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     for shapes in sorted(seen["and_level"], key=str):
@@ -4481,8 +4540,9 @@ def lmr_exact_words(arch: str, seen: dict, card: str,
         del args
     torch.cuda.synchronize()
     out["and_level_s"] = time.perf_counter() - t0
-    print(f"{phase} [{card}]: {arch}: ring_matmul equals torch.matmul "
-          f"on the CPU at all {len(out['ring_matmul'])} shapes of the main "
+    print(f"{phase} [{card}]: {arch}: ring_matmul equals the exact "
+          f"product (card_matmul; the smallest also torch.matmul on the "
+          f"CPU) at all {len(out['ring_matmul'])} shapes of the main "
           f"path ({out['ring_matmul_s']:.1f} s): {out['ring_matmul']}; "
           f"and_level equals its plain version at all "
           f"{len(out['and_level'])} of its shapes "
@@ -5419,7 +5479,7 @@ def launch_phase(kernels: list, card: str) -> dict:
         # (c) the dry run's argument bytes against the trees on the card
         cell = DR.run_cell(LAUNCH_ARCH, "launch", cfg=cfg,
                            dims=(LAUNCH_SEQ, LAUNCH_BATCH, "train"),
-                           collapse=True, verbose=False)
+                           collapse=True, verbose=False, mesh="1xH100")
         on_card = SP.tree_bytes(tr.params)
         ids, labels = tr.batch_fn(0)
         inputs = SP.tree_bytes(full.inputs) + ids.nbytes + labels.nbytes
@@ -5526,6 +5586,261 @@ def launch_phase(kernels: list, card: str) -> dict:
           f"shapes of the steps (the kernel rows' launch_shapes): "
           f"{report['fused_shapes']}")
     return report
+
+
+# --- phase shard: the pod meshes' sharding rules ---------------------------
+SHARD_ALLOC_CELL = ("qwen3_moe_235b_a22b", "train_4k")
+SHARD_SPLIT_ARCH = "qwen3_1_7b"
+SHARD_SPLIT_ROWS = 128
+# the caching allocator rounds a block to 512 bytes and may hand out the
+# whole of a fresh segment (2 MiB rounding) when the rest is too small to
+# split: at most this much over the bytes asked for, a tensor
+ALLOC_SLACK_BYTES = 2 << 20
+
+
+def shard_phase(kernels: list, card: str) -> dict:
+    """(a) the sharded dry run of the 33 run cells on 16x16 and 2x16x16
+    (no device); (b) rank 0's parameter shard of qwen3-moe-235b-a22b x
+    train_4k on 16x16 with FSDP allocated on the card, the allocator's
+    growth held to the dry run's per-device bytes; (c) one qwen3-1.7b
+    layer's w_up split column-wise and w_down row-wise over the 16 model
+    ranks by param_shardings, each rank's products through the ring matmul
+    kernel, the row-parallel partials summed mod 2^64 == the whole
+    product."""
+    import torch
+    from repro_torch import configs as CFGS
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import specs as SP
+    from repro_torch.nn.model import tree_map
+    report = {"card": card}
+
+    # (a) -----------------------------------------------------------------
+    t0 = time.perf_counter()
+    cells = {}
+    for multi in (False, True):
+        for arch, shape, run in CFGS.cells():
+            if run == "run":
+                m = DR.run_cell(arch, shape, multi_pod=multi, verbose=False)
+                cells[(arch, shape, m["mesh"])] = m
+    c0, c1 = (DR.run_cell("minitron_8b", "train_4k", collapse=True,
+                          fsdp=f, verbose=False) for f in (True, False))
+    dry_wall = time.perf_counter() - t0
+    check(len(cells) == 66 and all(m["devices"] in (256, 512)
+                                   for m in cells.values()),
+          f"shard: {len(cells)} cells sized")
+    per_dev = {k: m["mem"]["argument_size_bytes"]
+               + m["mem"]["output_size_bytes"] for k, m in cells.items()}
+    largest = max(per_dev, key=per_dev.get)
+    ratio = c1["mem"]["argument_size_bytes"] / c0["mem"][
+        "argument_size_bytes"]
+    check(ratio > 3 and c0["collective_bytes"] != c1["collective_bytes"],
+          f"shard: C1/C0 argument bytes {ratio}")
+    report["dryrun"] = {
+        "cells": len(cells), "wall_s": dry_wall,
+        "fit": sum(m["fits"] for m in cells.values()),
+        "largest": {"cell": list(largest), "bytes_per_device":
+                    per_dev[largest], "mem": cells[largest]["mem"],
+                    "collective_bytes": cells[largest]["collective_bytes"]},
+        "c1_over_c0_argument_bytes": ratio,
+        "c0_collective_bytes": c0["collective_bytes"],
+        "c1_collective_bytes": c1["collective_bytes"]}
+    print(f"shard: dry run of {len(cells)} cells (33 x 16x16, 2x16x16) in "
+          f"{dry_wall:.2f} s, no device; {report['dryrun']['fit']} fit 80 "
+          f"GB a card; largest per device {largest}: {per_dev[largest]} B "
+          f"(arguments {cells[largest]['mem']['argument_size_bytes']}, "
+          f"outputs {cells[largest]['mem']['output_size_bytes']}); C1/C0 "
+          f"argument bytes {ratio:.4f}, collective bytes "
+          f"{c1['collective_bytes']:.4g} / {c0['collective_bytes']:.4g}")
+
+    # (b) -----------------------------------------------------------------
+    arch, shape = SHARD_ALLOC_CELL
+    mesh = MESH.make_production_mesh()
+    cfg = CFGS.get(arch).CONFIG
+    specs = SP.param_specs(cfg)
+    shards = SP.param_shardings(cfg, mesh, fsdp=True)
+    want = SP.shard_bytes(specs, shards)
+    check(want == cells[(arch, shape, "16x16")]["mem"]["param_bytes"],
+          "shard: the dry run's parameter bytes differ from the tree's")
+    blocks = []
+    tree_map(lambda x, sh: blocks.append(
+        (sh.shard_shape(SP._leaf_shape(x)), getattr(x, "data", x).dtype)),
+        specs, shards)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    bufs = [torch.empty(s, dtype=dt, device="cuda") for s, dt in blocks]
+    torch.cuda.synchronize()
+    alloc_s = time.perf_counter() - t0
+    grown = torch.cuda.memory_allocated() - before
+    del bufs
+    torch.cuda.empty_cache()
+    check(want <= grown <= want + ALLOC_SLACK_BYTES * len(blocks),
+          f"shard: the allocator grew {grown} B for {want} B of shards")
+    report["alloc"] = {"cell": [arch, shape, "16x16", "fsdp"],
+                       "dryrun_param_bytes": want, "allocated_bytes": grown,
+                       "over_bytes": grown - want, "tensors": len(blocks),
+                       "wall_s": alloc_s}
+    print(f"shard [{card}]: rank 0's parameter shard of {arch} x {shape} "
+          f"on 16x16 with FSDP: {len(blocks)} tensors, the allocator grew "
+          f"{grown} B for the dry run's {want} B (+{grown - want} B of "
+          f"rounding) in {alloc_s * 1e3:.1f} ms")
+
+    # (c) -----------------------------------------------------------------
+    cfg = CFGS.get(SHARD_SPLIT_ARCH).CONFIG
+    d, f = cfg.d_model, cfg.d_ff
+    sh = SP.param_shardings(cfg, mesh)["segments"][0]["mlp"]
+    up = sh["w_up"].shard_shape((cfg.n_layers, 4, d, f))[-2:]
+    down = sh["w_down"].shard_shape((cfg.n_layers, 4, f, d))[-2:]
+    ranks = mesh.shape["model"]
+    check(up == (d, f // ranks) and down == (f // ranks, d),
+          f"shard: w_up {up}, w_down {down} a model rank")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def words(*shape):
+        return torch.randint(-2**63, 2**63 - 1, shape, generator=g,
+                             device="cuda", dtype=torch.int64)
+
+    x = words(SHARD_SPLIT_ROWS, d)
+    w_up, w_down = words(d, f), words(f, d)
+    cols = f // ranks
+
+    def split_run():
+        hs, total = [], None
+        for r in range(ranks):
+            h_r = ops.ring_matmul(x, w_up[:, r * cols:(r + 1) * cols]
+                                  .contiguous())
+            p_r = ops.ring_matmul(h_r, w_down[r * cols:(r + 1) * cols]
+                                  .contiguous())
+            hs.append(h_r)
+            total = p_r if total is None else total + p_r
+        h = ops.ring_matmul(x, w_up)
+        return hs, total, h, ops.ring_matmul(h, w_down)
+
+    (hs, total, h, whole), wall = drive(
+        "shard_partition", kernels, ("ring_matmul",), split_run, 1,
+        unit="step")
+    check(torch.equal(torch.cat(hs, dim=1), h),
+          "shard: the column-parallel w_up blocks differ from the whole")
+    check(torch.equal(total, whole),
+          "shard: the row-parallel partial sums differ from the whole "
+          "product")
+    launches = next(k for k in kernels if k["name"] == "ring_matmul")[
+        "launches_by_path"]["shard_partition"]
+    check(launches == 2 * ranks + 2,
+          f"shard: {launches} ring_matmul launches")
+    report["partition"] = {
+        "arch": SHARD_SPLIT_ARCH, "x": [SHARD_SPLIT_ROWS, d],
+        "w_up_shard": list(up), "w_down_shard": list(down),
+        "model_ranks": ranks, "launches": launches, "wall_s": wall,
+        "bit_equal": True}
+    print(f"shard [{card}]: {SHARD_SPLIT_ARCH} w_up {d}x{f} split into "
+          f"{ranks} column blocks {up}, w_down into row blocks {down}: "
+          f"x {SHARD_SPLIT_ROWS}x{d} through {launches} ring_matmul "
+          f"launches; the blocks == x @ w_up and the partials' sum mod "
+          f"2^64 == (x @ w_up) @ w_down bit for bit")
+    return report
+
+
+# --- phase examples: the nine examples_torch scripts on the card ----------
+EXAMPLES_IN_PROCESS = (("quickstart", ()), ("secure_inference", ()),
+                       ("secure_inference_parties", ()),
+                       ("secure_inference_offline", ()),
+                       ("secure_training", ("--steps", "3")),
+                       ("transformer_tour", ()))
+EXAMPLES_SPAWNING = ("secure_inference_sockets", "secure_training_parties",
+                     "secure_training_live_prep")
+EXAMPLE_TIMEOUT_S = 240
+EXAMPLES_OK = "malicious checks passed: True"
+
+
+def examples_phase(card: str) -> dict:
+    """Each ``examples_torch/`` script on the card at its own size: the
+    six in-process ones through their ``main``, one after another, then
+    the three that spawn a ``PartyCluster`` as scripts, all three at once.
+    Each must pass its own checks."""
+    import contextlib
+    import importlib.util
+    import io
+
+    import torch
+    report = {"card": card, "walls_s": {}}
+    tmp = tempfile.mkdtemp(prefix="trident_examples_")
+    try:
+        for name, argv in EXAMPLES_IN_PROCESS:
+            if name == "secure_training":
+                argv = argv + ("--ckpt", os.path.join(tmp, "ckpt"))
+            spec = importlib.util.spec_from_file_location(
+                f"example_{name}", os.path.join(ROOT, "examples_torch",
+                                                f"{name}.py"))
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    mod.main(list(argv))
+            except BaseException as exc:
+                raise SmokeFailure(f"examples: {name} failed ({exc!r}):\n"
+                                   f"{buf.getvalue()[-2000:]}") from exc
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            out = buf.getvalue()
+            check(EXAMPLES_OK in out, f"examples: {name} printed no "
+                  f"'{EXAMPLES_OK}':\n{out[-2000:]}")
+            report["walls_s"][name] = wall
+            print(f"examples [{card}]: {name} {' '.join(argv)} passed in "
+                  f"{wall:.1f} s; {out.strip().splitlines()[-2][:160]}")
+        env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+            [os.path.join(ROOT, "src")]
+            + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+        # the three at once (each boots its own daemons; a slow boot is
+        # most of each wall), each in a session of its own so a timeout
+        # stops its daemons too, its output in files (no pipe to fill)
+        t0 = time.perf_counter()
+        procs = {}
+        for name in EXAMPLES_SPAWNING:
+            with open(os.path.join(tmp, f"{name}.out"), "w") as out, \
+                    open(os.path.join(tmp, f"{name}.err"), "w") as err:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.join(ROOT, "examples_torch",
+                                                  f"{name}.py")],
+                    cwd=tmp, env=env, stdout=out, stderr=err,
+                    start_new_session=True)
+        try:
+            for name, proc in procs.items():
+                left = EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)
+                try:
+                    proc.wait(timeout=max(left, 1))
+                except subprocess.TimeoutExpired as exc:
+                    raise SmokeFailure(f"examples: {name} ran past "
+                                       f"{EXAMPLE_TIMEOUT_S} s") from exc
+                report["walls_s"][name] = time.perf_counter() - t0
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    os.killpg(proc.pid, signal.SIGKILL)
+                    proc.wait()
+        for name, proc in procs.items():
+            with open(os.path.join(tmp, f"{name}.out")) as f:
+                stdout = f.read()
+            with open(os.path.join(tmp, f"{name}.err")) as f:
+                stderr = f.read()
+            check(proc.returncode == 0 and EXAMPLES_OK in stdout,
+                  f"examples: {name} exited {proc.returncode}:\n"
+                  f"{stdout[-2000:]}\n{stderr[-3000:]}")
+            print(f"examples [{card}]: {name} (4 daemons"
+                  f"{', a dealer' if 'live' in name else ''}; the three "
+                  f"at once) passed, done {report['walls_s'][name]:.1f} s "
+                  f"after they started; "
+                  f"{stdout.strip().splitlines()[-2][:160]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(len(report["walls_s"]) == 9, "examples: not all nine ran")
+    return report
+
 
 
 def main() -> int:
@@ -5872,6 +6187,16 @@ def main() -> int:
     launch = launch_phase(kernels, card)
     lap("launch")
 
+    # --- the pod meshes' sharding rules ------------------------------------
+    print("phase shard")
+    shard = shard_phase(kernels, card)
+    lap("shard")
+
+    # --- the nine examples -------------------------------------------------
+    print("phase examples")
+    examples = examples_phase(card)
+    lap("examples")
+
     print(f"phase walls (s): {walls}")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"offline_online": split}))
@@ -5886,6 +6211,8 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train}))
     print(json.dumps({"lm_recurrent_train": lm_recurrent_train}))
     print(json.dumps({"launch": launch}))
+    print(json.dumps({"shard": shard}))
+    print(json.dumps({"examples": examples}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

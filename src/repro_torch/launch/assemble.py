@@ -22,21 +22,22 @@ PERF_PLACEHOLDER = "(PERF_TABLE_PLACEHOLDER)"
 
 def perf_table(perf: dict) -> str:
     rows = ["| iter | cell | HLO flops | HLO bytes | t_memory | "
-            "t_compute_limb | arg mem/dev | temp/dev | fsdp | verdict |",
-            "|---|---|---|---|---|---|---|---|---|---|"]
+            "t_compute_limb | t_collective | arg mem/dev | temp/dev | fsdp | "
+            "verdict |",
+            "|---|---|---|---|---|---|---|---|---|---|---|"]
     for name, m in perf.items():
         if "error" in m:
             rows.append(f"| {name} | - | FAILED: {m['error'][:60]} "
-                        f"| | | | | | | |")
+                        f"| | | | | | | | |")
             continue
         rows.append(
             f"| {name} | {m['arch']}×{m['shape']} | "
             f"{R.fmt_num(m['flops'], '.3e')} | "
             f"{R.fmt_b(m['bytes_accessed'])} | {R.fmt_t(m['t_memory'])} | "
             f"{R.fmt_t(m['t_compute_limb'])} | "
+            f"{R.fmt_t(m['t_collective'])} | "
             f"{R.fmt_b(m['mem']['argument_size_bytes'])} | "
-            f"{R.fmt_b(m['mem']['temp_size_bytes'])} | "
-            f"{m['fsdp']} ({m['fsdp_effect']}) | |")
+            f"{R.fmt_b(m['mem']['temp_size_bytes'])} | {m['fsdp']} | |")
     notes = []
 
     def ratio(a, b, key, sub=None):
@@ -56,9 +57,12 @@ def perf_table(perf: dict) -> str:
     if r:
         notes.append(f"* B0→B1: argument bytes ×{1 / r:.2f} (ring32).")
     r = ratio("C1_nofsdp", "C0_fsdp", "mem", "argument_size_bytes")
-    if r:
-        notes.append(f"* C1→C0: argument bytes ×{1 / r:.2f}: FSDP shards "
-                     f"weights over a pod's data axis; one card has none.")
+    c = ratio("C1_nofsdp", "C0_fsdp", "collective_bytes")
+    if r and c:
+        notes.append(f"* C1→C0: per-device argument bytes ×{1 / r:.2f} with "
+                     f"FSDP on (the sharding rules' ratio), collective "
+                     f"bytes ×{1 / c:.2f}: the weights' residency traded "
+                     f"for their all-gathers.")
     return "\n".join(rows) + "\n\n" + "\n".join(notes)
 
 

@@ -5,9 +5,10 @@ recorded before and after.
     PYTHONPATH=src python -m repro_torch.launch.hillclimb \
         --out perf_results.json [--only A]
 
-The C pair differs only in ``fsdp``, which shards weights over a pod's
-data axis; on one card it changes nothing, so C0 and C1 size alike and
-each records ``fsdp_effect``.
+Every iteration is sized on the 16x16 mesh.  The C pair differs only in
+``fsdp``, which shards the big weights over the data axis too: C0's
+per-device argument bytes are the rules' fraction of C1's, bought with
+the all-gathers and reduce-scatters of its collective term.
 """
 from __future__ import annotations
 
@@ -64,7 +65,9 @@ def main(argv=None):
                   f"out={fmt_b(m['mem']['output_size_bytes'])} "
                   f"t_memory={fmt_t(m['t_memory'])} "
                   f"t_compute_limb={fmt_t(m['t_compute_limb'])} "
-                  f"fsdp={m['fsdp']} ({m['fsdp_effect']})", flush=True)
+                  f"coll={fmt_b(m['collective_bytes'])} "
+                  f"t_collective={fmt_t(m['t_collective'])} "
+                  f"fsdp={m['fsdp']}", flush=True)
         except Exception as e:  # noqa: BLE001
             m = {"iter": name, "error": repr(e)[:400]}
             print(f"[hillclimb] {name} FAILED: {e!r}"[:200], flush=True)

@@ -1,6 +1,6 @@
-"""Render a dry run's JSON as a roofline table (``repro/launch/
-report.py``).  A value the port's dry run does not have (a compiler's,
-None) prints as "-".
+"""Render a dry run's JSON as roofline tables, one a mesh (``repro/
+launch/report.py``).  A value the port's dry run does not have (a
+compiler's, None) prints as "-".
 
     PYTHONPATH=src python -m repro_torch.launch.report dryrun_results.json
 """
@@ -9,7 +9,10 @@ from __future__ import annotations
 import json
 import sys
 
-from .dryrun import MESH
+# the meshes in the order their tables print, and their headings
+MESH_TITLES = (("16x16", "Single-pod 16x16 (roofline basis)"),
+               ("2x16x16", "Multi-pod 2x16x16"),
+               ("1xH100", "One H100, whole (1xH100)"))
 
 
 def fmt_t(x):
@@ -37,7 +40,7 @@ def fmt_num(x, spec: str) -> str:
     return "-" if x is None else format(x, spec)
 
 
-def render(results, mesh_filter: str = MESH) -> str:
+def render(results, mesh_filter: str = "16x16") -> str:
     rows = ["| arch | shape | t_compute(limb) | t_memory | t_collective | "
             "bottleneck | useful | HLO flops | HLO bytes | coll bytes | "
             "arg+tmp mem/dev | fits | compile |",
@@ -71,11 +74,17 @@ def render(results, mesh_filter: str = MESH) -> str:
 
 
 def report(results) -> str:
+    """The status line and one table for each mesh the results hold."""
     failed = [r for r in results if "error" in r]
     skipped = [r for r in results if "skipped" in r]
     done = len(results) - len(failed) - len(skipped)
-    return (f"## Dry-run status: {done} cells sized, {len(failed)} "
-            f"failed, {len(skipped)} skipped\n\n### One H100 ({MESH})\n\n{render(results)}\n")
+    out = [f"## Dry-run status: {done} cells sized, {len(failed)} "
+           f"failed, {len(skipped)} skipped\n"]
+    present = {r.get("mesh") for r in results}
+    for mesh, title in MESH_TITLES:
+        if mesh in present:
+            out.append(f"### {title}\n\n{render(results, mesh)}\n")
+    return "\n".join(out)
 
 
 def main(argv=None):

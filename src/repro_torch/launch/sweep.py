@@ -1,10 +1,13 @@
 """Dry-run sweep driver (``repro/launch/sweep.py``): every cell, cheapest
-first, with incremental JSON output so partial progress is usable.  One
-card has one layout, so a cell is sized once (the JAX sweep compiles each
-for the single- and the multi-pod mesh).
+first, single- then multi-pod per cell, with incremental JSON output so
+partial progress is usable.
 
     PYTHONPATH=src python -m repro_torch.launch.sweep --out results.json \
-        [--collapse] [--max-minutes 120] [--start 0]
+        [--collapse] [--max-minutes 120] [--start 0] \
+        [--meshes single,multi,one]
+
+``--meshes`` takes JAX's "single" (16x16) and "multi" (2x16x16), and
+"one": the cell whole on one H100 (1xH100, ROADMAP D5).
 """
 from __future__ import annotations
 
@@ -43,10 +46,12 @@ def main(argv=None):
     ap.add_argument("--out", default="dryrun_results.json")
     ap.add_argument("--collapse", action="store_true")
     ap.add_argument("--max-minutes", type=float, default=1e9)
+    ap.add_argument("--meshes", default="single,multi")
     ap.add_argument("--start", type=int, default=0)
     args = ap.parse_args(argv)
 
-    from .dryrun import MESH, run_cell
+    from .dryrun import run_cell
+    from .mesh import ONE_CARD, make_production_mesh
     t_start = time.time()
     results = []
     if os.path.exists(args.out):
@@ -54,26 +59,34 @@ def main(argv=None):
             results = json.load(f)
     done = {(r.get("arch"), r.get("shape"), r.get("mesh")) for r in results}
 
+    chosen = args.meshes.split(",")
+    meshes = [m for key, m in (
+        ("single", make_production_mesh()),
+        ("multi", make_production_mesh(multi_pod=True)),
+        ("one", ONE_CARD)) if key in chosen]
+
     for arch, shape in cell_list()[args.start:]:
-        if (arch, shape, MESH) in done:
-            continue
-        if (time.time() - t_start) / 60 > args.max_minutes:
-            print("[sweep] time budget reached", file=sys.stderr)
+        for mesh in meshes:
+            if (arch, shape, mesh.name) in done:
+                continue
+            if (time.time() - t_start) / 60 > args.max_minutes:
+                print("[sweep] time budget reached", file=sys.stderr)
+                _dump(results, args.out)
+                return results
+            t0 = time.time()
+            try:
+                m = run_cell(arch, shape, collapse=args.collapse,
+                             verbose=False, mesh=mesh)
+                print(f"[sweep] OK  {arch} x {shape} x {mesh.name} "
+                      f"({time.time() - t0:.1f}s) bottleneck="
+                      f"{m['bottleneck']} fits={m['fits']}", flush=True)
+            except Exception as e:  # noqa: BLE001
+                m = {"arch": arch, "shape": shape, "mesh": mesh.name,
+                     "error": repr(e)[:400]}
+                print(f"[sweep] ERR {arch} x {shape} x {mesh.name}: "
+                      f"{e!r}"[:200], flush=True)
+            results.append(m)
             _dump(results, args.out)
-            return results
-        t0 = time.time()
-        try:
-            m = run_cell(arch, shape, collapse=args.collapse, verbose=False)
-            print(f"[sweep] OK  {arch} x {shape} x {MESH} "
-                  f"({time.time() - t0:.1f}s) bottleneck={m['bottleneck']} "
-                  f"fits={m['fits']}", flush=True)
-        except Exception as e:  # noqa: BLE001
-            m = {"arch": arch, "shape": shape, "mesh": MESH,
-                 "error": repr(e)[:400]}
-            print(f"[sweep] ERR {arch} x {shape} x {MESH}: {e!r}"[:200],
-                  flush=True)
-        results.append(m)
-        _dump(results, args.out)
     return results
 
 

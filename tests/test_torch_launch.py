@@ -6,6 +6,7 @@ to the JAX package's pinned digests (``LAUNCH_DIGESTS``, printed by
 ``tools/torch_lm_vs_jax.py --launch``): a JAX LM train step compiles every
 scan body, too slow to run here.  Three items: the suite's wall time is
 held near its limit."""
+import dataclasses
 import importlib.util
 import json
 import os
@@ -18,6 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import jax  # noqa: E402
+from jax.sharding import AbstractMesh  # noqa: E402
 
 from repro.configs import get as jget  # noqa: E402
 from repro.launch import roofline as JRL  # noqa: E402
@@ -229,6 +231,146 @@ def _check_specs():
     mesh = TMESH.make_mesh("cpu")
     assert (mesh.size, TMESH.data_axes(mesh), TMESH.model_axis(mesh)) == \
         (1, ("data",), "model")
+    single = TMESH.make_production_mesh()
+    multi = TMESH.make_production_mesh(multi_pod=True)
+    assert (single.name, single.size, single.shape) == \
+        ("16x16", 256, {"data": 16, "model": 16})
+    assert (multi.name, multi.size, TMESH.data_axes(multi)) == \
+        ("2x16x16", 512, ("pod", "data"))
+    # jax.make_mesh's numbering: the model axis fastest
+    assert single.group("model", 17) == list(range(16, 32))
+    assert single.group("data") == list(range(0, 256, 16))
+    assert multi.group(("pod", "data"), 1) == \
+        [1 + 16 * k for k in range(32)]
+    assert single.crosses_nodes("model") and multi.crosses_nodes("pod")
+    small = TMESH.Mesh((2, 2), ("data", "model"))
+    assert not small.crosses_nodes("model") and \
+        not small.crosses_nodes("data")
+
+
+def _jax_leaves(tree):
+    return jax.tree_util.tree_leaves(tree)
+
+
+def _port_leaves(tree):
+    """Leaves in JAX's order (dict keys sorted, None dropped; a share's
+    data)."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _port_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)) and not isinstance(
+            tree, TSP.Sharding):
+        return [x for t in tree for x in _port_leaves(t)]
+    return [getattr(tree, "data", tree)]
+
+
+def _same_shardings(what, jspecs, jshards, tspecs, tshards) -> int:
+    """Specs and shard shapes equal leaf for leaf; one device's bytes."""
+    js, jl = _jax_leaves(jshards), _jax_leaves(jspecs)
+    ts, tl = _port_leaves(tshards), _port_leaves(tspecs)
+    assert len(js) == len(ts) == len(jl) == len(tl), what
+    total = 0
+    for a, b, x, y in zip(js, ts, jl, tl):
+        assert tuple(a.spec) == b.spec, (what, a.spec, b.spec)
+        assert tuple(x.shape) == tuple(y.shape), what
+        shard = a.shard_shape(tuple(x.shape))
+        assert b.shard_shape(y.shape) == shard, (what, y.shape)
+        total += int(np.prod(shard)) * x.dtype.itemsize
+    return total
+
+
+def _check_shardings():
+    """Every run cell on 16x16 and 2x16x16 under the fsdp JAX's run_cell
+    picks, and the hill climb's C0/C1 both ways: param_shardings,
+    input_specs(mesh=) (decode_cache_shardings within) == JAX's rules on
+    an AbstractMesh, leaf for leaf; shard shapes == NamedSharding's;
+    the dry run's per-device bytes == the sum of JAX's shards."""
+    cases = [(a, s, None) for a, s, r in TCFGS.cells() if r == "run"]
+    cases += [("minitron_8b", "train_4k", f) for f in (True, False)]
+    assert len(cases) == 35
+    sized = {}
+    for multi in (False, True):
+        tmesh = TMESH.make_production_mesh(multi_pod=multi)
+        jmesh = AbstractMesh(tmesh.sizes, tmesh.axis_names)
+        for arch, shape, fsdp in cases:
+            jcfg, tcfg = jget(arch).CONFIG, TCFGS.get(arch).CONFIG
+            if fsdp is None:
+                fsdp = JRL.active_params(jcfg) >= 5e9
+            what = (arch, shape, tmesh.name, fsdp)
+            pbytes = _same_shardings(
+                what, JSP.param_specs(jcfg),
+                JSP.param_shardings(jcfg, jmesh, fsdp=fsdp),
+                TSP.param_specs(tcfg),
+                TSP.param_shardings(tcfg, tmesh, fsdp=fsdp))
+            jargs, jsh = JSP.input_specs(jcfg, shape, mesh=jmesh)
+            targs, tsh = TSP.input_specs(tcfg, shape, mesh=tmesh)
+            assert sorted(jargs) == sorted(targs), what
+            ibytes = _same_shardings(what, jargs, jsh, targs, tsh)
+            cell = TDR.run_cell(arch, shape, multi_pod=multi, fsdp=fsdp,
+                                verbose=False)
+            assert (cell["mesh"], cell["devices"], cell["fsdp"]) == \
+                (tmesh.name, tmesh.size, fsdp), what
+            assert (cell["mem"]["param_bytes"], cell["mem"]["input_bytes"]) \
+                == (pbytes, ibytes), what
+            assert cell["fits"] == (pbytes + ibytes + cell["mem"][
+                "output_size_bytes"] <= 80e9), what
+            sized[what] = cell
+    # the rules' per-device parameter bytes: qwen3-moe with FSDP (and the
+    # same on 2x16x16, where pod shards no weight), minitron with and without
+    moe = sized[("qwen3_moe_235b_a22b", "train_4k", "16x16", True)]
+    assert round(moe["mem"]["param_bytes"] / 1e9, 2) == 31.84
+    assert moe["mem"]["param_bytes"] == sized[
+        ("qwen3_moe_235b_a22b", "train_4k", "2x16x16", True)][
+        "mem"]["param_bytes"]
+    mini = [sized[("minitron_8b", "train_4k", "16x16", f)]["mem"][
+        "param_bytes"] for f in (True, False)]
+    assert [round(b / 1e9, 2) for b in mini] == [4.91, 15.48]
+    return sized
+
+
+def _check_collectives():
+    """The collective estimate hand-counted for one qwen3 SMOKE layer on a
+    2x2 mesh: train without and with FSDP, and prefill."""
+    cfg = TCFGS.get("qwen3_1_7b").SMOKE
+    cfg = dataclasses.replace(cfg, n_layers=1)
+    mesh = TMESH.Mesh((2, 2), ("data", "model"))
+    B, S, w = 4, 8, 8
+    d, V, f = cfg.d_model, cfg.vocab, cfg.d_ff
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.dh
+    assert cfg.act == "swiglu" and V % 2 == f % 2 == (Hk * dh) % 2 == 0
+    rows = B // 2 * S
+    act = 4 * rows * d * w              # a (4, rows, d) share of words
+    params = TSP.param_specs(cfg)
+    # the weights' per-device words: model halves every matrix but the
+    # norm gains (d each: n1, n2, final; dh each: qnorm, knorm)
+    mats = V * d * 2 + d * (H + 2 * Hk) * dh + H * dh * d + 3 * d * f
+    gains = 3 * d + (2 * dh if cfg.qk_norm else 0)
+    pbytes = 4 * w * (mats // 2 + gains)
+    for fsdp, kind, want in (
+            (False, "train", {"all-reduce": 9 * act + pbytes}),
+            (False, "prefill", {"all-reduce": 3 * act}),
+            (True, "train", {"all-reduce": 9 * act + 4 * w * gains,
+                             "all-gather": 2 * 4 * w * (
+                                 (mats - 2 * V * d) // 4),
+                             "reduce-scatter": 4 * w * (
+                                 (mats - 2 * V * d) // 2)})):
+        shard = TSP.param_shardings(cfg, mesh, fsdp=fsdp)
+        terms = TRL.collective_terms(cfg, mesh, shard, params, kind, B, S,
+                                     w)
+        got = {}
+        for t in terms:
+            got[t["op"]] = got.get(t["op"], 0) + t["bytes"]
+        # embed out, wo out, w_down out (+ train: wq wk wv, w_up w_gate,
+        # lm_head input gradients); gradients over data
+        if fsdp:
+            want["all-reduce"] += 4 * w * V * d      # embed, lm_head halves
+        assert got == want, (fsdp, kind, got, want)
+        assert TRL.collective_seconds(mesh, terms) == pytest.approx(
+            sum(want.values()) / TRL.NVLINK_BW)
+    one = TRL.collective_terms(cfg, TMESH.ONE_CARD, TSP.param_shardings(
+        cfg, TMESH.ONE_CARD), params, "train", B, S, w)
+    assert one == []
 
 
 def _check_roofline():
@@ -261,32 +403,48 @@ def _check_roofline():
     assert small["bottleneck"] == "t_memory"
 
 
-def _check_dryrun_tools(tmp: str, monkeypatch):
-    """dryrun --all with no card, the sweep, the hill-climb, the report
-    and the assembled document."""
+def _check_dryrun_tools(tmp: str, monkeypatch, sized: dict):
+    """dryrun --all with no card on 16x16, 2x16x16 and one card (D5), the
+    sweep over the three meshes, the hill-climb, the report and the
+    assembled document."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     out = os.path.join(tmp, "dryrun.json")
     res = TDR.main(["--all", "--out", out])
     with open(out) as f:
         assert json.load(f) == json.loads(json.dumps(res))
-    assert [(r["arch"], r["shape"]) for r in res] == \
-        [(a, s) for a, s, _ in TCFGS.cells()] and len(res) == 40
-    sized = [r for r in res if "mem" in r]
-    assert len(sized) == 33 and all("error" not in r for r in res)
-    assert {(r["arch"], r["shape"]) for r in res if "skipped" in r} == {
-        (a, "long_500k") for a in TCFGS.ARCHS
-        if a not in TCFGS.LONG_CONTEXT_ARCHS}
-    for r in sized:
-        for k in TDR.COMPILER_ONLY:
-            assert r[k] is None, (r["arch"], k)
-        mem = r["mem"]
-        assert mem["temp_size_bytes"] is None and \
-            mem["generated_code_size_bytes"] is None
-        assert mem["argument_size_bytes"] == mem["param_bytes"] + \
-            mem["input_bytes"] > 0
-        assert r["fits"] == (mem["argument_size_bytes"]
-                             + mem["output_size_bytes"] <= 80e9)
-    cell = next(r for r in sized if (r["arch"], r["shape"]) ==
+    multi = TDR.main(["--all", "--multi-pod"])
+    one = TDR.main(["--all", "--mesh", "1xH100"])
+    for results, mesh in ((res, "16x16"), (multi, "2x16x16"),
+                          (one, "1xH100")):
+        assert [(r["arch"], r["shape"]) for r in results] == \
+            [(a, s) for a, s, _ in TCFGS.cells()] and len(results) == 40
+        assert all(r["mesh"] == mesh for r in results)
+        done = [r for r in results if "mem" in r]
+        assert len(done) == 33 and all("error" not in r for r in results)
+        assert {(r["arch"], r["shape"]) for r in results
+                if "skipped" in r} == {
+            (a, "long_500k") for a in TCFGS.ARCHS
+            if a not in TCFGS.LONG_CONTEXT_ARCHS}
+        for r in done:
+            for k in TDR.COMPILER_ONLY:
+                assert r[k] is None, (r["arch"], k)
+            mem = r["mem"]
+            assert mem["temp_size_bytes"] is None and \
+                mem["generated_code_size_bytes"] is None
+            assert mem["argument_size_bytes"] == mem["param_bytes"] + \
+                mem["input_bytes"] > 0
+            assert r["fits"] == (mem["argument_size_bytes"]
+                                 + mem["output_size_bytes"] <= 80e9)
+            if mesh != "1xH100":
+                cell = sized[(r["arch"], r["shape"], mesh, r["fsdp"])]
+                assert r["mem"] == cell["mem"]
+                assert r["collective_bytes"] > 0
+            else:       # D5: whole on one card, no collectives
+                assert mem["param_bytes"] == mem["param_bytes_all_devices"]
+                assert mem["input_bytes"] == mem["input_bytes_all_devices"]
+                assert r["collective_bytes"] == r["t_collective"] == 0.0
+    # one card, whole (D5): the sum of JAX's leaves
+    cell = next(r for r in one if (r["arch"], r["shape"]) ==
                 ("whisper_tiny", "train_4k"))
     cfg = TCFGS.get("whisper_tiny").CONFIG
     jleaves = jax.tree_util.tree_leaves(JSP.param_specs(jget(
@@ -295,39 +453,57 @@ def _check_dryrun_tools(tmp: str, monkeypatch):
         int(np.prod(x.shape)) for x in jleaves)
     assert cell["mem"]["input_bytes"] == 2 * 4 * 256 * 4096 + \
         32 * 256 * cfg.frontend_tokens * cfg.d_model
-    table = TREP.report(res)
-    assert "33 cells sized, 0 failed, 7 skipped" in table
-    assert sum(ln.startswith("| ") for ln in table.splitlines()) == 41
+    table = TREP.report(res + multi)
+    assert "66 cells sized, 0 failed, 14 skipped" in table
+    assert "Single-pod 16x16" in table and "Multi-pod 2x16x16" in table
+    assert sum(ln.startswith("| ") for ln in table.splitlines()) == 82
     assert "| - |" in table
+    assert TREP.render(res + multi + one, "1xH100") == TREP.render(one,
+                                                                    "1xH100")
     sweep_out = os.path.join(tmp, "sweep.json")
     swept = TSW.main(["--out", sweep_out])
-    assert len(swept) == len(TSW.cell_list()) == 33
+    assert len(swept) == 2 * len(TSW.cell_list()) == 66
+    assert [r["mesh"] for r in swept[:2]] == ["16x16", "2x16x16"]
     assert TSW.main(["--out", sweep_out]) == swept       # resumes: no rerun
+    three = TSW.main(["--out", sweep_out, "--meshes", "single,multi,one"])
+    assert len(three) == 99 and three[:66] == swept
     perf = THC.main(["--out", os.path.join(tmp, "perf.json")])
     c0, c1 = perf["C0_fsdp"], perf["C1_nofsdp"]
     assert (c0["fsdp"], c1["fsdp"]) == (True, False)
-    assert c0["mem"] == c1["mem"] and c0["fsdp_effect"] == "none on one card"
+    want = sized[("minitron_8b", "train_4k", "16x16", False)]["mem"][
+        "argument_size_bytes"] / sized[("minitron_8b", "train_4k", "16x16",
+                                        True)]["mem"]["argument_size_bytes"]
+    assert c1["mem"]["argument_size_bytes"] / c0["mem"][
+        "argument_size_bytes"] == want and want > 3
+    assert c0["collective_bytes"] != c1["collective_bytes"]
     assert perf["B1_ring32"]["mem"]["param_bytes"] * 2 == \
         perf["B0_ring64"]["mem"]["param_bytes"]
     doc = TAS.assemble(res, perf, f"# E\n\n{TAS.REPORT_PLACEHOLDER}\n\n"
                        f"{TAS.PERF_PLACEHOLDER}\n")
     assert TAS.REPORT_PLACEHOLDER not in doc and "C1_nofsdp" in doc
     assert "whisper_tiny | train_4k" in doc and "B0→B1" in doc
+    assert f"×{1 / want:.2f} with FSDP on" in doc
 
 
 def test_launch_specs_dryrun_and_report(tmp_path, monkeypatch):
     """``specs.param_specs`` equals the port's real ``params_to_engine(
     init_params(SMOKE))`` leaf for leaf for all 10 archs (meta tensors),
     and ``decode_cache_specs`` the caches of ``steps``' prefill and decode
-    closures (whisper, xlstm, zamba2); the one-card mesh; the roofline
-    terms on a fixed record (H100 rates, 36 limb pairs, 4 or 16 products a
-    secure MAC; ``model_flops``/``active_params`` equal JAX's); ``dryrun
-    --all`` with no card (40 cells, the compiler's keys None), the sweep,
-    the hill-climb's C0/C1 (fsdp recorded, no effect), ``report`` and
-    ``assemble`` rendering the JSON."""
+    closures (whisper, xlstm, zamba2); the meshes (one card, 16x16,
+    2x16x16: jax.make_mesh's numbering); the sharding rules against JAX's
+    on an AbstractMesh for every run cell on both pod meshes, and the
+    dry run's per-device bytes against the sum of JAX's shards; the
+    collective estimate hand-counted on a 2x2 mesh; the roofline terms on
+    a fixed record (H100 rates, 36 limb pairs, 4 or 16 products a secure
+    MAC; ``model_flops``/``active_params`` equal JAX's); ``dryrun --all``
+    with no card on the three meshes (40 cells, the compiler's keys None;
+    1xH100 the whole trees, D5), the sweep, the hill-climb's C0/C1 (the
+    rules' ratio), ``report`` and ``assemble`` rendering the JSON."""
     _check_specs()
+    sized = _check_shardings()
+    _check_collectives()
     _check_roofline()
-    _check_dryrun_tools(str(tmp_path), monkeypatch)
+    _check_dryrun_tools(str(tmp_path), monkeypatch, sized)
 
 
 def _shares(tree) -> list:
