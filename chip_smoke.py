@@ -139,18 +139,25 @@ from the root of a checkout.  In order, it
      in-process runtime's on the card, all four daemons agreeing, no abort,
      and every daemon's launches of the five runtime kernels a batch (read
      inside the daemons by ``daemon_stats``, set to 0 before the path)
-     equal to the in-process batch's; on the same cluster 3 NN steps of
-     ``ClusterSGD(prep="live")`` fed by ``attach_live_dealer`` (a dealer
-     process on the card) bit-equal to ``run_step`` in process, with 0
-     offline bits on the mesh; one ``ShardedClusterSGD`` step over the
+     equal to the in-process batch's; on the same cluster (its exporters
+     served: ``metrics=True``) a warm-up step and then 3 NN steps of
+     ``ClusterSGD(prep="live", dealer=...)`` fed by ``attach_live_dealer``
+     (a dealer process on the card), all bit-equal to ``run_step`` in
+     process, with 0 offline bits on the mesh, the 3 watched by an
+     ``obs.health.HealthMonitor`` with the JAX package's defaults (a poll
+     each 0.2 s, ``round_stall`` at 5 s) whose final document is healthy
+     with four ranks and the dealer scraped, at least 2 scrapes, no probe
+     ever fired, and passes ``scripts/check_health.py``'s gate with the
+     dealer expected; one ``ShardedClusterSGD`` step over the
      cluster twice (2 shards of 64), the mean of the in-process members;
      ``serve_over_sockets(prep="live")`` on a cluster of its own (the
      inline words, 0 offline bits); and a ``run_four_parties`` run with a
      tampered ``.g2`` in which every daemon aborts.  It prints the boot
      seconds, each batch's round-trip wall beside the in-process wall, frames
-     and wire bytes a batch, the live step walls, the dealer's lead and
-     each daemon's peak device memory, each beside the card's name and
-     power limit;
+     and wire bytes a batch, the live step walls, the monitor's scrapes,
+     its document and its ``stop()`` wall, the dealer's lead and each
+     daemon's peak device memory, each beside the card's name and power
+     limit;
  12. the observability plane (phase "obs"; tracing is off in every other
      phase): step 4's batch 0 served untraced and traced in turns (off,
      on, on, off), each under a fresh metrics registry, the first traced
@@ -3030,6 +3037,25 @@ def summed_traffic(ref: list) -> tuple:
     return totals, links
 
 
+def check_health_gate(doc: dict) -> None:
+    """``scripts/check_health.py``'s gate with ``--expect-dealer`` over
+    `doc`, written to a file under TMPDIR as the script reads it."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "check_health", os.path.join(ROOT, "scripts", "check_health.py"))
+    gate = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gate)
+    with tempfile.TemporaryDirectory(prefix="health-") as tmp:
+        path = os.path.join(tmp, "health.json")
+        with open(path, "w") as fh:
+            json.dump(doc, fh)
+        try:
+            gate.check(path, expect_dealer=True)
+        except AssertionError as e:
+            raise SmokeFailure(f"scripts/check_health.py: {e}") from e
+
+
 def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
     """The port's four-party deployment on the card: four daemon processes
     over a TCP mesh (``runtime.net.PartyCluster``, the LAN model), a
@@ -3040,6 +3066,7 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
 
     import torch
     from repro_torch.core.ring import words_to_numpy
+    from repro_torch.obs.health import HealthMonitor
     from repro_torch.runtime.net import LAN, PartyCluster, run_four_parties
     from repro_torch.serve.party_server import serve_over_sockets
     from repro_torch.train import secure_sgd as SGD
@@ -3055,7 +3082,7 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
     # 2. boot, then serve the same batches inline through the daemons
     t0 = time.perf_counter()
     cluster = PartyCluster(device="cuda", live_prep=True, net_model=LAN,
-                           timeout=CLUSTER_TIMEOUT)
+                           timeout=CLUSTER_TIMEOUT, metrics=True)
     out["boot_s"] = time.perf_counter() - t0
     print(f"cluster [{card}]: four daemons on the card over TCP booted in "
           f"{out['boot_s']:.2f} s (spawn, torch import, CUDA context, the "
@@ -3142,32 +3169,51 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
             "peak_bytes_after_serving": [r.result["peak_bytes"]
                                          for r in stats]})
 
-        # 3. live training: 3 NN steps fed by a dealer process on the card
+        # 3. live training fed by a dealer process on the card: a warm-up
+        # step (it waits for the dealer's boot), then TRAIN_STEPS steps
+        # watched by a HealthMonitor with JAX's defaults (a poll each
+        # 0.2 s, round_stall at 5 s), as netbench's --live block
         task = SGD.nn_task(lr=TRAIN_LR)
         tparams = task.init_params(seed=0)
         data = MNISTLike(n=8192, seed=2)
-        batches = [data.batch(step, BATCH)[:2]
-                   for step in range(TRAIN_STEPS)]
+        steps = TRAIN_STEPS + 1
+        batches = [data.batch(step, BATCH)[:2] for step in range(steps)]
         want_steps = train_steps(task, tparams, batches, device=dev)
         with SGD.attach_live_dealer(cluster, task, tparams, batches[0],
-                                    base_seed=SEED,
-                                    total=TRAIN_STEPS) as dealer:
-            sgd = SGD.ClusterSGD(cluster, task, base_seed=SEED, prep="live")
+                                    base_seed=SEED, total=steps) as dealer:
+            sgd = SGD.ClusterSGD(cluster, task, base_seed=SEED, prep="live",
+                                 dealer=dealer)
             cluster.submit(daemon_stats)
             p, got, leads = tparams, [], []
             for step, batch in enumerate(batches):
+                if step == 1:
+                    monitor = HealthMonitor(cluster, dealer=dealer)
                 leads.append(dealer.dealt - step)
                 t0 = time.perf_counter()
                 p, loss, abort = sgd.step_fn(p, step, *batch)
                 got.append((p, loss, None, time.perf_counter() - t0))
                 check(not abort, f"cluster: live step {step} aborted")
             tstats = cluster.submit(daemon_stats)
+            t0 = time.perf_counter()
+            while not dealer.done and time.perf_counter() - t0 < 60:
+                time.sleep(0.05)
+            t0 = time.perf_counter()
+            watched = monitor.stop()
+            stop_s = time.perf_counter() - t0
             shipped = list(dealer.shipped)
         check_trajectory("cluster: live training against run_step in "
                          "process", got, want_steps)
         check(sgd.offline_bits_on_mesh() == 0,
               "cluster: live training moved offline bits on the mesh")
-        tl = {n: tstats[0].result["launches"][n] / TRAIN_STEPS
+        print(f"cluster [{card}]: the monitored steps' health "
+              f"{json.dumps(watched)}")
+        # the gate: healthy, four ranks alive and scraped, no probe now or
+        # ever, the dealer's port published and its quota done
+        check_health_gate(watched)
+        check(watched["dealer"]["scrape_ok"] and watched["scrapes"] >= 2,
+              "cluster: the HealthMonitor did not scrape the dealer, or "
+              "scraped fewer than 2 times")
+        tl = {n: tstats[0].result["launches"][n] / steps
               for n in CLUSTER_KERNELS}
         check(all(r.result["launches"] == tstats[0].result["launches"]
                   for r in tstats) and tl["prf_mask"] == 0
@@ -3175,15 +3221,24 @@ def cluster_phase(params, net, queries, kernels: list, card: str) -> tuple:
               f"cluster: online-only step launches {tl} (no PRF draw "
               "online, the online grids launched, every daemon alike)")
         waits = [res[0].prep_wait_s for res in sgd.results]
+        step_walls = [w * 1e3 for w in cluster.task_walls[-steps - 1:-1]]
         out.update({
-            "train_step_walls_ms": [w * 1e3 for w in
-                                    cluster.task_walls[-TRAIN_STEPS - 1:-1]],
+            "train_step_walls_ms": step_walls,
+            "monitor": {"scrapes": watched["scrapes"],
+                        "monitored_step_walls_ms": step_walls[1:],
+                        "stop_ms": stop_s * 1e3, "card": card},
             "train_in_process_walls_ms": [s[3] * 1e3 for s in want_steps],
             "train_prep_wait_ms": [w * 1e3 for w in waits],
             "dealer_sessions_ahead_at_submit": leads,
             "dealer_blob_bytes": [b for _, b, _ in shipped],
             "train_launches_per_step": tl})
-        print(f"cluster [{card}]: {TRAIN_STEPS} ClusterSGD(prep='live') NN "
+        print(f"cluster [{card}]: HealthMonitor over {TRAIN_STEPS} live "
+              f"steps (after a warm-up step): {watched['scrapes']} scrapes, "
+              f"healthy, no probe ever fired, the dealer scraped and done, "
+              f"scripts/check_health.py --expect-dealer passed; monitored "
+              f"step walls {[round(w, 1) for w in step_walls[1:]]} ms; "
+              f"stop() {stop_s * 1e3:.1f} ms")
+        print(f"cluster [{card}]: {steps} ClusterSGD(prep='live') NN "
               f"steps bit-equal to run_step in process, 0 offline bits on "
               f"the mesh; step walls "
               f"{[round(w, 1) for w in out['train_step_walls_ms']]} ms (in "

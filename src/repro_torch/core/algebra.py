@@ -44,6 +44,11 @@ def lam_holders(j: int) -> tuple:
     return tuple(p for p in PARTIES if p != j)
 
 
+def online_holders(j: int) -> tuple:
+    """Online parties (P1..P3) holding lambda component j."""
+    return tuple(p for p in (1, 2, 3) if p != j)
+
+
 # Pi_Mult gamma split (Fig. 4): piece j -> the (a, b) lambda-index pairs of
 # its lam_x[a] op lam_y[b] terms (1-based).
 GAMMA_TERMS = {
@@ -59,10 +64,12 @@ GAMMA_MASK_F = {1: (0, 2), 2: (1, 0), 3: (2, 1)}
 
 # Gamma piece j is computed by P0 and GAMMA_LOCAL[j]; P0 sends it to
 # GAMMA_RECV[j].  Online part j is held by PART_HOLDERS[j] = (value sender,
-# hash sender) and sent to P_j.
+# hash sender) and sent to PART_RECV[j] = P_j, the one online party
+# missing lambda_j.
 GAMMA_LOCAL = {1: 3, 2: 1, 3: 2}
 GAMMA_RECV = {1: 2, 2: 3, 3: 1}
 PART_HOLDERS = {1: (3, 2), 2: (1, 3), 3: (2, 1)}
+PART_RECV = {1: 1, 2: 2, 3: 3}
 
 
 def bit_masks(ell: int, level: int) -> tuple:

@@ -90,6 +90,13 @@ def _bool_zero_stack(f1, f2, f3) -> torch.Tensor:
     return torch.stack([f2 ^ f1, f3 ^ f2, f1 ^ f3])
 
 
+def bool_zero_shares(ctx: TridentContext, shape) -> torch.Tensor:
+    """Pi_Zero's XOR stack from the three subset draws, in the order of
+    ``ZERO_SUBSETS`` (one draw group)."""
+    return _bool_zero_stack(*ctx.sample_group(
+        [(s, shape) for s in AL.ZERO_SUBSETS]))
+
+
 def _flat(t: torch.Tensor, out_shape) -> torch.Tensor:
     """A (rows, *shape) stack broadcast to out_shape, as (rows, n)."""
     rows = t.shape[0]

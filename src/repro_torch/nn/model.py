@@ -422,8 +422,13 @@ def forward(eng: Engine, cfg: ModelConfig, params, ids,
         seg_caches.append(cs)
 
     xn, c_fn = L.rmsnorm_fwd(eng, params["final_norm"], x)
-    logits, c_head = L.linear_fwd(eng, params["lm_head"], xn)
+    logits, c_head = linear_fwd_model(eng, params["lm_head"], xn)
     return logits, (c_emb, n_front, seg_caches, c_fn, c_head, enc_out)
+
+
+def linear_fwd_model(eng, p, x):
+    """The lm_head's ``linear_fwd`` (the JAX package's name for it)."""
+    return L.linear_fwd(eng, p, x)
 
 
 def backward(eng: Engine, cfg: ModelConfig, params, cache, dlogits):
@@ -818,6 +823,12 @@ def serve_decode(eng: Engine, cfg: ModelConfig, params, ids_last, caches,
     xn, _ = L.rmsnorm_fwd(eng, params["final_norm"], x)
     logits, _ = L.linear_fwd(eng, params["lm_head"], xn)
     return logits, new_caches
+
+
+def prepare_decode_caches(eng, cfg, prefill_caches):  # noqa: ARG001 -- API
+    """The identity: ``serve_prefill`` already gives the caches in the
+    layout ``serve_decode`` reads."""
+    return prefill_caches
 
 
 def _decode_block(eng, cfg, kind, p, x, cache, pos, long_ctx):

@@ -27,15 +27,19 @@ timestamps so a snapshot taken between rounds never false-fires):
     overlap are normal -- the age gate is what separates them from an
     underrun).
 
-Take a document between tasks or at the end of a stream: a poll during
-a task meets the age gates, and a task that closes no online round for
-``stall_s`` (the offline half, or a cold first batch on a freshly booted
-cluster) reads as a ``round_stall``.  The JAX package's ``HealthMonitor``,
-which polls during a run, comes with the serving gateway that reads it.
+``HealthMonitor`` polls in a background thread during a run (live
+training under a dealer, as netbench's ``--live`` block watches it) and
+keeps every probe that ever fired, so a transient stall still fails the
+gate (``scripts/check_health.py``) even if the final scrape looks clean.
+Start it on a warm cluster, after a first task: a task that closes no
+online round for ``stall_s`` (a cold first batch on a freshly booted
+cluster, or one waiting for its first streamed session) reads as a
+``round_stall``.
 """
 from __future__ import annotations
 
 import json
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -207,3 +211,54 @@ def cluster_health(cluster, dealer=None, *,
         bank_low=bank_low, dealer_attached=dealer is not None))
     doc["healthy"] = not doc["probes"]
     return doc
+
+
+class HealthMonitor:
+    """Poll ``cluster_health`` in a background thread for the span of a
+    run; ``stop()`` returns the final doc plus every probe that EVER
+    fired (deduplicated by probe and rank, in first-seen order), so a
+    transient stall is not lost to the last scrape looking clean."""
+
+    def __init__(self, cluster, dealer=None, interval: float = 0.2,
+                 **probe_kw):
+        self._cluster = cluster
+        self._dealer = dealer
+        self._interval = interval
+        self._probe_kw = probe_kw
+        # stop() can race the poll thread's _record when the join times
+        # out, so the accumulation is lock-guarded
+        self._rec_lock = threading.Lock()
+        self.scrapes = 0
+        self.probes_fired_ever: list = []
+        self._seen: set = set()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="health-monitor")
+        self._thread.start()
+
+    def _record(self, doc: dict) -> None:
+        with self._rec_lock:
+            self.scrapes += 1
+            for p in doc["probes"]:
+                key = (p["probe"], p.get("rank"))
+                if key not in self._seen:
+                    self._seen.add(key)
+                    self.probes_fired_ever.append(p)
+
+    def _run(self) -> None:
+        while not self._stop.wait(self._interval):
+            self._record(cluster_health(self._cluster, self._dealer,
+                                        **self._probe_kw))
+
+    def stop(self) -> dict:
+        """Stop polling; returns the final health doc annotated with the
+        whole run's probe history (``scrapes``, ``probes_fired_ever``)."""
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        doc = cluster_health(self._cluster, self._dealer, **self._probe_kw)
+        self._record(doc)
+        with self._rec_lock:
+            doc["scrapes"] = self.scrapes
+            doc["probes_fired_ever"] = list(self.probes_fired_ever)
+        doc["healthy"] = doc["healthy"] and not doc["probes_fired_ever"]
+        return doc

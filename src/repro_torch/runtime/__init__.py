@@ -15,7 +15,7 @@ tensors.
 from . import protocols
 from .party import (DistAShare, DistBShare, Party, PartyAView, PartyBView,
                     PartyKeys)
-from .runtime import FourPartyRuntime, InlinePrep
+from .runtime import FourPartyRuntime, InlinePrep, make_runtime
 from .transport import (LocalTransport, MeasuredTransport, PhaseViolation,
                         TamperRule, Transport)
 from . import boolean       # noqa: E402  (after party/runtime; cycle-free)
@@ -26,5 +26,5 @@ __all__ = [
     "DistAShare", "DistBShare", "FourPartyRuntime", "InlinePrep",
     "LocalTransport", "MeasuredTransport", "Party", "PartyAView",
     "PartyBView", "PartyKeys", "PhaseViolation", "TamperRule", "Transport",
-    "activations", "boolean", "conversions", "protocols",
+    "activations", "boolean", "conversions", "make_runtime", "protocols",
 ]

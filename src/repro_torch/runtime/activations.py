@@ -26,6 +26,17 @@ def relu(rt: FourPartyRuntime, v: DistAShare, return_bit: bool = False):
     return (out, nb) if return_bit else out
 
 
+def drelu_from_bit(rt: FourPartyRuntime, nb: DistBShare) -> DistAShare:
+    """drelu = (1 xor b) as an arithmetic share (for backprop)."""
+    return CV.bit2a(rt, nb)
+
+
+def mul_by_cached_bit(rt: FourPartyRuntime, nb: DistBShare,
+                      v: DistAShare) -> DistAShare:
+    """dY * drelu using the bit cached by the forward pass (one BitInj)."""
+    return CV.bit_inject(rt, nb, v)
+
+
 @traced_protocol("sigmoid")
 def sigmoid(rt: FourPartyRuntime, v: DistAShare, return_cache: bool = False):
     """sig(v) = (1^b1) b2 (v + 1/2) + (1^b2);

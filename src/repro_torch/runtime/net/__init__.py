@@ -19,7 +19,7 @@ protocols are written against.
 """
 from .cluster import (ClusterPoisoned, PartyCluster, PartyResult,
                       TaskHandle, run_four_parties)
-from .framing import FramingError, recv_frame, send_frames
+from .framing import FramingError, recv_frame, send_frame, send_frames
 from .model import LAN, WAN, LinkSpec, NetModel, NetModelTransport
 from .socket_transport import SocketTransport, TransportTimeout
 
@@ -27,5 +27,5 @@ __all__ = [
     "ClusterPoisoned", "FramingError", "LAN", "WAN", "LinkSpec", "NetModel",
     "NetModelTransport", "PartyCluster", "PartyResult", "SocketTransport",
     "TaskHandle", "TransportTimeout", "recv_frame", "run_four_parties",
-    "send_frames",
+    "send_frame", "send_frames",
 ]

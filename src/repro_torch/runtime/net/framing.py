@@ -8,9 +8,9 @@ One frame is
 with the header carrying, per message, the demultiplexing tag plus the
 dtype and shape that rebuild the array on the far side.  A frame carries
 one message (header = object) or a batch (header = array of objects,
-payload = the bodies concatenated in header order).  The port writes
-batches only and reads both kinds (the JAX package's single-message
-``send_frame`` writes the first):
+payload = the bodies concatenated in header order).  ``send_frame``
+writes the first, ``send_frames`` the second, and ``recv_frame`` reads
+both; the port's daemons write batches only:
 
     {"tag": "mult#1.p1", "dtype": "<u8", "shape": [2, 3], "nbytes": 48}
     [{...}, {...}, ...]
@@ -77,6 +77,13 @@ def send_frames(sock, items) -> int:
     frame = _LEN.pack(len(header)) + header + b"".join(bodies)
     sock.sendall(frame)
     return len(frame)
+
+
+def send_frame(sock, tag: str, payload) -> None:
+    """Serialize one tagged array message onto a stream socket."""
+    header_obj, body = _describe(tag, payload)
+    header = json.dumps(header_obj).encode("utf-8")
+    sock.sendall(_LEN.pack(len(header)) + header + body)
 
 
 def _decode_entry(ent, sock) -> tuple:

@@ -128,3 +128,10 @@ class FourPartyRuntime:
         """OR over the four parties' check ledgers (any party aborts); the
         only place the checks are read back from the device."""
         return not all_ok([c for p in self.parties for c in p.ledger.checks])
+
+
+def make_runtime(ring: Ring = RING64, seed: int = 0,
+                 **kw) -> FourPartyRuntime:
+    """``FourPartyRuntime(ring, seed, **kw)``: on the card unless
+    ``device="cpu"`` is given, refused where there is no CUDA."""
+    return FourPartyRuntime(ring=ring, seed=seed, **kw)

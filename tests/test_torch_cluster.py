@@ -20,7 +20,9 @@ the same words also show that tracing changes no word: each daemon's
 registry and trace hold its ``per_link()`` bits, the four exporters
 scrape, the health documents between tasks and after training are
 healthy, the merged timeline covers the four ranks and the dealer; a
-terminated daemon reads as ``rank_down``.  One test item,
+terminated daemon reads as ``rank_down``; the live steps run under a
+``HealthMonitor`` whose document passes the gate with the dealer.  One
+test item,
 so the collected count stays where the tier-1 split of the slow tests
 needs it.
 
@@ -47,6 +49,7 @@ from repro_torch.core.ring import (RING32, RING64,  # noqa: E402
                                    words_from_numpy, words_to_numpy_batch)
 from repro_torch import obs as TO  # noqa: E402
 from repro_torch.obs import MetricsRegistry, install_registry  # noqa: E402
+from repro_torch.obs.health import HealthMonitor  # noqa: E402
 from repro_torch.offline import (ContinuousDealer, LivePrepBank,  # noqa: E402
                                  PrepError, PrepMissingError, deal)
 from repro_torch.offline.live import (DealerDaemon,  # noqa: E402
@@ -186,11 +189,18 @@ def _same_params(a: dict, b: dict, where: str) -> None:
             f"{where}: params[{k!r}] differ"
 
 
+def _split_frame(frame: bytes) -> tuple:
+    """A one-message frame's (header, body)."""
+    n = int.from_bytes(frame[:4], "big")
+    return json.loads(frame[4:4 + n]), frame[4 + n:]
+
+
 # -- checks -------------------------------------------------------------------
 def _check_frames_cross(J) -> None:
     """Port frames decode with JAX's recv_frame and JAX frames with the
     port's, over a socket pair, at both widths (0-d, empty, odd shapes);
-    the port's tensors go through the batched host copy of a flush."""
+    the port's tensors go through the batched host copy of a flush; the
+    port's send_frame writes JAX's bytes."""
     rng = np.random.RandomState(5)
     for ring in (RING64, RING32):
         udt = np.uint64 if ring.ell == 64 else np.uint32
@@ -222,6 +232,29 @@ def _check_frames_cross(J) -> None:
             assert arr.shape == (want.shape or (1,))
             assert torch.equal(words_from_numpy(arr, copy=False),
                                words_from_numpy(want.reshape(arr.shape)))
+        # send_frame: JAX's one-message frame, byte for byte (but D1: a
+        # 0-d array keeps shape [] in the port's header, [1] in JAX's),
+        # which JAX's recv_frame reads
+        for i, arr in enumerate(arrays):
+            sent = {}
+            for pkg, F in (("port", TF), ("jax", J.F)):
+                a, b = socket.socketpair()
+                with a, b:
+                    F.send_frame(a, f"s#{i}.p2", arr)
+                    a.shutdown(socket.SHUT_WR)
+                    sent[pkg] = b"".join(iter(lambda: b.recv(1 << 16), b""))
+            if arr.ndim:
+                assert sent["port"] == sent["jax"], arr.shape
+            else:
+                (ph, pb), (jh, jb) = (_split_frame(sent[k])
+                                      for k in ("port", "jax"))
+                assert ph == {**jh, "shape": []} and pb == jb
+            a, b = socket.socketpair()
+            with a, b:
+                TF.send_frame(a, f"s#{i}.p2", arr)
+                (tag, got), = J.F.recv_frame(b)
+            assert tag == f"s#{i}.p2" and got.dtype == udt
+            assert np.array_equal(got, arr.reshape(got.shape))
 
 
 def _check_registry_and_stores() -> None:
@@ -419,9 +452,13 @@ def _check_sharded(J, cluster, tmp_path) -> None:
         assert gate.check(str(path))["ranks"] == 4
 
 
-def _check_live_training(J, cluster, dealer) -> None:
+def _check_live_training(J, cluster, dealer, tmp_path) -> None:
     sgd = TS.ClusterSGD(cluster, TASK, base_seed=TRAIN_SEED, prep="live",
                         dealer=dealer)
+    # the steps run watched, as netbench's --live block watches them; the
+    # 60 s stall gate is the sandbox's load under xdist (as
+    # _check_sharded's), where a daemon can sit out JAX's 5 s
+    monitor = HealthMonitor(cluster, dealer=dealer, stall_s=60.0)
     p = want = TASK.init_params(seed=0)
     for step in range(STEPS):
         batch = DATA.batch(step, BATCH)
@@ -430,6 +467,16 @@ def _check_live_training(J, cluster, dealer) -> None:
                                       base_seed=TRAIN_SEED, world="joint")
         _same_params(p, want, f"live step {step}")
         assert loss == jloss and abort is False, step
+    _wait(lambda: dealer.done, "the dealer's done")
+    watched = monitor.stop()
+    assert watched["healthy"] and watched["scrapes"] >= 2, watched
+    assert watched["probes_fired_ever"] == [], watched
+    assert sorted(watched["ranks"]) == [0, 1, 2, 3]
+    assert watched["dealer"]["scrape_ok"] and watched["dealer"]["done"]
+    path = tmp_path / "live_health.json"
+    path.write_text(json.dumps(watched))
+    assert _check_health_script().check(str(path), expect_dealer=True)[
+        "scrapes"] == watched["scrapes"]
     assert sgd.offline_bits_on_mesh() == 0
     for results in sgd.results:
         for r in results:
@@ -438,7 +485,6 @@ def _check_live_training(J, cluster, dealer) -> None:
     assert dealer.failed is None
     # between steps, the finished dealer still serving its exporter (its
     # last session reached the daemons before its "done" reached us)
-    _wait(lambda: dealer.done, "the dealer's done")
     doc = sgd.health()
     assert doc["healthy"] and doc["dealer"]["done"], doc
     assert doc["dealer"]["scrape_ok"] and doc["dealer"]["watermark"] == STEPS
@@ -542,7 +588,7 @@ def test_cluster_matches_jax(tmp_path):
                     cluster=cluster, device="cpu")}
                 _check_sharded(J, cluster, tmp_path)
                 _check_observed(cluster, dealer, tmp_path)
-                _check_live_training(J, cluster, dealer)
+                _check_live_training(J, cluster, dealer, tmp_path)
         streams.update({prep: f.result(timeout=300)
                         for prep, f in side.items()})
         res, killed = tampered.result(timeout=300)

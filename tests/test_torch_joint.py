@@ -17,6 +17,7 @@ torch.set_num_threads(1)
 import jax.numpy as jnp  # noqa: E402
 
 from repro.core import activations as JA  # noqa: E402
+from repro.core import algebra as JAL  # noqa: E402
 from repro.core import boolean as JB  # noqa: E402
 from repro.core import conversions as JC  # noqa: E402
 from repro.core import garbled as JG  # noqa: E402
@@ -31,6 +32,7 @@ from repro.nn.engine import TridentEngine as JEngine  # noqa: E402
 from repro.serve.engine import PredictionServer as JServer  # noqa: E402
 from repro.train import paper_ml as JML  # noqa: E402
 from repro_torch.core import activations as TA  # noqa: E402
+from repro_torch.core import algebra as TAL  # noqa: E402
 from repro_torch.core import boolean as TB  # noqa: E402
 from repro_torch.core import conversions as TC  # noqa: E402
 from repro_torch.core import garbled as TG  # noqa: E402
@@ -81,6 +83,13 @@ def test_joint_protocols_match_jax(collapse):
     RING32."""
     for jr, tr in RINGS:
         _check_protocols(jr, tr, collapse)
+    # the protocol tables
+    for name in ("GAMMA_TERMS", "ZERO_SUBSETS", "GAMMA_MASK_F",
+                 "GAMMA_LOCAL", "GAMMA_RECV", "PART_HOLDERS", "PART_RECV"):
+        assert getattr(TAL, name) == getattr(JAL, name), name
+    for j in (1, 2, 3):
+        assert TAL.lam_holders(j) == JAL.lam_holders(j)
+        assert TAL.online_holders(j) == JAL.online_holders(j)
 
 
 def _check_protocols(jr, tr, collapse):
@@ -125,6 +134,8 @@ def _check_protocols(jr, tr, collapse):
     # the rest of the joint protocol surface, off the NN's path
     both(lambda c: JP.zero_shares(c, (3,)),
          lambda c: TP.zero_shares(c, (3,)), what="zero_shares")
+    both(lambda c: JB.bool_zero_shares(c, (3,)),
+         lambda c: TB.bool_zero_shares(c, (3,)), what="bool_zero_shares")
     both(JP.ash_by_p0, TP.ash_by_p0, (z[0].m, z[1].m), what="ash_by_p0")
     both(JP.dotp, TP.dotp, x, x, what="dotp", wrap32=tr.ell == 32)
     both(JP.matmul, TP.matmul, x, w, what="matmul")
@@ -413,7 +424,9 @@ def test_engine_op_surface_matches_jax():
     scaling, embedding): TridentEngine word for word against the JAX
     package's on one context stream, at RING64 and RING32; PlainEngine
     against its float64 twin."""
+    from repro.nn import model as JM
     from repro.nn.engine import PlainEngine as JPlain
+    from repro_torch.nn import model as TM
     from repro_torch.nn.engine import PlainEngine, TridentEngine
 
     rng = np.random.RandomState(3)
@@ -423,7 +436,7 @@ def test_engine_op_surface_matches_jax():
     table = rng.randn(3, 4)
     mask = np.array([1, 0, 1, 1])
 
-    def program(eng):
+    def program(eng, M):
         x, y = eng.from_plain(a), eng.from_plain(b)
         t = eng.from_plain(table)
         outs = [eng.reshape(x, (6, 4)), eng.transpose(x, (2, 0, 1)),
@@ -450,6 +463,11 @@ def test_engine_op_surface_matches_jax():
                  eng.square(x)[0], eng.rsqrt(pos)[0], eng.reciprocal(pos),
                  eng.mul(x, y), eng.matmul(eng.reshape(x, (6, 4)),
                                            eng.transpose(t, (1, 0)))]
+        # the model's lm_head product, and the identity between prefill
+        # and decode caches
+        outs.append(M.linear_fwd_model(eng, {"w": eng.transpose(t, (1, 0))},
+                                       x)[0])
+        assert M.prepare_decode_caches(eng, None, outs) is outs
         return outs
 
     # collapsed contexts: the protocols' faithful paths are the first
@@ -459,7 +477,8 @@ def test_engine_op_surface_matches_jax():
         where = f"RING{tr.ell}"
         jc = jmake(jr, seed=SEED, collapse=True)
         tc = tmake(tr, seed=SEED, collapse=True, device="cpu")
-        jouts, touts = program(JEngine(jc)), program(TridentEngine(tc))
+        jouts, touts = program(JEngine(jc), JM), \
+            program(TridentEngine(tc), TM)
         for i, (j, t) in enumerate(zip(jouts, touts)):
             _assert_same(j, t, f"TridentEngine op {i} {where}")
         assert tc.tally.totals() == jc.tally.totals(), where
@@ -469,7 +488,8 @@ def test_engine_op_surface_matches_jax():
         _assert_same(jouts[0].matmul_public(w_l, right=False),
                      touts[0].matmul_public(w_l, right=False),
                      f"matmul_public(right=False) {where}")
-    pouts = program(PlainEngine(device="cpu"))
-    for i, (j, p) in enumerate(zip(program(JPlain(jnp.float64)), pouts)):
+    pouts = program(PlainEngine(device="cpu"), TM)
+    for i, (j, p) in enumerate(zip(program(JPlain(jnp.float64), JM),
+                                   pouts)):
         np.testing.assert_allclose(p.numpy(), np.asarray(j), rtol=1e-12,
                                    atol=1e-12, err_msg=f"PlainEngine op {i}")

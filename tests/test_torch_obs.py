@@ -14,12 +14,14 @@ microsecond wall totals left out).  Then the pure helpers on the same
 inputs: the Prometheus text of a registry fed the same increments,
 ``merge_chunks``, ``merged_link_bits``, ``round_wall_ms``,
 ``metrics_snapshot`` and the fired probes of ``evaluate_probes``; each
-package's scraper reads the other's exporter; and with tracing off the
+package's scraper reads the other's exporter; both ``HealthMonitor``s
+over the same scripted health documents; and with tracing off the
 port holds the null tracer and no ``TracedKernels``, and opens the words
 it opens traced.  One test item, so the collected count stays where the
 tier-1 split of the slow tests needs it.
 """
 import collections
+import inspect
 import json
 import time
 import types
@@ -395,6 +397,55 @@ def _check_exporters() -> None:
     assert TH._try_scrape(tex.port, 0.5) is None      # closed
 
 
+def _scripted_doc(probes: list) -> dict:
+    return {"ts": 0.0, "ranks": {r: {"alive": True, "scrape_ok": True}
+                                 for r in range(4)},
+            "dealer": None, "probes": probes, "healthy": not probes}
+
+
+def _check_monitor(monkeypatch) -> None:
+    """Both packages' HealthMonitor over the same scripted documents
+    (healthy; round_stall on rank 1, twice; bank_low on rank 2; healthy,
+    then healthy for every later poll and the final scrape): each counts
+    its polls and the final scrape in ``scrapes``, keeps each probe once
+    in first-seen order, and is unhealthy at the end, as the final scrape
+    is healthy but probes fired."""
+    stall = {"probe": "round_stall", "rank": 1, "stalled_s": 6.0}
+    low = {"probe": "bank_low", "rank": 2, "depth": 0, "dry_s": 7.0}
+    script = [[], [stall], [stall], [low], []]
+    docs = {}
+    for mod in (JH, TH):
+        calls = []
+
+        def scripted(cluster, dealer=None, **kw):
+            assert cluster == "cluster" and dealer == "dealer"
+            assert kw == {"stall_s": 5.0}
+            calls.append(1)
+            return _scripted_doc(json.loads(json.dumps(
+                script[min(len(calls), len(script)) - 1])))
+
+        monkeypatch.setattr(mod, "cluster_health", scripted)
+        mon = mod.HealthMonitor("cluster", dealer="dealer", interval=0.005,
+                                stall_s=5.0)
+        assert mon._thread.name == "health-monitor" and mon._thread.daemon
+        t0 = time.monotonic()
+        while mon.scrapes < len(script) and time.monotonic() - t0 < 30:
+            time.sleep(0.005)
+        doc = mon.stop()
+        assert not mon._thread.is_alive()
+        assert doc["scrapes"] == len(calls) > len(script), mod
+        assert doc["probes"] == [] and doc["healthy"] is False, doc
+        docs[mod] = doc
+    assert docs[TH]["probes_fired_ever"] == docs[JH]["probes_fired_ever"] \
+        == [stall, low]
+    assert {k: v for k, v in docs[TH].items() if k != "scrapes"} == \
+        {k: v for k, v in docs[JH].items() if k != "scrapes"}
+    for name in ("interval", "dealer"):
+        assert inspect.signature(TH.HealthMonitor).parameters[name].default \
+            == inspect.signature(JH.HealthMonitor).parameters[name].default
+    assert TH.DEFAULT_STALL_S == JH.DEFAULT_STALL_S == 5.0
+
+
 def _check_switches(monkeypatch) -> None:
     """Tracing is off unless asked for; the helpers."""
     monkeypatch.delenv(TO.TRACE_ENV, raising=False)
@@ -463,5 +514,6 @@ def test_obs_matches_jax(monkeypatch, tmp_path):
     _check_merge(jchunks[0], tmp_path)
     _check_probes()
     _check_exporters()
+    _check_monitor(monkeypatch)
     _check_switches(monkeypatch)
     _check_stream_arguments()

@@ -184,6 +184,17 @@ def p_smx_softmax(L, rt):
     return L.P.reconstruct(rt, L.A.smx_softmax(rt, _share(L, rt, X1))), None
 
 
+def p_drelu_from_bit(L, rt):
+    nb = L.C.bit_extract(rt, _share(L, rt, X2)).invert()
+    return L.P.reconstruct(rt, L.A.drelu_from_bit(rt, nb)), None
+
+
+def p_mul_by_cached_bit(L, rt):
+    _, nb = L.A.relu(rt, _share(L, rt, X1), return_bit=True)
+    return L.P.reconstruct(rt, L.A.mul_by_cached_bit(
+        rt, nb, _share(L, rt, X2))), None
+
+
 RSQRT_IN = np.abs(X1) + 0.5          # rsqrt takes x > 0
 
 GROUPS = {
@@ -192,14 +203,16 @@ GROUPS = {
     "conversions": (p_bit_extract, p_bit_extract_ppa, p_less_than_zero,
                     p_bit2a, p_bit_inject),
     "boolean": (p_share_bool, p_a2b, p_and_bshare, p_prefix_or),
-    "activations": (p_relu, p_sigmoid, p_rsqrt, p_smx_softmax),
+    "activations": (p_relu, p_sigmoid, p_rsqrt, p_smx_softmax,
+                    p_drelu_from_bit, p_mul_by_cached_bit),
 }
 
 # plain results the opened words must decode to (13 fractional bits)
 DECODED = {"mult_tr": X1 * X2, "matmul_tr": X1 @ W,
            "scale_public": X1 * 0.75,
            "relu": np.maximum(X1, 0.0),
-           "sigmoid": np.clip(X1 + 0.5, 0.0, 1.0)}
+           "sigmoid": np.clip(X1 + 0.5, 0.0, 1.0),
+           "mul_by_cached_bit": np.where(X1 >= 0, X2, 0.0)}
 
 
 def run(L, program, tamper=None):
